@@ -1,8 +1,10 @@
 """dust3r_tpu_torch: the PyTorch / CUDA port of dust3r_tpu for NVIDIA Hopper.
 
-Two-view pointmap inference (images -> pairs -> engine -> pointmaps and
-confidences) with the fused 2D-RoPE attention as a hand-written CUDA
-kernel (`csrc/`, built at first use into `build/dust3r_tpu_torch/`). The
+Scene reconstruction (images -> pairs -> engine -> pointmaps and
+confidences -> global aligner -> one scene's pointmaps, poses and focals),
+with the fused 2D-RoPE attention and the DPT heads' 3x3 convs as
+hand-written CUDA kernels (`csrc/`, built at first use into
+`build/dust3r_tpu_torch/`). The
 JAX package `dust3r_tpu` is the reference this port is tested against; the
 port imports no JAX.
 
@@ -31,7 +33,8 @@ def __getattr__(name):
     import it from `dust3r_tpu_torch.inference`."""
     homes = {"InferenceEngine": ".inference",
              "make_pairs": ".image_pairs", "load_images": ".utils.image",
-             "views_from_arrays": ".utils.image"}
+             "views_from_arrays": ".utils.image", "global_aligner": ".cloud_opt",
+             "GlobalAlignerMode": ".cloud_opt"}
     if name not in homes:
         raise AttributeError(name)
     return getattr(importlib.import_module(homes[name], __name__), name)

@@ -2,10 +2,12 @@
 
 Counterpart of `dust3r_tpu/models/heads.py`, with the reference's torch
 tensor names (`proj`, `dpt.act_postprocess.*`, `dpt.scratch.*`,
-`dpt.head.*`). Heads run in fp32 on fp32 tokens; the DPT trunk runs NCHW
-and returns NHWC, the layout the postprocess and the JAX heads use. Its
-3x3 convolutions are `nn.Conv2d` (the JAX package's Pallas conv3x3 is not
-on its default path either).
+`dpt.head.*`). Heads run in fp32 on fp32 tokens; the DPT trunk's tensors
+are NCHW-shaped in `torch.channels_last` memory (NHWC, the layout of the
+JAX heads and of the conv3x3 kernel; the tokens reshape into it with no
+copy) and it returns NHWC, the layout the postprocess uses. Its 20 stride-1
+3x3 convolutions are `Conv3x3` modules that go through the conv3x3
+dispatcher (`ops/conv3x3.py`): the CUDA kernel for CUDA tensors by default.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.conv3x3 import conv3x3 as conv3x3_op
 
 Mode = Tuple[str, float, float]
 
@@ -84,15 +88,24 @@ class Upsample2x(nn.Module):
         return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=True)
 
 
-def conv3x3(cin, cout, bias=True):
-    return nn.Conv2d(cin, cout, 3, padding=1, bias=bias)
+class Conv3x3(nn.Conv2d):
+    """3x3 stride-1 same-pad conv through the conv3x3 dispatcher, with
+    `nn.Conv2d`'s parameters (`weight` (Cout, Cin, 3, 3), `bias`), as the
+    JAX `Conv3x3` keeps `nn.Conv`'s. `impl` is the dispatcher's."""
+
+    def __init__(self, cin, cout, bias=True, impl=None):
+        super().__init__(cin, cout, 3, padding=1, bias=bias)
+        self.impl = impl
+
+    def forward(self, x):
+        return conv3x3_op(x, self.weight, self.bias, self.impl)
 
 
 class ResidualConvUnit(nn.Module):
-    def __init__(self, features):
+    def __init__(self, features, conv_impl=None):
         super().__init__()
-        self.conv1 = conv3x3(features, features)
-        self.conv2 = conv3x3(features, features)
+        self.conv1 = Conv3x3(features, features, impl=conv_impl)
+        self.conv2 = Conv3x3(features, features, impl=conv_impl)
 
     def forward(self, x):
         out = self.conv1(F.relu(x))
@@ -104,11 +117,11 @@ class FeatureFusionBlock(nn.Module):
     resConfUnit1: its forward never receives a residual input, and a JAX
     init has no such tensors either."""
 
-    def __init__(self, features, has_residual=True):
+    def __init__(self, features, has_residual=True, conv_impl=None):
         super().__init__()
         if has_residual:
-            self.resConfUnit1 = ResidualConvUnit(features)
-        self.resConfUnit2 = ResidualConvUnit(features)
+            self.resConfUnit1 = ResidualConvUnit(features, conv_impl)
+        self.resConfUnit2 = ResidualConvUnit(features, conv_impl)
         self.out_conv = nn.Conv2d(features, features, 1)
         self.upsample = Upsample2x()
 
@@ -121,20 +134,22 @@ class FeatureFusionBlock(nn.Module):
 
 
 class _Scratch(nn.Module):
-    def __init__(self, layer_dims, features):
+    def __init__(self, layer_dims, features, conv_impl=None):
         super().__init__()
         for k, cin in enumerate(layer_dims, start=1):
-            self.add_module(f"layer{k}_rn", conv3x3(cin, features, bias=False))
+            self.add_module(f"layer{k}_rn", Conv3x3(cin, features, bias=False,
+                                                    impl=conv_impl))
         for k in range(1, 5):
-            self.add_module(f"refinenet{k}", FeatureFusionBlock(features, k != 4))
+            self.add_module(f"refinenet{k}",
+                            FeatureFusionBlock(features, k != 4, conv_impl))
 
 
 class DPTOutputAdapter(nn.Module):
     """DPT fusion trunk over 4 hooked decoder layers (entry 0 of the hook
-    list is the encoder output)."""
+    list is the encoder output). `conv_impl` goes to its 20 `Conv3x3`s."""
 
     def __init__(self, dim_tokens, hooks, nch, layer_dims=(96, 192, 384, 768),
-                 feature_dim=256):
+                 feature_dim=256, conv_impl=None):
         super().__init__()
         self.hooks = tuple(hooks)
         l0, l1, l2, l3 = layer_dims
@@ -147,17 +162,19 @@ class DPTOutputAdapter(nn.Module):
             nn.Sequential(nn.Conv2d(dim_tokens[3], l3, 1),
                           nn.Conv2d(l3, l3, 3, stride=2, padding=1)),
         ])
-        self.scratch = _Scratch(layer_dims, feature_dim)
+        self.scratch = _Scratch(layer_dims, feature_dim, conv_impl)
         self.head = nn.Sequential(
-            conv3x3(feature_dim, feature_dim // 2), Upsample2x(),
-            conv3x3(feature_dim // 2, 32), nn.ReLU(), nn.Conv2d(32, nch, 1))
+            Conv3x3(feature_dim, feature_dim // 2, impl=conv_impl), Upsample2x(),
+            Conv3x3(feature_dim // 2, 32, impl=conv_impl), nn.ReLU(),
+            nn.Conv2d(32, nch, 1))
 
     def forward(self, decout, img_shape, patch_size):
         nh, nw = img_shape[0] // patch_size, img_shape[1] // patch_size
         layers = []
         for idx, hook in enumerate(self.hooks):
             t = decout[hook]  # (B, S, D)
-            x = t.transpose(1, 2).reshape(t.shape[0], t.shape[2], nh, nw)
+            # (B, D, nh, nw) in channels_last memory: a view of the tokens
+            x = t.reshape(t.shape[0], nh, nw, t.shape[2]).permute(0, 3, 1, 2)
             x = self.act_postprocess[idx](x)
             layers.append(getattr(self.scratch, f"layer{idx + 1}_rn")(x))
         s = self.scratch
@@ -173,13 +190,14 @@ class DPTHead(nn.Module):
     layer_dims (96, 192, 384, 768), dim_tokens (enc, dec, dec, dec))."""
 
     def __init__(self, patch_size, depth_mode, conf_mode, has_conf=True,
-                 hooks: Sequence[int] = (0, 6, 9, 12), enc_dim=1024, dec_dim=768):
+                 hooks: Sequence[int] = (0, 6, 9, 12), enc_dim=1024, dec_dim=768,
+                 conv_impl=None):
         super().__init__()
         self.patch_size = patch_size
         self.depth_mode = depth_mode
         self.conf_mode = conf_mode if has_conf else None
         self.dpt = DPTOutputAdapter((enc_dim, dec_dim, dec_dim, dec_dim), hooks,
-                                    3 + int(has_conf))
+                                    3 + int(has_conf), conv_impl=conv_impl)
 
     def forward(self, decout, img_shape):
         out = self.dpt([t.float() for t in decout], img_shape, self.patch_size)
@@ -187,7 +205,7 @@ class DPTHead(nn.Module):
 
 
 def head_factory(head_type, output_mode, *, patch_size, dec_depth, depth_mode,
-                 conf_mode, has_conf, enc_dim, dec_dim):
+                 conf_mode, has_conf, enc_dim, dec_dim, conv_impl=None):
     if output_mode != "pts3d":
         raise NotImplementedError(f"unexpected {output_mode=}")
     if head_type == "linear":
@@ -197,5 +215,5 @@ def head_factory(head_type, output_mode, *, patch_size, dec_depth, depth_mode,
             raise ValueError("the DPT head hooks need dec_depth > 9")
         hooks = (0, dec_depth * 2 // 4, dec_depth * 3 // 4, dec_depth)
         return DPTHead(patch_size, depth_mode, conf_mode, has_conf, hooks,
-                       enc_dim, dec_dim)
+                       enc_dim, dec_dim, conv_impl)
     raise NotImplementedError(f"unexpected {head_type=}")

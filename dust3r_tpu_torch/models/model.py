@@ -5,7 +5,9 @@ Counterpart of `dust3r_tpu/models/model.py` for inference: encode / decode
 / head are separate methods so the inference engine encodes each unique
 image once; images are NHWC at their true orientation; params are fp32,
 the transformer body computes in `dtype` (bf16 on the card) and the heads
-in fp32. Submodule names are the reference's torch tensor names, so
+in fp32. `attn_impl` and `conv_impl` pick the attention and DPT 3x3 conv
+paths (None: the kernels for CUDA tensors). Submodule names are the
+reference's torch tensor names, so
 `checkpoint.state_dict_from_jax` output loads with `load_state_dict`.
 Parameters are made from a seeded `torch.Generator` on `device`.
 """
@@ -32,7 +34,8 @@ class AsymmetricCroCo3DStereo(nn.Module):
                  mlp_ratio=4.0, pos_embed="RoPE100", output_mode="pts3d",
                  head_type="linear", depth_mode=("exp", -inf, inf),
                  conf_mode: Optional[tuple] = ("exp", 1, inf),
-                 dtype=torch.float32, attn_impl=None, device=None, seed=0):
+                 dtype=torch.float32, attn_impl=None, conv_impl=None, device=None,
+                 seed=0):
         super().__init__()
         if not pos_embed.startswith("RoPE"):
             raise NotImplementedError(f"unsupported pos_embed {pos_embed}")
@@ -51,7 +54,7 @@ class AsymmetricCroCo3DStereo(nn.Module):
         head_kw = dict(patch_size=patch_size, dec_depth=dec_depth,
                        depth_mode=depth_mode, conf_mode=conf_mode,
                        has_conf=bool(conf_mode), enc_dim=enc_embed_dim,
-                       dec_dim=dec_embed_dim)
+                       dec_dim=dec_embed_dim, conv_impl=conv_impl)
         # built on the meta device, then materialised on `device` and drawn
         # from the seeded generator: the global RNG is left untouched
         with torch.device("meta"):

@@ -4,7 +4,8 @@ Each `csrc/*.cu` is compiled by `nvcc` for `sm_90a` into a shared library
 with a plain C interface (no PyTorch headers: seconds, not minutes). The
 library lands in `build/dust3r_tpu_torch/<hash>/`, keyed by a hash of the
 sources and flags, so an edited source builds anew and an unchanged one is
-loaded as it is. A failed build raises; nothing falls back.
+loaded as it is. `build` starts one nvcc per source, all at once. A failed
+build raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -48,23 +49,36 @@ def ptxas_log(name):
     return log.read_text() if log.exists() else ""
 
 
-def load_library(name):
-    """Build (if needed) and load `csrc/<name>.cu` as a ctypes library."""
-    if name in _loaded:
-        return _loaded[name]
-    src, out_dir = _out_dir(name)
-    lib = out_dir / f"lib{name}.so"
-    if not lib.exists():
+def build(names):
+    """Compile each `csrc/<name>.cu` of `names` that is not built yet, one
+    nvcc process per source, all started together; raises if any fails."""
+    started = {}
+    for name in dict.fromkeys(names):
+        src, out_dir = _out_dir(name)
+        lib = out_dir / f"lib{name}.so"
+        if lib.exists():
+            continue
         out_dir.mkdir(parents=True, exist_ok=True)
         tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
-        t0 = time.perf_counter()
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
+        proc = subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        started[name] = (proc, src, tmp, lib, time.perf_counter())
+    failed = []
+    for name, (proc, src, tmp, lib, t0) in started.items():
+        out, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {src.name}:\n"
-                               f"{proc.stdout}\n{proc.stderr}")
+            failed.append(f"nvcc failed to build {src.name}:\n{out}\n{err}")
+            continue
         os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
         build_seconds[name] = time.perf_counter() - t0
-        (out_dir / "ptxas.log").write_text(proc.stderr)
-    _loaded[name] = ctypes.CDLL(str(lib))
+        (lib.parent / "ptxas.log").write_text(err)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load_library(name):
+    """Build (if needed) and load `csrc/<name>.cu` as a ctypes library."""
+    if name not in _loaded:
+        build([name])
+        _loaded[name] = ctypes.CDLL(str(_out_dir(name)[1] / f"lib{name}.so"))
     return _loaded[name]

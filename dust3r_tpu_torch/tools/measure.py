@@ -2,21 +2,28 @@
 
     python -m dust3r_tpu_torch.tools.measure ab [--reps 3]
     python -m dust3r_tpu_torch.tools.measure profile [--out build/profile]
+    python -m dust3r_tpu_torch.tools.measure align [--iters 20]
 
-Both serve the request of `chip_smoke.py` request (c): 4 images at 512x384,
+`ab` and `profile` serve the request of `chip_smoke.py` request (c): 4 images at 512x384,
 `complete` graph, symmetrized (12 pairs), batch 8, through make_pairs ->
 InferenceEngine -> inference, at full width with seeded random weights
 (bf16 body, fp32 heads).
 
-  ab       the attention kernel against the plain bf16 attention, end to
-           end: two models with the same weights, warmed, then timed in
-           the order kernel, plain, plain, kernel, `--reps` times; prints
-           pairs/s of every run and the medians.
+  ab       each kernel against its plain version, end to end: three
+           models with the same weights, "kernels" (both kernels),
+           "plain attention" (plain bf16 attention, conv kernel) and "ref
+           conv" (attention kernel, fp32 cuDNN 3x3 convs), warmed, then
+           timed in the order kernels, plain attention, ref conv, ref conv,
+           plain attention, kernels, `--reps` times; prints pairs/s of
+           every run and the medians.
   profile  one warm request under torch.profiler: the device's busy share
            of the request's wall time, device time by kernel class and by
            kernel; the Chrome trace goes to `--out`. The classes match
            kernel names by substring, so a renamed kernel may land in
            "other".
+  align    the aligner's loop on the scene phase's synthetic scene under
+           torch.profiler: per iteration, wall, device busy share and
+           device time by class and by kernel.
 """
 from __future__ import annotations
 
@@ -59,18 +66,29 @@ def _pairs_per_s(pairs, engine):
     return len(pairs) / (time.perf_counter() - t0)
 
 
+AB_VARIANTS = {  # name: (attn_impl, conv_impl) of the model
+    "kernels": ("kernel", "kernel"),
+    "plain attention": ("plain", "kernel"),
+    "ref conv": ("kernel", "ref"),
+}
+
+
 def ab(reps):
     pairs = _request()
-    kernel = dust3r_512_dpt(dtype=torch.bfloat16, device="cuda", seed=SEED)
-    plain = dust3r_512_dpt(dtype=torch.bfloat16, device="cuda", seed=SEED + 1,
-                           attn_impl="plain")
-    plain.load_state_dict(kernel.state_dict())
-    engines = {"kernel": InferenceEngine(kernel, BATCH_SIZE),
-               "plain": InferenceEngine(plain, BATCH_SIZE)}
+    engines, weights = {}, None
+    for n, (name, (attn, conv)) in enumerate(AB_VARIANTS.items()):
+        model = dust3r_512_dpt(dtype=torch.bfloat16, device="cuda", seed=SEED + n,
+                               attn_impl=attn, conv_impl=conv)
+        if weights is None:
+            weights = model.state_dict()
+        else:
+            model.load_state_dict(weights)
+        engines[name] = InferenceEngine(model, BATCH_SIZE)
     for engine in engines.values():  # warm-up
         inference(pairs, engine, verbose=False)
     runs = {name: [] for name in engines}
-    for name in ["kernel", "plain", "plain", "kernel"] * reps:
+    order = list(engines)
+    for name in (order + order[::-1]) * reps:
         runs[name].append(_pairs_per_s(pairs, engines[name]))
     for name, r in runs.items():
         print(f"[ab] {name}: pairs/s median {statistics.median(r):.3f}, "
@@ -81,7 +99,9 @@ def _kernel_class(name):
     n = name.lower()
     if "attn_" in n:
         return "attention kernel"
-    if "conv" in n or "cudnn" in n or "implicit" in n:
+    if "conv3x3_igemm" in n:
+        return "conv3x3 kernel"
+    if "conv" in n or "cudnn" in n or "implicit" in n or "winograd" in n:
         return "conv (cuDNN)"
     if any(s in n for s in ("gemm", "xmma", "cutlass", "nvjet")):
         return "gemm (cuBLAS)"
@@ -90,22 +110,9 @@ def _kernel_class(name):
     return "elementwise/norm/other"
 
 
-def profile(out_dir):
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
-    pairs = _request()
-    engine = InferenceEngine(dust3r_512_dpt(dtype=torch.bfloat16, device="cuda",
-                                            seed=SEED), BATCH_SIZE)
-    inference(pairs, engine, verbose=False)  # warm-up
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        inference(pairs, engine, verbose=False)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    out_dir.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out_dir / "slice_request_trace.json"))
+def _device_summary(prof, wall_us, what, per=1):
+    """Print the device's busy share of `wall_us` and its kernel time by
+    class and by kernel, divided by `per` (the runs the trace holds)."""
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         raise SystemExit("[profile] the profiler saw no device events")
@@ -124,13 +131,53 @@ def profile(out_dir):
         cls = _kernel_class(k.name)
         by_class[cls] = by_class.get(cls, 0) + us
     total = sum(by_name.values())
-    print(f"[profile] request of {len(pairs)} pairs: wall {wall_us / 1e3:.3f} ms, device "
-          f"busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), kernel time "
-          f"{total / 1e3:.3f} ms in {len(kernels)} launches")
+    print(f"[profile] {what}: wall {wall_us / per / 1e3:.3f} ms, device busy "
+          f"{busy / per / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), kernel time "
+          f"{total / per / 1e3:.3f} ms in {len(kernels) / per:g} launches")
     for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
-        print(f"[profile] class {cls}: {us / 1e3:.3f} ms ({100 * us / total:.1f}%)")
+        print(f"[profile] class {cls}: {us / per / 1e3:.3f} ms ({100 * us / total:.1f}%)")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"[profile] kernel {us / 1e3:9.3f} ms  {name[:110]}")
+        print(f"[profile] kernel {us / per / 1e3:9.3f} ms  {name[:110]}")
+
+
+def profile(out_dir):
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    pairs = _request()
+    engine = InferenceEngine(dust3r_512_dpt(dtype=torch.bfloat16, device="cuda",
+                                            seed=SEED), BATCH_SIZE)
+    inference(pairs, engine, verbose=False)  # warm-up
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        inference(pairs, engine, verbose=False)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    out_dir.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out_dir / "slice_request_trace.json"))
+    _device_summary(prof, wall_us, f"request of {len(pairs)} pairs")
+
+
+def align(iters):
+    """`iters` iterations of the aligner's loop on the synthetic scene of
+    chip_smoke.py's scene phase (6 images at 512x384, 30 edges, bf16
+    observations), warmed, under torch.profiler: per iteration."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from dust3r_tpu_torch.cloud_opt import global_aligner
+    from dust3r_tpu_torch.tools.scenes import synthetic_scene
+
+    out, _, _ = synthetic_scene(6, 384, 512, 1.2 * 512, seed=SEED)
+    scene = global_aligner(out, device="cuda", verbose=False)
+    scene.compute_global_alignment(init=None, niter=iters)  # warm-up
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        scene.compute_global_alignment(init=None, niter=iters)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    _device_summary(prof, wall_us, f"aligner iteration ({scene.n_edges} edges, mean of "
+                                   f"{iters}, final forward included)", per=iters)
 
 
 def main():
@@ -138,14 +185,17 @@ def main():
     sub = parser.add_subparsers(dest="cmd", required=True)
     sub.add_parser("ab").add_argument("--reps", type=int, default=3)
     sub.add_parser("profile").add_argument("--out", type=Path, default=Path("build/profile"))
+    sub.add_parser("align").add_argument("--iters", type=int, default=20)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("measure: no CUDA device")
     print(_card())
     if args.cmd == "ab":
         ab(args.reps)
-    else:
+    elif args.cmd == "profile":
         profile(args.out)
+    else:
+        align(args.iters)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,523 @@
+"""The port's global aligner, and the geometry, pose and focal code it
+reaches, against the JAX package on the CPU.
+
+Scenes come from `make_synthetic_scene` (tests/test_cloud_opt.py: exact
+pairwise pointmaps of a known rig, H = 24, W = 32) and every other input
+from a seeded numpy generator; both packages take the same arrays. The
+port runs on CPU tensors. Tolerances: 1e-5 in fp32 (relative to the
+largest |value| where gradients are compared), 1e-9 for the float64 host
+code, and the ones stated at each aligner run.
+
+The port's PnP is its own numpy solver (the JAX package calls cv2, which
+the port does not carry); `test_pnp_*` hold it to cv2, through the JAX
+package's `fast_pnp`.
+"""
+import os.path as osp
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+sys.path.insert(0, osp.dirname(osp.abspath(__file__)))
+
+from dust3r_tpu import post_process as jpost  # noqa: E402
+from dust3r_tpu.cloud_opt import GlobalAlignerMode as JaxMode  # noqa: E402
+from dust3r_tpu.cloud_opt import global_aligner as jax_global_aligner  # noqa: E402
+from dust3r_tpu.cloud_opt import init_im_poses as jinit  # noqa: E402
+from dust3r_tpu.cloud_opt.base_opt import alignment_value_and_grad  # noqa: E402
+from dust3r_tpu.utils import geometry as jgeo  # noqa: E402
+from dust3r_tpu.utils import pose as jpose  # noqa: E402
+from dust3r_tpu_torch import post_process  # noqa: E402
+from dust3r_tpu_torch.cloud_opt import GlobalAlignerMode, global_aligner  # noqa: E402
+from dust3r_tpu_torch.cloud_opt import init_im_poses  # noqa: E402
+from dust3r_tpu_torch.cloud_opt.commons import make_lr_schedule  # noqa: E402
+from dust3r_tpu_torch.cloud_opt.optimizer import adam_step  # noqa: E402
+from dust3r_tpu_torch.utils import geometry, pose  # noqa: E402
+from test_cloud_opt import angular_error_deg, make_synthetic_scene, relpose  # noqa: E402
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+TOL64 = dict(rtol=1e-9, atol=1e-9)
+GOLDEN = osp.join(osp.dirname(osp.abspath(__file__)), "golden", "aligner_trajectory.npz")
+OBS = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _t(x):
+    return torch.tensor(np.asarray(x))
+
+
+def _scenes(out, obs="fp32", **kw):
+    """The same inference output in both aligners."""
+    jdt, tdt = OBS[obs]
+    js = jax_global_aligner(out, mode=JaxMode.PointCloudOptimizer, verbose=False,
+                            obs_dtype=jdt, **kw)
+    ts = global_aligner(out, verbose=False, obs_dtype=tdt, **kw)
+    return js, ts
+
+
+def mixed_scene():
+    """Four images, two of them cut to 16 of their 24 rows: the observations
+    of the smaller ones are zero-padded to the largest area."""
+    out, *_ = make_synthetic_scene(n_imgs=4)
+    rows = {0: 24, 1: 24, 2: 16, 3: 16}
+    edges = list(zip(out["view1"]["idx"], out["view2"]["idx"]))
+    pred1 = dict(pts3d=[out["pred1"]["pts3d"][e][:rows[i]] for e, (i, j) in enumerate(edges)],
+                 conf=[out["pred1"]["conf"][e][:rows[i]] for e, (i, j) in enumerate(edges)])
+    pred2 = dict(pts3d_in_other_view=[out["pred2"]["pts3d_in_other_view"][e][:rows[j]]
+                                      for e, (i, j) in enumerate(edges)],
+                 conf=[out["pred2"]["conf"][e][:rows[j]] for e, (i, j) in enumerate(edges)])
+    return dict(view1=dict(idx=out["view1"]["idx"]), view2=dict(idx=out["view2"]["idx"]),
+                pred1=pred1, pred2=pred2)
+
+
+# ---------------------------------------------------------------------- #
+# geometry, pose, focal
+# ---------------------------------------------------------------------- #
+
+GEOTRF_CASES = {  # name: (Trf shape, pts shape, kwargs)
+    "4x4_on_pointmap": ((4, 4), (5, 7, 3), {}),
+    "batched_4x4": ((3, 4, 4), (3, 5, 7, 3), {}),
+    "intrinsics_norm": ((3, 3), (5, 7, 3), dict(norm=1, ncol=2)),
+    "homography_2d": ((3, 3), (11, 2), dict(norm=2)),
+    "linear_3x3": ((2, 3, 3), (2, 6, 3), {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GEOTRF_CASES))
+def test_geotrf_matches_jax(case):
+    tshape, pshape, kw = GEOTRF_CASES[case]
+    rng = np.random.default_rng(0)
+    trf = rng.standard_normal(tshape).astype(np.float32)
+    trf[..., -1, -1] += 3  # keep homogeneous coordinates away from 0
+    pts = rng.standard_normal(pshape).astype(np.float32)
+    want = np.asarray(jgeo.geotrf(trf, pts, **kw))
+    np.testing.assert_allclose(_np(geometry.geotrf(_t(trf), _t(pts), **kw)), want, **TOL)
+    got_np = geometry.geotrf(trf, pts, **kw)  # host numpy in, numpy out
+    assert isinstance(got_np, np.ndarray) and got_np.dtype == np.float32
+    np.testing.assert_allclose(got_np, want, **TOL)
+
+
+def test_xy_grid_and_inv_match_jax():
+    np.testing.assert_array_equal(_np(geometry.xy_grid(7, 5)), np.asarray(jgeo.xy_grid(7, 5)))
+    np.testing.assert_array_equal(_np(geometry.xy_grid(4, 3, origin=(2, 1), homogeneous=True)),
+                                  np.asarray(jgeo.xy_grid(4, 3, origin=(2, 1),
+                                                          homogeneous=True)))
+    rng = np.random.default_rng(1)
+    mats = (rng.standard_normal((3, 4, 4)) + 4 * np.eye(4)).astype(np.float32)
+    np.testing.assert_allclose(_np(geometry.inv(_t(mats))), np.asarray(jgeo.inv(mats)), **TOL)
+    np.testing.assert_allclose(geometry.inv(mats), np.asarray(jgeo.inv(mats)), **TOL)
+
+
+@pytest.mark.parametrize("focal_dims", [3, 4, "4x2"])
+@pytest.mark.parametrize("with_pp", [False, True])
+def test_depthmap_to_pts3d_matches_jax(focal_dims, with_pp):
+    rng = np.random.default_rng(2)
+    depth = rng.uniform(1, 3, (2, 5, 7)).astype(np.float32)
+    shape = {3: (2, 5, 7), 4: (2, 1, 5, 7), "4x2": (2, 2, 5, 7)}[focal_dims]
+    focal = rng.uniform(20, 40, shape).astype(np.float32)
+    pp = rng.uniform(2, 4, (2, 2)).astype(np.float32) if with_pp else None
+    want = jgeo.depthmap_to_pts3d(depth, focal, pp)
+    got = geometry.depthmap_to_pts3d(_t(depth), _t(focal), None if pp is None else _t(pp))
+    np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+
+
+def test_host_geometry_matches_jax():
+    rng = np.random.default_rng(3)
+    depth = rng.uniform(1, 3, (6, 8)).astype(np.float32)
+    K = np.array([[30, 0, 4], [0, 31, 3], [0, 0, 1]], np.float32)
+    pose4 = np.eye(4, dtype=np.float32)
+    pose4[:3, 3] = rng.standard_normal(3)
+    for cam in (pose4, None):
+        got, gmask = geometry.depthmap_to_absolute_camera_coordinates(depth, K, cam)
+        want, wmask = jgeo.depthmap_to_absolute_camera_coordinates(depth, K, cam)
+        np.testing.assert_allclose(got, want, **TOL)
+        np.testing.assert_array_equal(gmask, wmask)
+    poses = rng.standard_normal((5, 4, 4))
+    assert geometry.get_med_dist_between_poses(poses) == pytest.approx(
+        jgeo.get_med_dist_between_poses(poses), rel=1e-12)
+
+
+def test_pose_functions_match_jax():
+    rng = np.random.default_rng(4)
+    vec = rng.standard_normal((6, 8)).astype(np.float32)
+    np.testing.assert_allclose(_np(pose.pose_vec_to_matrix(_t(vec))),
+                               np.asarray(jpose.pose_vec_to_matrix(vec)), **TOL)
+    q = vec[:, :4] / np.linalg.norm(vec[:, :4], axis=-1, keepdims=True)
+    R = np.asarray(jpose.quat_to_rotmat(jnp.asarray(q)))
+    np.testing.assert_allclose(_np(pose.quat_to_rotmat(_t(q))), R, **TOL)
+    R64 = R.astype(np.float64)
+    np.testing.assert_allclose(pose.rotmat_to_quat(R64), jpose.rotmat_to_quat(R64), **TOL64)
+    M = np.asarray(jpose.pose_vec_to_matrix(vec), np.float64)
+    for scale in (None, 2.5):
+        np.testing.assert_allclose(pose.matrix_to_pose_vec(M, scale=scale),
+                                   jpose.matrix_to_pose_vec(M, scale=scale), **TOL64)
+    x = rng.standard_normal(9).astype(np.float32) * 3
+    np.testing.assert_allclose(_np(pose.signed_expm1(_t(x))),
+                               np.asarray(jpose.signed_expm1(x)), **TOL)
+    np.testing.assert_allclose(_np(pose.signed_log1p(_t(x))),
+                               np.asarray(jpose.signed_log1p(x)), **TOL)
+    np.testing.assert_allclose(pose.signed_log1p(x.astype(np.float64)),
+                               jpose.signed_log1p(x.astype(np.float64), xp=np), **TOL64)
+    np.testing.assert_array_equal(pose.sRT_to_4x4(1.5, R64[0], vec[0, 4:7]),
+                                  np.asarray(jpose.sRT_to_4x4(1.5, R64[0], vec[0, 4:7])))
+
+
+def test_registration_and_pose_alignment_match_jax():
+    rng = np.random.default_rng(5)
+    pts1 = rng.standard_normal((50, 3))
+    pts2 = 1.7 * pts1 @ np.linalg.qr(rng.standard_normal((3, 3)))[0] + 0.3
+    pts2 += 0.01 * rng.standard_normal(pts2.shape)
+    w = rng.uniform(0.5, 2, 50)
+    for weights in (None, w):
+        for a, b in zip(pose.rigid_points_registration(pts1, pts2, weights),
+                        jpose.rigid_points_registration(pts1, pts2, weights)):
+            np.testing.assert_allclose(a, b, **TOL64)
+    src = np.asarray(jpose.pose_vec_to_matrix(rng.standard_normal((4, 7)).astype(np.float32)))
+    tgt = np.asarray(jpose.pose_vec_to_matrix(rng.standard_normal((4, 7)).astype(np.float32)))
+    for a, b in zip(pose.align_multiple_poses(src, tgt), jpose.align_multiple_poses(src, tgt)):
+        np.testing.assert_allclose(a, b, **TOL64)
+
+
+@pytest.mark.parametrize("mode", ["median", "weiszfeld"])
+def test_estimate_focal_matches_jax(mode):
+    out, *_ = make_synthetic_scene(n_imgs=2)
+    pts = out["pred1"]["pts3d"][:2]
+    rng = np.random.default_rng(6)
+    pts = pts + 0.01 * rng.standard_normal(pts.shape).astype(np.float32)
+    pp = np.array([[16, 12], [15, 13]], np.float32)
+    want = np.asarray(jpost.estimate_focal_knowing_depth(pts, pp, focal_mode=mode))
+    got = post_process.estimate_focal_knowing_depth(_t(pts), _t(pp), focal_mode=mode)
+    np.testing.assert_allclose(_np(got), want, **TOL)
+    assert init_im_poses.estimate_focal(pts[0]) == pytest.approx(
+        jinit.estimate_focal(pts[0]), rel=1e-5)
+
+
+def test_lr_schedules_match_jax():
+    from dust3r_tpu.cloud_opt.commons import make_lr_schedule as jax_schedule
+
+    for sched in ("cosine", "linear"):
+        np.testing.assert_allclose(make_lr_schedule(sched, 300, 0.01, 1e-6),
+                                   np.asarray(jax_schedule(sched, 300, 0.01, 1e-6)), **TOL)
+
+
+# ---------------------------------------------------------------------- #
+# the aligner
+# ---------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("layout", ["uniform", "mixed"])
+@pytest.mark.parametrize("obs", sorted(OBS))
+def test_loss_and_grads_match_jax(obs, layout):
+    """At the scenes' seeded random start, loss and gradient of every
+    parameter against `alignment_value_and_grad`."""
+    out = make_synthetic_scene(n_imgs=4)[0] if layout == "uniform" else mixed_scene()
+    js, ts = _scenes(out, obs)
+    for k in ts.params:
+        np.testing.assert_array_equal(_np(ts.params[k]), np.asarray(js.params[k]), err_msg=k)
+    loss, grads = alignment_value_and_grad(js.pts3d_fn, js.loss_spec, js.params, js.consts)
+    params = {k: v.clone().requires_grad_(True) for k, v in ts.params.items()}
+    tloss = ts.loss_fn(params)
+    tgrads = torch.autograd.grad(tloss, list(params.values()))
+    assert tloss.item() == pytest.approx(float(loss), rel=1e-5)
+    for k, g in zip(params, tgrads):
+        want = np.asarray(grads[k])
+        scale = max(float(np.abs(want).max()), 1e-12)
+        np.testing.assert_allclose(_np(g) / scale, want / scale, **TOL, err_msg=k)
+    # per-image pointmaps come back at each image's own shape
+    for got, want in zip(ts.get_pts3d(), js.get_pts3d()):
+        assert tuple(got.shape) == np.asarray(want).shape
+        np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+
+
+def test_adam_step_matches_optax():
+    rng = np.random.default_rng(7)
+    shapes = {"a": (5, 3), "b": (4,)}
+    params = {k: rng.standard_normal(s).astype(np.float32) for k, s in shapes.items()}
+    masks = {"a": (rng.random(shapes["a"]) > 0.3).astype(np.float32), "b": np.ones(4, np.float32)}
+    opt = optax.scale_by_adam(b1=0.9, b2=0.9)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    state = opt.init(jp)
+    tp = {k: _t(v).clone() for k, v in params.items()}
+    mu = {k: torch.zeros_like(v) for k, v in tp.items()}
+    nu = {k: torch.zeros_like(v) for k, v in tp.items()}
+    for step, lr in ((1, 0.01), (2, 0.008), (3, 0.005)):
+        grads = {k: rng.standard_normal(s).astype(np.float32) for k, s in shapes.items()}
+        upd, state = opt.update({k: jnp.asarray(g * masks[k]) for k, g in grads.items()}, state)
+        jp = {k: jp[k] - lr * upd[k] for k in jp}
+        adam_step(tp, {k: _t(g) for k, g in grads.items()}, {k: _t(m) for k, m in masks.items()},
+                  mu, nu, step, lr)
+        for k in tp:
+            np.testing.assert_allclose(_np(tp[k]), np.asarray(jp[k]), rtol=1e-6, atol=1e-6)
+    # frozen entries never move
+    np.testing.assert_array_equal(_np(tp["a"])[masks["a"] == 0], params["a"][masks["a"] == 0])
+
+
+def test_mst_init_matches_jax():
+    """The same spanning tree, and the same parameters after the init (the
+    images that the tree does not pose go through PnP: cv2 there, the
+    port's solver here, on exact data)."""
+    out, *_ = make_synthetic_scene(n_imgs=5)
+    js, ts = _scenes(out)
+    args = lambda s: (s.imshapes, s.edges, s.pred_i, s.pred_j, s.conf_i, s.conf_j,  # noqa: E731
+                      s.im_conf, s.min_conf_thr)
+    jt = jinit.minimum_spanning_tree(*args(js), verbose=False, edge_scores=js.edge_scores())
+    tt = init_im_poses.minimum_spanning_tree(*args(ts), verbose=False,
+                                             edge_scores=ts.edge_scores())
+    assert [tuple(map(int, e)) for e in tt[1]] == [tuple(map(int, e)) for e in jt[1]]
+    np.testing.assert_allclose(tt[2], jt[2], rtol=1e-5)  # focals
+    np.testing.assert_allclose(tt[3], jt[3], atol=1e-5)  # poses
+    jinit.init_minimum_spanning_tree(js)
+    init_im_poses.init_minimum_spanning_tree(ts)
+    for k in ts.params:
+        np.testing.assert_allclose(_np(ts.params[k]), np.asarray(js.params[k]), **TOL,
+                                   err_msg=k)
+    assert ts.forward() == pytest.approx(js.forward(), abs=1e-6)
+
+
+def test_alignment_matches_jax():
+    """300 cosine iterations, fp32 observations, from the seeded random
+    start (init=None), against the JAX run on the same scene. (From an MST
+    init this exact scene starts at the optimum, where the run is chaotic:
+    see test_alignment_against_the_golden.)"""
+    out, *_ = make_synthetic_scene(n_imgs=5, seed=0)
+    js, ts = _scenes(out)
+    jfinal = js.compute_global_alignment(init=None, niter=300, schedule="cosine", lr=0.01)
+    tfinal = ts.compute_global_alignment(init=None, niter=300, schedule="cosine", lr=0.01)
+    assert ts.last_losses.shape == (300,) and np.isfinite(ts.last_losses).all()
+    np.testing.assert_allclose(np.log10(ts.last_losses), np.log10(np.asarray(js.last_losses)),
+                               atol=0.05)
+    np.testing.assert_allclose(tfinal, jfinal, rtol=0.1)
+    np.testing.assert_allclose(_np(ts.get_focals()), np.asarray(js.get_focals()), rtol=1e-3)
+    np.testing.assert_allclose(_np(ts.get_im_poses()), np.asarray(js.get_im_poses()), atol=1e-3)
+
+
+# The golden run (tests/test_golden.py::TestAlignerTrajectoryGolden) starts
+# from an MST init of an exact scene, at a loss of 3e-7 where every gradient
+# is rounding noise and Adam's first steps follow its signs: the trajectory
+# depends on the last bit of the init and on the order of every float sum.
+# Measured on the JAX package itself, its log-depths perturbed by N(0, 3e-7)
+# (the size of the port's init difference), over 24 seeds: log10 losses
+# move by 0.49-0.51 (at iteration 0, the perturbation itself), the final
+# loss ends 15-45 % above the golden's, the focals move by 1.5e-3-3.3e-3
+# relative, the poses by 2.6e-3-7.0e-3. The port lands 25-49 % below the
+# golden's final loss, depending only on the order of the pose transform's
+# three multiply-adds. So the final loss is held to a ceiling, the JAX
+# package's own spread above the golden: a run that converges less is
+# caught, one that lands closer to the exact scene is not. The rest is held
+# at about the JAX spread; the golden's own tolerances hold only for a
+# bitwise rerun.
+GOLDEN_SPREAD = dict(log10_loss=0.5, final_above=0.45, focal_rtol=5e-3, pose_atol=1e-2)
+
+
+def test_alignment_against_the_golden():
+    out, poses, _, focal = make_synthetic_scene(n_imgs=5, seed=0)
+    ts = global_aligner(out, verbose=False, obs_dtype=torch.float32)
+    final = ts.compute_global_alignment(init="mst", niter=300, schedule="cosine", lr=0.01)
+    golden = np.load(GOLDEN)
+    np.testing.assert_allclose(np.log10(ts.last_losses[::10]),
+                               np.log10(golden["losses_every10"]),
+                               atol=GOLDEN_SPREAD["log10_loss"])
+    assert 0 < final <= float(golden["final_loss"]) * (1 + GOLDEN_SPREAD["final_above"])
+    np.testing.assert_allclose(_np(ts.get_focals()).ravel(), golden["focals"],
+                               rtol=GOLDEN_SPREAD["focal_rtol"])
+    np.testing.assert_allclose(_np(ts.get_im_poses()), golden["im_poses"],
+                               atol=GOLDEN_SPREAD["pose_atol"])
+    # and the scene itself: focals to 1 %, relative rotations to 1 degree
+    np.testing.assert_allclose(_np(ts.get_focals()).ravel(), focal, rtol=1e-2)
+    est = _np(ts.get_im_poses())
+    for k in range(1, len(poses)):
+        assert angular_error_deg(relpose(poses[0], poses[k])[:3, :3],
+                                 relpose(est[0], est[k])[:3, :3]) < 1.0
+
+
+def test_bf16_observations_recover_the_scene():
+    """The default bf16 observations, MST init, 300 iterations: what
+    chip_smoke.py asks of its full-resolution scene."""
+    out, poses, depths, focal = make_synthetic_scene(n_imgs=4, seed=1)
+    ts = global_aligner(out, verbose=False)
+    assert ts.obs_pred_i.dtype == torch.bfloat16 and ts.obs_w_i.dtype == torch.bfloat16
+    ts.compute_global_alignment(init="mst", niter=300, schedule="cosine", lr=0.01)
+    assert ts.last_losses[-1] < ts.last_losses[10]
+    np.testing.assert_allclose(_np(ts.get_focals()).ravel(), focal, rtol=1e-2)
+    est = _np(ts.get_im_poses())
+    for k in range(1, len(poses)):
+        assert angular_error_deg(relpose(poses[0], poses[k])[:3, :3],
+                                 relpose(est[0], est[k])[:3, :3]) < 1.0
+    pts = ts.get_pts3d()
+    assert len(pts) == 4 and tuple(pts[0].shape) == (24, 32, 3)
+
+
+def test_accessors_and_clean_pointcloud_match_jax():
+    """With the JAX scene's parameters loaded into the port's: pointmaps,
+    depthmaps, poses, intrinsics, masks, conf maps and the occlusion
+    cleaning."""
+    out, *_ = make_synthetic_scene(n_imgs=3)
+    js, ts = _scenes(out)
+    js.compute_global_alignment(init="mst", niter=20, lr=0.01)
+    ts.load_state_dict(js.state_dict())
+    for got, want in ((ts.get_pts3d(), js.get_pts3d()), (ts.get_depthmaps(), js.get_depthmaps())):
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(_np(a), np.asarray(b), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(_np(ts.get_im_poses()), np.asarray(js.get_im_poses()), **TOL)
+    np.testing.assert_allclose(_np(ts.get_intrinsics()), np.asarray(js.get_intrinsics()), **TOL)
+    for a, b in zip(ts.get_masks(), js.get_masks()):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(ts.get_conf(), js.get_conf()):
+        np.testing.assert_allclose(a, b, **TOL)
+    assert ts.forward() == pytest.approx(js.forward(), rel=1e-5)
+    for a, b in zip(ts.clean_pointcloud().im_conf, js.clean_pointcloud().im_conf):
+        np.testing.assert_allclose(a, b, **TOL)
+
+
+def test_known_poses_init_matches_jax():
+    out, poses, depths, focal = make_synthetic_scene(n_imgs=3)
+    js, ts = _scenes(out)
+    for s in (js, ts):
+        s.preset_pose(poses)
+        s.preset_focal([focal] * 3)
+    jinit.init_from_known_poses(js, min_conf_thr=js.min_conf_thr)
+    init_im_poses.init_from_known_poses(ts, min_conf_thr=ts.min_conf_thr)
+    for k in ts.params:
+        np.testing.assert_allclose(_np(ts.params[k]), np.asarray(js.params[k]), rtol=1e-4,
+                                   atol=1e-4, err_msg=k)
+    assert not ts.norm_pw_scale
+    loss = ts.compute_global_alignment(init=None, niter=100, lr=0.01)
+    assert loss < 0.05
+    np.testing.assert_allclose(_np(ts.get_im_poses()), np.stack(poses), atol=1e-4)
+    np.testing.assert_allclose(_np(ts.get_focals()).ravel(), focal, rtol=1e-5)
+    with pytest.raises(AssertionError, match="incomplete mask"):
+        ts.preset_pose([poses[0]], pose_msk=[0])
+
+
+def test_pair_viewer_matches_jax():
+    out, poses, depths, focal = make_synthetic_scene(n_imgs=2)
+    jv = jax_global_aligner(out, mode=JaxMode.PairViewer, verbose=False)
+    tv = global_aligner(out, mode=GlobalAlignerMode.PairViewer, verbose=False)
+    np.testing.assert_allclose(_np(tv.get_focals()).ravel(), np.asarray(jv.get_focals()),
+                               rtol=1e-5)
+    np.testing.assert_allclose(_np(tv.get_im_poses()), np.asarray(jv.get_im_poses()), atol=1e-3)
+    for a, b in zip(tv.get_depthmaps(), jv.get_depthmaps()):
+        np.testing.assert_allclose(_np(a), np.asarray(b), rtol=1e-3, atol=1e-3)
+    pts = tv.get_pts3d()
+    assert len(pts) == 2 and tuple(pts[0].shape) == (24, 32, 3)
+    est = _np(tv.get_im_poses())
+    assert angular_error_deg(relpose(poses[0], poses[1])[:3, :3],
+                             relpose(est[0], est[1])[:3, :3]) < 2.0
+    assert np.isnan(tv.forward())
+    assert np.isnan(tv.compute_global_alignment(init=None, niter=10))  # nothing to optimize
+
+
+def test_device_tensor_predictions_build_the_same_scene():
+    """Predictions as `InferenceEngine.infer_pairs(..., to_cpu=False)` hands
+    them over (stacked tensors) build the scene that numpy builds."""
+    out, *_ = make_synthetic_scene(n_imgs=3)
+    as_tensors = dict(view1=out["view1"], view2=out["view2"],
+                      pred1={k: _t(v) for k, v in out["pred1"].items()},
+                      pred2={k: _t(v) for k, v in out["pred2"].items()})
+    a = global_aligner(out, verbose=False)
+    b = global_aligner(as_tensors, verbose=False)
+    assert b.device == torch.device("cpu")
+    for name in ("obs_pred_i", "obs_pred_j", "obs_w_i", "obs_w_j"):
+        torch.testing.assert_close(getattr(b, name), getattr(a, name), rtol=0, atol=0)
+    assert b.forward() == a.forward()
+    for s in a.str_edges:
+        np.testing.assert_array_equal(b.pred_i[s], a.pred_i[s])
+
+
+def test_not_ported_paths_raise():
+    from dust3r_tpu_torch.cloud_opt import ModularPointCloudOptimizer
+
+    out, *_ = make_synthetic_scene(n_imgs=3)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        global_aligner(out, mode=GlobalAlignerMode.ModularPointCloudOptimizer)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ModularPointCloudOptimizer(out["view1"], out["view2"], out["pred1"], out["pred2"])
+    with pytest.raises(NotImplementedError, match="int8"):
+        global_aligner(out, obs_dtype=torch.int8)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        global_aligner(out, mesh=object())
+
+
+# ---------------------------------------------------------------------- #
+# PnP: the port's numpy solver against cv2 (through the JAX fast_pnp)
+# ---------------------------------------------------------------------- #
+
+def pnp_scene(H, W, focal, seed, noise=0.0, outliers=0.0, pp=None):
+    """A pointmap of a slanted, rippled surface seen by a camera at a seeded
+    pose with the given focal and principal point (default: the centre);
+    world points with Gaussian noise, and a share of them thrown off by ~1
+    unit. Returns (pts3d (H, W, 3) fp32, cam2world)."""
+    from scipy.spatial.transform import Rotation
+
+    cx, cy = (W / 2, H / 2) if pp is None else pp
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:H, :W].astype(np.float64)
+    depth = 1.5 + 4 * (xx / W) * (yy / H) + 0.5 * np.sin(xx / 9) * np.cos(yy / 7)
+    cam = np.stack([(xx - cx) * depth / focal, (yy - cy) * depth / focal, depth], -1)
+    R = Rotation.from_rotvec(rng.normal(size=3) * 0.3).as_matrix()
+    t = rng.normal(size=3)
+    X = (cam - t) @ R + noise * rng.standard_normal(cam.shape)
+    off = rng.random((H, W)) < outliers
+    X[off] += rng.normal(size=(int(off.sum()), 3))
+    c2w = np.eye(4)
+    c2w[:3, :3], c2w[:3, 3] = R.T, -R.T @ t
+    return X.astype(np.float32), c2w
+
+
+@pytest.mark.parametrize("pp", [None, (30.0, 26.0)])
+@pytest.mark.parametrize("focal", [40.0, 90.0])
+def test_pnp_matches_cv2_on_exact_data(focal, pp):
+    H, W = 48, 64
+    X, c2w = pnp_scene(H, W, focal, seed=int(focal), pp=pp)
+    msk = np.ones((H, W), bool)
+    msk[::7, ::5] = False
+    want = jinit.fast_pnp(X, focal, msk, pp=pp)
+    got = init_im_poses.fast_pnp(X, focal, msk, pp=pp)
+    assert got[0] == want[0] == focal
+    np.testing.assert_allclose(got[1], want[1], atol=1e-3)
+    np.testing.assert_allclose(got[1], c2w, atol=1e-3)
+
+
+@pytest.mark.parametrize("seed,k", [(0, 3), (1, 8), (2, 12)])
+def test_pnp_picks_cv2s_focal(seed, k):
+    """Unknown focal, 0.05 % noise and 20 % gross outliers: both solvers try
+    the 21 candidates and keep the one with the most inliers; the scene's
+    focal is candidate k."""
+    H, W = 192, 256
+    cands = np.geomspace(W / 2, W * 3, 21)
+    X, c2w = pnp_scene(H, W, cands[k], seed, noise=5e-4, outliers=0.2)
+    msk = np.ones((H, W), bool)
+    want = jinit.fast_pnp(X, None, msk)
+    got = init_im_poses.fast_pnp(X, None, msk)
+    assert got[0] == want[0] == cands[k]
+    np.testing.assert_allclose(got[1], want[1], atol=1e-3)
+
+
+def test_pnp_gives_up_like_cv2():
+    X, _ = pnp_scene(8, 8, 10.0, 0)
+    few = np.zeros((8, 8), bool)
+    few[0, :3] = True
+    assert init_im_poses.fast_pnp(X, 10.0, few) is None
+    assert jinit.fast_pnp(X, 10.0, few) is None
+
+
+def test_chip_smoke_scene_is_the_tests_scene():
+    """chip_smoke.py builds its full-resolution scene (`tools.scenes`) as
+    make_synthetic_scene builds this file's, with the port's geometry in
+    place of the JAX one."""
+    from dust3r_tpu_torch.tools.scenes import synthetic_scene
+
+    out, poses, focal = synthetic_scene(4, 24, 32, 40.0, seed=0)
+    ref, ref_poses, _, ref_focal = make_synthetic_scene(n_imgs=4, H=24, W=32, focal=40.0)
+    assert focal == ref_focal
+    np.testing.assert_array_equal(np.stack(poses), np.stack(ref_poses))
+    for side in ("view1", "view2"):
+        assert list(out[side]["idx"]) == list(ref[side]["idx"])
+    for side, key in (("pred1", "pts3d"), ("pred1", "conf"), ("pred2", "pts3d_in_other_view"),
+                      ("pred2", "conf")):
+        np.testing.assert_allclose(out[side][key], ref[side][key], **TOL)

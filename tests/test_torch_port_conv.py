@@ -1,0 +1,204 @@
+"""The port's conv3x3 (plain versions, kernel wrapper, dispatcher) and the
+DPT head that routes through it, against the JAX package on the CPU.
+
+Inputs come from a seeded numpy generator in the JAX layout (x NHWC, w
+HWIO) and go to the port in its own (x NCHW-shaped, channels_last memory;
+w (Cout, Cin, 3, 3)). The JAX Pallas conv runs in interpret mode, set up as
+tests/test_torch_port_ops.py sets up the attention. On CPU tensors the
+kernel's wrapper runs its plain version `conv3x3_bf16_ref`; the CUDA kernel
+itself is checked on the card by tests/test_torch_port_kernels.py and
+chip_smoke.py. Tolerances, relative to max |y|: 1e-2 against the Pallas
+kernel (it stores its per-tap partial sums Z in bf16, the port does not),
+1e-5 against XLA convs in fp32 on the same operands.
+"""
+import importlib
+import os
+import os.path as osp
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, osp.dirname(osp.abspath(__file__)))
+
+from dust3r_tpu.models import heads as jheads  # noqa: E402
+from dust3r_tpu.ops.conv3x3 import conv3x3_ref as jax_conv3x3_ref  # noqa: E402
+from dust3r_tpu_torch.checkpoint import state_dict_from_jax  # noqa: E402
+from dust3r_tpu_torch.models import heads  # noqa: E402
+from dust3r_tpu_torch.ops.conv3x3 import (conv3x3, conv3x3_bf16_ref, conv3x3_kernel,  # noqa: E402
+                                          conv3x3_ref, pack_weight)
+
+CASES = {  # name: (B, H, W, Cin, Cout)
+    "cin16_cout8": (2, 7, 9, 16, 8),
+    "cin16_cout32": (1, 5, 11, 16, 32),
+    "cin96_cout8": (1, 9, 7, 96, 8),
+    "cin96_cout32": (2, 5, 5, 96, 32),
+}
+
+
+@pytest.fixture(scope="module")
+def pallas_conv():
+    os.environ["DUST3R_TPU_PALLAS_INTERPRET"] = "1"
+    import dust3r_tpu.ops.conv3x3 as jconv
+    importlib.reload(jconv)
+    yield jconv._conv3x3_pallas_raw
+    del os.environ["DUST3R_TPU_PALLAS_INTERPRET"]
+    importlib.reload(jconv)
+
+
+def _inputs(case, bias, seed=0):
+    B, H, W, cin, cout = CASES[case]
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, H, W, cin)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, cin, cout)) / np.sqrt(9 * cin)).astype(np.float32)
+    b = rng.standard_normal(cout).astype(np.float32) if bias else None
+    return x, w, b
+
+
+def _port(x, w, b):
+    """JAX-layout numpy -> the port's tensors."""
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)  # channels_last memory, no copy
+    wt = torch.from_numpy(w).permute(3, 2, 0, 1).contiguous()
+    return xt, wt, None if b is None else torch.from_numpy(b)
+
+
+def _nhwc(y):
+    return y.permute(0, 2, 3, 1).numpy()
+
+
+def _rel(a, b):
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def _bf16(a):
+    return np.asarray(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_bf16_plain_version_matches_pallas_kernel(pallas_conv, case, bias):
+    x, w, b = _inputs(case, bias)
+    want = np.asarray(pallas_conv(jnp.asarray(x), jnp.asarray(w)))
+    if b is not None:
+        want = want + b
+    got = _nhwc(conv3x3_bf16_ref(*_port(x, w, b)))
+    assert got.shape == want.shape
+    assert _rel(got, want) <= 1e-2
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_bf16_plain_version_and_wrapper_match_xla_on_rounded_operands(case, bias):
+    """The kernel's function: an fp32 conv of bf16-rounded x and w. The
+    wrapper and the dispatcher ('kernel') run it for CPU tensors."""
+    x, w, b = _inputs(case, bias, seed=1)
+    want = np.asarray(jax_conv3x3_ref(jnp.asarray(_bf16(x)), jnp.asarray(_bf16(w)),
+                                      None if b is None else jnp.asarray(b)))
+    xt, wt, bt = _port(x, w, b)
+    before = conv3x3_kernel.launches
+    for got in (conv3x3_bf16_ref(xt, wt, bt), conv3x3_kernel(xt, wt, bt),
+                conv3x3(xt, wt, bt, impl="kernel")):
+        assert _rel(_nhwc(got), want) <= 1e-5
+    assert conv3x3_kernel.launches == before  # the plain version launches nothing
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_ref_matches_jax_ref(case, bias):
+    x, w, b = _inputs(case, bias, seed=2)
+    want = np.asarray(jax_conv3x3_ref(jnp.asarray(x), jnp.asarray(w),
+                                      None if b is None else jnp.asarray(b)))
+    xt, wt, bt = _port(x, w, b)
+    for got in (conv3x3_ref(xt, wt, bt), conv3x3(xt, wt, bt), conv3x3(xt, wt, bt, impl="ref")):
+        assert _rel(_nhwc(got), want) <= 1e-5
+
+
+def test_pack_weight_is_the_kernels_layout():
+    """Row (dy * 3 + dx) * Cin + ci, column co of the packed matrix is
+    w[co, ci, dy, dx], rounded to bf16."""
+    w = torch.randn(8, 16, 3, 3, generator=torch.Generator().manual_seed(0))
+    p = pack_weight(w)
+    assert p.shape == (9 * 16, 8) and p.dtype == torch.bfloat16 and p.is_contiguous()
+    for dy, dx, ci, co in ((0, 0, 0, 0), (1, 2, 5, 3), (2, 1, 15, 7)):
+        assert p[(dy * 3 + dx) * 16 + ci, co] == w[co, ci, dy, dx].to(torch.bfloat16)
+
+
+def test_dispatcher_rejects_unknown_impl():
+    x = torch.zeros(1, 32, 4, 4)
+    with pytest.raises(ValueError, match="impl"):
+        conv3x3(x, torch.zeros(32, 32, 3, 3), impl="pallas")
+
+
+@pytest.fixture(scope="module")
+def dpt_pair():
+    """The small DPT config of tests/test_torch_port_model.py: the JAX head's
+    seeded parameters and decoder outputs at a 2x3 patch grid."""
+    from test_torch_port_model import CONFIGS, IMG_HW, _decout, jax_model, seeded_variables
+
+    cfg = CONFIGS["small_dpt"]
+    variables = seeded_variables(jax_model("small_dpt"), 12)
+    decout = _decout(cfg, 6)
+    modes = dict(depth_mode=("exp", -np.inf, np.inf), conf_mode=("exp", 1, np.inf))
+    jhead = jheads.DPTHead(16, modes["depth_mode"], modes["conf_mode"], hooks=(0, 6, 9, 12))
+    want = jhead.apply({"params": variables["params"]["downstream_head2"]},
+                       [jnp.asarray(t) for t in decout], IMG_HW)
+    sd = state_dict_from_jax(variables, cfg["enc_depth"], cfg["dec_depth"], "dpt")
+    prefix = "downstream_head2."
+    head_sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    return cfg, modes, decout, want, head_sd, IMG_HW
+
+
+@pytest.mark.parametrize("conv_impl", [None, "ref", "kernel"])
+def test_dpt_head_through_the_dispatcher_matches_jax(dpt_pair, conv_impl):
+    """The head's 20 3x3 convs go through the dispatcher on CPU tensors.
+    None and 'ref' run fp32 convs and hold to the JAX head at the model
+    tests' 2e-4 of mean |x|; 'kernel' runs the bf16-operand plain version
+    and holds to the fp32 JAX head at the repo's bf16-vs-fp32 pointmap
+    parity budget, normalized RMSE 1e-2."""
+    cfg, modes, decout, want, head_sd, img_hw = dpt_pair
+    head = heads.DPTHead(16, modes["depth_mode"], modes["conf_mode"], hooks=(0, 6, 9, 12),
+                         enc_dim=cfg["enc_embed_dim"], dec_dim=cfg["dec_embed_dim"],
+                         conv_impl=conv_impl)
+    convs = [m for m in head.modules() if isinstance(m, heads.Conv3x3)]
+    assert len(convs) == 20 and all(m.impl == conv_impl for m in convs)
+    head.load_state_dict(head_sd, strict=True)
+    before = conv3x3_kernel.launches
+    with torch.no_grad():
+        got = head([torch.from_numpy(t) for t in decout], img_hw)
+    assert conv3x3_kernel.launches == before  # CPU tensors: no kernel launch
+    for key in ("pts3d", "conf"):
+        a, b = got[key].numpy(), np.asarray(want[key])
+        if conv_impl == "kernel":
+            assert np.sqrt(np.mean((a - b) ** 2) / np.mean(b ** 2)) <= 1e-2
+        else:
+            scale = max(float(np.abs(b).mean()), 1e-6)
+            np.testing.assert_allclose(a / scale, b / scale, rtol=2e-4, atol=2e-4)
+
+
+def test_dpt_trunk_feeds_every_conv_channels_last():
+    """The trunk's tensors reach each 3x3 conv in channels_last memory
+    (what the kernel reads), with no copy for the layout, at both buckets'
+    row counts (24 and 21 patch rows)."""
+    seen = []
+
+    def spy(x, w, b, impl):
+        seen.append(x.is_contiguous(memory_format=torch.channels_last))
+        return conv3x3_ref(x, w, b)
+
+    head = heads.DPTHead(16, ("exp", -np.inf, np.inf), ("exp", 1, np.inf), hooks=(0, 1, 2, 3),
+                         enc_dim=32, dec_dim=32)
+    rng = np.random.default_rng(4)
+    orig = heads.conv3x3_op
+    heads.conv3x3_op = spy
+    try:
+        for rows in (24, 21):
+            decout = [torch.from_numpy(rng.standard_normal((1, rows * 2, 32)).astype(np.float32))
+                      for _ in range(4)]
+            with torch.no_grad():
+                out = head(decout, (rows * 16, 32))
+            assert out["pts3d"].shape == (1, rows * 16, 32, 3)
+    finally:
+        heads.conv3x3_op = orig
+    assert len(seen) == 40 and all(seen)

@@ -169,15 +169,16 @@ def test_views_from_arrays_makes_load_images_views():
 
 
 def test_port_imports_no_jax_pil_or_triton():
-    """Every module of the port imports with torch and numpy alone."""
+    """Every module of the port imports with torch, numpy and scipy alone:
+    no JAX, flax, optax, cv2, PIL or triton, and nothing of the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import dust3r_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(dust3r_tpu_torch.__path__,"
         " 'dust3r_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 14, mods\n"
-        "bad = [m for m in ('jax', 'flax', 'optax', 'dust3r_tpu', 'triton', 'PIL')"
+        "assert len(mods) >= 23, mods\n"
+        "bad = [m for m in ('jax', 'flax', 'optax', 'dust3r_tpu', 'triton', 'PIL', 'cv2')"
         " if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print('ok')\n")

@@ -7,13 +7,16 @@ installed; there, skip the JAX-side conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_port_kernels.py -q
 
 Tolerances, against the plain version computed in fp32 from the same
-inputs and scaled by its max |x|: 1e-2 for bf16 inputs (8-bit mantissa, P
-rounded to bf16 before P.v), 1e-5 for fp32 inputs.
+inputs and scaled by its max |x|: attention 1e-2 for bf16 inputs (8-bit
+mantissa, P rounded to bf16 before P.v), 1e-5 for fp32 inputs; conv3x3
+1e-3 against `conv3x3_bf16_ref` (the same bf16-rounded operands, products
+exact in fp32, only the order of the fp32 sums differs).
 """
 import pytest
 import torch
 
 from dust3r_tpu_torch.models.blocks import token_positions
+from dust3r_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_bf16_ref, conv3x3_kernel
 from dust3r_tpu_torch.ops.fused_attention import (SUPPORTED_HEAD_DIMS, attention_ref,
                                                   fused_attention)
 
@@ -75,3 +78,54 @@ def test_kernel_refuses_what_it_cannot_serve(card):
         flat = torch.zeros(2 * 8 * 64 + 1, device=card, dtype=torch.bfloat16)
         fused_attention(flat[1:].view(1, 2, 8, 64), q, q)
     assert fused_attention.launches == before
+
+
+CONV_RTOL = 1e-3
+CONV_CASES = {  # name: (Cin, Cout, H, W, bias); the DPT head's shapes at 512x384
+    "layer1_rn": (96, 256, 96, 128, False),
+    "layer2_rn": (192, 256, 48, 64, False),
+    "layer3_rn": (384, 256, 24, 32, False),
+    "layer4_rn": (768, 256, 12, 16, False),
+    "refinenet4": (256, 256, 12, 16, True),
+    "refinenet3": (256, 256, 24, 32, True),
+    "refinenet2": (256, 256, 48, 64, True),
+    "refinenet1": (256, 256, 96, 128, True),
+    "head.0": (256, 128, 192, 256, True),
+    "head.2": (128, 32, 384, 512, True),
+    "ragged_21_rows": (384, 256, 21, 32, False),  # the 512x336 bucket
+    "ragged_11_rows": (256, 256, 11, 16, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CONV_CASES))
+def test_conv3x3_kernel_matches_plain_version(card, case):
+    cin, cout, h, w, bias = CONV_CASES[case]
+    gen = torch.Generator(device=card).manual_seed(cin + cout + h)
+    x = torch.randn(2, cin, h, w, device=card, generator=gen).contiguous(
+        memory_format=torch.channels_last)
+    wt = torch.randn(cout, cin, 3, 3, device=card, generator=gen) * (9 * cin) ** -0.5
+    b = torch.randn(cout, device=card, generator=gen) if bias else None
+    before = conv3x3_kernel.launches
+    out = conv3x3(x, wt, b)  # auto: the kernel for CUDA tensors
+    torch.cuda.synchronize()
+    assert conv3x3_kernel.launches == before + 1
+    ref = conv3x3_bf16_ref(x, wt, b)
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    err = (out - ref).abs().max().item() / ref.abs().max().item()
+    assert err <= CONV_RTOL, f"{case}: rel err {err:.3e}"
+
+
+def test_conv3x3_kernel_refuses_what_it_cannot_serve(card):
+    x = torch.zeros(1, 64, 8, 8, device=card).contiguous(memory_format=torch.channels_last)
+    w = torch.zeros(32, 64, 3, 3, device=card)
+    before = conv3x3_kernel.launches
+    with pytest.raises(ValueError, match="channels_last"):
+        conv3x3_kernel(x.contiguous(), w)
+    with pytest.raises(ValueError, match="multiples"):
+        conv3x3_kernel(x[:, :48].contiguous(memory_format=torch.channels_last), w[:, :48])
+    with pytest.raises(TypeError):
+        conv3x3_kernel(x.half(), w.half())
+    with pytest.raises(ValueError, match="bias"):
+        conv3x3_kernel(x, w, torch.zeros(16, device=card))
+    assert conv3x3_kernel.launches == before
