@@ -6,20 +6,25 @@
 
 Phases (each prints its lines; a failed phase raises and the exit code is 1):
   1. device: requires CUDA; prints the card's name and power limit;
-  2. build: compiles the kernels from `dust3r_tpu_torch/csrc/` (nvcc, sm_90a);
-  3. kernels: each kernel against its plain PyTorch version on the card, at
-     the shapes the main path gives it, with times;
+  2. build: compiles the four kernels from `dust3r_tpu_torch/csrc/` (one nvcc
+     per source, all started together, sm_90a);
+  3. kernels: each kernel (fused_attention, conv3x3, up2x, dpt_tail) against
+     its plain PyTorch version on the card, at the shapes the main path gives
+     it, with the times of the kernel, the plain version and the one PyTorch
+     call that computes the same function (where there is one), and the
+     least time the card could take (bytes at 3.35 TB/s or operations at
+     989 TFLOP/s bf16 / 67 TFLOP/s fp32, whichever is larger);
   4. slice: `DUSt3R_ViTLarge_BaseDecoder_512_dpt` at full width (seeded random
      weights, bf16 body, fp32 heads) serves three requests through
-     make_pairs -> InferenceEngine -> inference; checks outputs, both
+     make_pairs -> InferenceEngine -> inference; checks outputs, the four
      kernels' launch counts, and a bf16-kernel vs fp32-plain pointmap parity;
   5. scene: the global aligner (global_aligner -> compute_global_alignment,
      MST init, 300 cosine iterations, bf16 observations) on (i) a synthetic
      6-image 512x384 scene with a known answer, which it must recover
      (focals to 1 %, relative rotations to 1 degree), and (ii) the README's
      quick start on request (a)'s pairs served again on the device
-     (`infer_pairs(..., to_cpu=False)`, both kernels' launches counted from
-     0 and checked): finite, falling losses, poses and positive focals.
+     (`infer_pairs(..., to_cpu=False)`, the four kernels' launches counted
+     from 0 and checked): finite, falling losses, poses and positive focals.
 The second-to-last line is a JSON object of the kernels, with the launches
 of the slice's run; the last line is {"ok": true, "device": {...}}. With
 `--kernels-only` neither line is printed. Without a CUDA device, or outside
@@ -45,11 +50,23 @@ KERNEL_RTOL = 1e-2
 # (the parity budget of BASELINE.json)
 PARITY_RMSE = 1e-2
 H384, H336, W = 384, 336, 512  # the 512x384 and 512x336 buckets
-KERNELS = ("fused_attention", "conv3x3")
+KERNELS = ("fused_attention", "conv3x3", "up2x", "dpt_tail")
 # max abs error of conv3x3 against conv3x3_bf16_ref over max |ref|: both
 # take the same bf16-rounded operands, whose products are exact in fp32;
-# only the order of the fp32 sums differs
+# only the order of the fp32 sums differs. The same for dpt_tail against
+# dpt_tail_bf16_ref, on each output (the 1x1 and the exp are fp32 in both)
 CONV_RTOL = 1e-3
+TAIL_RTOL = 1e-3
+# up2x against up2x_ref: the same two fp32 lerps (FMA contraction aside)
+UP2X_RTOL = 1e-5
+# launches of each kernel per DPT head: 19 of its 20 stride-1 3x3 convs (the
+# 20th, head.2, is read by the tail kernel), its 5 upsamples (4 fusion
+# blocks, 1 in the head) and its tail
+PER_HEAD = dict(conv3x3=19, up2x=5, dpt_tail=1)
+# the card's peaks (the H100 SXM data sheet, dense): HBM bytes/s, and
+# operations/s by type; bounds are the larger of bytes and operations times
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = dict(bf16=989e12, fp32=67e12)
 # the scene phase: 6 images (a complete symmetrized graph of 30 edges),
 # focal 1.2 x the width; recovery limits on that exact scene
 SCENE_IMAGES = 6
@@ -69,8 +86,21 @@ CONV_CASES = (
     ("refinenet2", 256, 256, 48, 64, True, 4),
     ("refinenet1", 256, 256, 96, 128, True, 4),
     ("head.0", 256, 128, 192, 256, True, 1),
-    ("head.2", 128, 32, 384, 512, True, 1),
 )
+# the upsamples of one DPT head at batch 8: name, C, Hc, Wc, how many of the
+# head's 5 calls at 512x384 have it (0: the 512x336 bucket's ragged grids)
+UP2X_CASES = (
+    ("refinenet4", 256, 12, 16, 1),
+    ("refinenet3", 256, 24, 32, 1),
+    ("refinenet2", 256, 48, 64, 1),
+    ("refinenet1", 256, 96, 128, 1),
+    ("head.1", 128, 192, 256, 1),
+    ("refinenet4_336", 256, 11, 16, 0),
+    ("refinenet3_336", 256, 21, 32, 0),
+    ("head.1_336", 128, 168, 256, 0),
+)
+# the tail of one DPT head at batch 8: name, H, W, calls per head at 512x384
+TAIL_CASES = (("384x512", H384, W, 1), ("336x512", H336, W, 0))
 
 
 def log(msg):
@@ -121,13 +151,48 @@ def time_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes, ops):
+    """(ms, what bounds it): the least time the card could take to move
+    `nbytes` (each input read once, each output written once) and to do
+    `ops` ({type: operations}), whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = sum(n / PEAK_OPS_PER_S[k] for k, n in ops.items())
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def summed(rows, count_key="count"):
+    """Times and bounds of a kernel's calls summed with their counts; the
+    bound is named by the larger share of the summed bound."""
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    by = dict(bytes=0.0, operations=0.0)
+    for r in rows:
+        for k in total:
+            total[k] += r[count_key] * (r[k] or 0.0)
+        by[r["bound_by"]] += r[count_key] * r["bound_ms"]
+    total["bound_by"] = max(by, key=by.get)
+    if all(r["library_ms"] is None for r in rows):
+        total["library_ms"] = None
+    total["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    return total
+
+
+def _rel_err(out, ref):
+    err = (out.float() - ref.float()).abs().max().item()
+    return err, err / ref.float().abs().max().item()
+
+
 def attention_kernel_phase(torch):
     """fused_attention against attention_ref at the main path's shapes. The
     kernel gets its RoPE tables built once, as the model hands them to every
-    layer; the plain version builds its own on each call, as on its path."""
+    layer; the plain version builds its own on each call, as on its path.
+    The library call is `F.scaled_dot_product_attention` on bf16 q, k, v:
+    the same function for the no-RoPE shape, and on q and k rotated
+    beforehand (outside the timing) for the RoPE shapes."""
+    import torch.nn.functional as F
+
     from dust3r_tpu_torch.models.blocks import token_positions
     from dust3r_tpu_torch.ops.fused_attention import attention_ref, fused_attention
-    from dust3r_tpu_torch.ops.rope import rope_tables
+    from dust3r_tpu_torch.ops.rope import apply_rope2d, rope_tables
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     dev = "cuda"
@@ -157,31 +222,43 @@ def attention_kernel_phase(torch):
         out = kernel()
         torch.cuda.synchronize()
         ref = attention_ref(q.float(), k.float(), v.float(), pq, pk)
-        err = (out.float() - ref).abs().max().item()
-        rel = err / ref.abs().max().item()
+        err, rel = _rel_err(out, ref)
         if not (out.shape == ref.shape and torch.isfinite(out).all()):
             raise AssertionError(f"{name}: bad kernel output {tuple(out.shape)}")
+        qr, kr = (q, k) if pq is None else (apply_rope2d(q, pq), apply_rope2d(k, pk))
         ms = time_ms(torch, kernel)
         plain_ms = time_ms(torch, lambda: attention_ref(q, k, v, pq, pk))
+        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qr, kr, v))
+        # q, k, v and the output in bf16, the four fp32 RoPE tables; QK^T and
+        # PV on bf16 tensor cores
+        table_bytes = 0 if pq is None else 8 * B * (Nq + Nk) * d
+        bound_ms, bound_by = bound(2 * B * Hh * (2 * Nq + 2 * Nk) * d + table_bytes,
+                                   dict(bf16=4 * B * Hh * Nq * Nk * d))
         log(f"[kernel] fused_attention {name} q{(B, Hh, Nq, d)} k{(B, Hh, Nk, d)} bf16 "
             f"rope={pq is not None}: max_abs_err {err:.3e} rel {rel:.3e} "
-            f"(limit {KERNEL_RTOL:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"(limit {KERNEL_RTOL:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"sdpa{'' if pq is None else ' (q, k rotated beforehand)'} {library_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
         if not rel <= KERNEL_RTOL:
             raise AssertionError(f"{name}: kernel disagrees with the plain version, "
                                  f"rel err {rel:.3e} > {KERNEL_RTOL:g}")
-        rows.append(dict(name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms))
+        rows.append(dict(name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
     return rows
 
 
 def conv_kernel_phase(torch):
     """conv3x3 against conv3x3_bf16_ref (its plain version) at each 3x3 conv
     shape of a DPT head at 512x384, batch 8; also timed against the fp32
-    cuDNN conv it replaces on the path. Returns the rows and the three
-    times summed over one head's 20 convs."""
+    cuDNN conv it replaces on the path and against `F.conv2d` on bf16
+    channels_last x and w (the library call of the same function). Returns
+    the rows and their sums over one head's 19 conv3x3 calls."""
+    import torch.nn.functional as F
+
     from dust3r_tpu_torch.ops.conv3x3 import conv3x3_bf16_ref, conv3x3_kernel, conv3x3_ref
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    rows, total = [], dict(ms=0.0, plain_ms=0.0, fp32_ms=0.0)
+    rows = []
     for name, cin, cout, h, w, bias, count in CONV_CASES:
         x = torch.randn(BATCH_SIZE, cin, h, w, device="cuda", generator=gen).contiguous(
             memory_format=torch.channels_last)
@@ -193,28 +270,174 @@ def conv_kernel_phase(torch):
         ref32 = conv3x3_ref(x, wt, b)
         if not (out.shape == ref.shape and torch.isfinite(out).all()):
             raise AssertionError(f"conv3x3 {name}: bad kernel output {tuple(out.shape)}")
-        err = (out - ref).abs().max().item()
-        rel = err / ref.abs().max().item()
-        rel32 = (out - ref32).abs().max().item() / ref32.abs().max().item()
+        err, rel = _rel_err(out, ref)
+        rel32 = _rel_err(out, ref32)[1]
         del ref, ref32
+        xb = x.to(torch.bfloat16)
+        wb = wt.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        bb = None if b is None else b.to(torch.bfloat16)
         t = dict(ms=time_ms(torch, lambda: conv3x3_kernel(x, wt, b)),
                  plain_ms=time_ms(torch, lambda: conv3x3_bf16_ref(x, wt, b)),
-                 fp32_ms=time_ms(torch, lambda: conv3x3_ref(x, wt, b)))
-        tflops = 2 * BATCH_SIZE * h * w * 9 * cin * cout / t["ms"] / 1e9
+                 fp32_ms=time_ms(torch, lambda: conv3x3_ref(x, wt, b)),
+                 library_ms=time_ms(torch, lambda: F.conv2d(xb, wb, bb, padding=1)))
+        M = BATCH_SIZE * h * w
+        flops = 2 * M * cout * 9 * cin
+        bound_ms, bound_by = bound(4 * (M * cin + 9 * cin * cout + cout + M * cout),
+                                   dict(bf16=flops))
         log(f"[kernel] conv3x3 {name} x{(BATCH_SIZE, cin, h, w)} -> {cout} "
             f"bias={bias} x{count}/head: max_abs_err {err:.3e} rel {rel:.3e} (limit "
             f"{CONV_RTOL:g}; vs fp32 conv rel {rel32:.3e}); kernel {t['ms']:.4f} ms "
-            f"({tflops:.1f} TFLOP/s), bf16 plain {t['plain_ms']:.4f} ms, fp32 cuDNN "
-            f"{t['fp32_ms']:.4f} ms")
+            f"({flops / t['ms'] / 1e9:.1f} TFLOP/s), bf16 plain {t['plain_ms']:.4f} ms, fp32 "
+            f"cuDNN {t['fp32_ms']:.4f} ms, bf16 F.conv2d {t['library_ms']:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
         if not rel <= CONV_RTOL:
             raise AssertionError(f"conv3x3 {name}: kernel disagrees with its plain "
                                  f"version, rel err {rel:.3e} > {CONV_RTOL:g}")
-        for k in total:
-            total[k] += count * t[k]
-        rows.append(dict(name=name, max_abs_err=err, **t))
-    log(f"[kernel] conv3x3, one DPT head's 20 convs at batch 8: kernel {total['ms']:.4f} ms, "
-        f"bf16 plain {total['plain_ms']:.4f} ms, fp32 cuDNN {total['fp32_ms']:.4f} ms")
+        rows.append(dict(name=name, count=count, max_abs_err=err, bound_ms=bound_ms,
+                         bound_by=bound_by, **t))
+    total = summed(rows)
+    fp32 = sum(r["count"] * r["fp32_ms"] for r in rows)
+    log(f"[kernel] conv3x3, one DPT head's {sum(r['count'] for r in rows)} conv3x3 calls at "
+        f"batch 8: kernel {total['ms']:.4f} ms, bf16 plain {total['plain_ms']:.4f} ms, fp32 "
+        f"cuDNN {fp32:.4f} ms, bf16 F.conv2d {total['library_ms']:.4f} ms, bound "
+        f"{total['bound_ms']:.4f} ms ({total['bound_by']})")
     return rows, total
+
+
+def up2x_kernel_phase(torch):
+    """up2x against up2x_ref (its plain version) at each upsample of a DPT
+    head, batch 8, at 512x384 and at the 512x336 bucket's ragged grids; the
+    library call is `F.interpolate(..., "bilinear", align_corners=True)` on
+    the same fp32 channels_last x. Returns the rows and their sums over one
+    head's 5 calls at 512x384."""
+    import torch.nn.functional as F
+
+    from dust3r_tpu_torch.ops.upsample import up2x_kernel, up2x_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for name, c, h, w, count in UP2X_CASES:
+        x = torch.randn(BATCH_SIZE, c, h, w, device="cuda", generator=gen).contiguous(
+            memory_format=torch.channels_last)
+        out = up2x_kernel(x)
+        torch.cuda.synchronize()
+        ref = up2x_ref(x)
+        if not (out.shape == ref.shape and torch.isfinite(out).all()
+                and out.is_contiguous(memory_format=torch.channels_last)):
+            raise AssertionError(f"up2x {name}: bad kernel output {tuple(out.shape)}")
+        err, rel = _rel_err(out, ref)
+        del ref
+        t = dict(ms=time_ms(torch, lambda: up2x_kernel(x)),
+                 plain_ms=time_ms(torch, lambda: up2x_ref(x)),
+                 library_ms=time_ms(torch, lambda: F.interpolate(
+                     x, scale_factor=2, mode="bilinear", align_corners=True)))
+        # x read once, 4x its bytes written; 4 multiplies and 2 adds a value
+        bound_ms, bound_by = bound(5 * 4 * x.numel(), dict(fp32=6 * 4 * x.numel()))
+        log(f"[kernel] up2x {name} x{(BATCH_SIZE, c, h, w)} x{count}/head: max_abs_err "
+            f"{err:.3e} rel {rel:.3e} (limit {UP2X_RTOL:g}); kernel {t['ms']:.4f} ms "
+            f"({5 * 4 * x.numel() / t['ms'] / 1e6:.1f} GB/s), plain {t['plain_ms']:.4f} ms, "
+            f"F.interpolate {t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        if not rel <= UP2X_RTOL:
+            raise AssertionError(f"up2x {name}: kernel disagrees with its plain version, "
+                                 f"rel err {rel:.3e} > {UP2X_RTOL:g}")
+        rows.append(dict(name=name, count=count, max_abs_err=err, bound_ms=bound_ms,
+                         bound_by=bound_by, **t))
+    total = summed(rows)
+    log(f"[kernel] up2x, one DPT head's 5 calls at batch 8: kernel {total['ms']:.4f} ms, "
+        f"plain {total['plain_ms']:.4f} ms, F.interpolate {total['library_ms']:.4f} ms, "
+        f"bound {total['bound_ms']:.4f} ms ({total['bound_by']})")
+    return rows, total
+
+
+def tail_kernel_phase(torch):
+    """dpt_tail against dpt_tail_bf16_ref (its plain version) at the head's
+    tail, batch 8, 512x384 and 512x336. No one PyTorch call computes the
+    tail; beside it is timed the chain it replaces on the path (conv3x3
+    kernel at 128 -> 32, ReLU, fp32 cuDNN 1x1, postprocess)."""
+    import torch.nn.functional as F
+
+    from dust3r_tpu_torch.models.heads import postprocess
+    from dust3r_tpu_torch.ops.conv3x3 import conv3x3_kernel
+    from dust3r_tpu_torch.ops.dpt_tail import dpt_tail_bf16_ref, dpt_tail_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    modes = (("exp", -float("inf"), float("inf")), ("exp", 1.0, float("inf")))
+    rows = []
+    for name, h, w, count in TAIL_CASES:
+        y = (0.3 * torch.randn(BATCH_SIZE, 128, h, w, device="cuda", generator=gen)
+             ).contiguous(memory_format=torch.channels_last)
+        w2 = torch.randn(32, 128, 3, 3, device="cuda", generator=gen) * (9 * 128) ** -0.5
+        b2 = 0.1 * torch.randn(32, device="cuda", generator=gen)
+        w3 = 0.2 * torch.randn(4, 32, 1, 1, device="cuda", generator=gen)
+        b3 = 0.1 * torch.randn(4, device="cuda", generator=gen)
+        args = (y, w2, b2, w3, b3, modes[1][1])
+        pts, conf = dpt_tail_kernel(*args)
+        torch.cuda.synchronize()
+        want = dpt_tail_bf16_ref(*args)
+        errs = []
+        for key, got, ref in (("pts3d", pts, want[0]), ("conf", conf, want[1])):
+            if not (got.shape == ref.shape and got.is_contiguous()
+                    and torch.isfinite(got).all()):
+                raise AssertionError(f"dpt_tail {name}: bad {key} {tuple(got.shape)}")
+            errs.append((key, *_rel_err(got, ref)))
+        del want
+
+        def unfused():
+            h32 = F.relu(conv3x3_kernel(y, w2, b2))
+            return postprocess(F.conv2d(h32, w3, b3).permute(0, 2, 3, 1), *modes)
+
+        t = dict(ms=time_ms(torch, lambda: dpt_tail_kernel(*args)),
+                 plain_ms=time_ms(torch, lambda: dpt_tail_bf16_ref(*args)),
+                 unfused_ms=time_ms(torch, unfused))
+        M = BATCH_SIZE * h * w
+        nbytes = 4 * (M * 128 + 32 * 128 * 9 + 32 + 4 * 32 + 4 + M * 3 + M)
+        # conv2 on bf16 tensor cores; conv3 and ~20 operations a pixel of
+        # postprocess in fp32
+        bound_ms, bound_by = bound(nbytes, dict(bf16=2 * M * 32 * 9 * 128,
+                                                fp32=M * (2 * 32 * 4 + 20)))
+        log(f"[kernel] dpt_tail {name} y{(BATCH_SIZE, 128, h, w)} x{count}/head: "
+            + ", ".join(f"{k} max_abs_err {e:.3e} rel {r:.3e}" for k, e, r in errs)
+            + f" (limit {TAIL_RTOL:g}); kernel {t['ms']:.4f} ms ({nbytes / t['ms'] / 1e6:.1f} "
+            f"GB/s), bf16 plain {t['plain_ms']:.4f} ms, the unfused chain (conv3x3 kernel, "
+            f"ReLU, cuDNN 1x1, postprocess) {t['unfused_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by})")
+        if not all(r <= TAIL_RTOL for _, _, r in errs):
+            raise AssertionError(f"dpt_tail {name}: kernel disagrees with its plain "
+                                 f"version: {errs}")
+        rows.append(dict(name=name, count=count, max_abs_err=max(e for _, e, _ in errs),
+                         bound_ms=bound_ms, bound_by=bound_by, library_ms=None, **t))
+    return rows, summed(rows)
+
+
+def kernel_counters():
+    """Each kernel's wrapper, whose `launches` counts its kernel launches."""
+    from dust3r_tpu_torch.ops.conv3x3 import conv3x3_kernel
+    from dust3r_tpu_torch.ops.dpt_tail import dpt_tail_kernel
+    from dust3r_tpu_torch.ops.fused_attention import fused_attention
+    from dust3r_tpu_torch.ops.upsample import up2x_kernel
+
+    return dict(fused_attention=fused_attention, conv3x3=conv3x3_kernel, up2x=up2x_kernel,
+                dpt_tail=dpt_tail_kernel)
+
+
+def reset_launches():
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def expected_launches(model, encoder_batches, pair_batches):
+    """Each kernel's launches for the engine's batches: attention in every
+    encoder layer of an encoder batch and 4 calls (self and cross, two
+    streams) in every decoder layer of a pair batch; the DPT kernels
+    PER_HEAD times in each of a pair batch's two heads."""
+    expected = dict(fused_attention=model.enc_depth * encoder_batches
+                    + 4 * model.dec_depth * pair_batches)
+    expected.update({k: 2 * n * pair_batches for k, n in PER_HEAD.items()})
+    return expected
 
 
 def _check_request(name, out, n_pairs, shapes):
@@ -245,9 +468,7 @@ def slice_phase(torch):
     from dust3r_tpu_torch.image_pairs import make_pairs
     from dust3r_tpu_torch.inference import InferenceEngine, inference
     from dust3r_tpu_torch.model import dust3r_512_dpt
-    from dust3r_tpu_torch.models.heads import Conv3x3
-    from dust3r_tpu_torch.ops.conv3x3 import conv3x3_kernel
-    from dust3r_tpu_torch.ops.fused_attention import fused_attention
+    from dust3r_tpu_torch.models.heads import Conv3x3, Upsample2x
     from dust3r_tpu_torch.utils.image import views_from_arrays
 
     t0 = time.perf_counter()
@@ -257,6 +478,11 @@ def slice_phase(torch):
     log(f"[slice] dust3r_512_dpt: {n_params} fp32 params, enc {model.enc_depth} / "
         f"dec {model.dec_depth} layers, bf16 body, fp32 heads; built in "
         f"{time.perf_counter() - t0:.2f} s")
+    head = model.downstream_head1
+    modules = dict(conv3x3=sum(isinstance(m, Conv3x3) for m in head.modules()) - 1,
+                   up2x=sum(isinstance(m, Upsample2x) for m in head.modules()), dpt_tail=1)
+    if modules != PER_HEAD:  # head.2 is a Conv3x3 the tail kernel reads
+        raise AssertionError(f"a DPT head holds {modules} kernel calls, not {PER_HEAD}")
     rng = np.random.default_rng(SEED)
 
     def images(*heights):
@@ -271,8 +497,7 @@ def slice_phase(torch):
         return [tuple(tuple(v["img"].shape[1:3]) for v in p) for p in pairs]
 
     # the main path: every launch count starts at 0 here
-    fused_attention.launches = 0
-    conv3x3_kernel.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t_a = time.perf_counter()
     out_a = inference(req_a, engine, verbose=False)
@@ -284,38 +509,30 @@ def slice_phase(torch):
     t_c = time.perf_counter()
     out_c = inference(req_a, engine, verbose=False)
     t_c = time.perf_counter() - t_c
-    launches = dict(fused_attention=fused_attention.launches,
-                    conv3x3=conv3x3_kernel.launches)
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
 
     for name, out, pairs in (("a", out_a, req_a), ("b", out_b, req_b), ("c", out_c, req_a)):
         _check_request(f"request {name}", out, len(pairs), shapes(pairs))
-    expected = (model.enc_depth * engine.encoder_batches
-                + 4 * model.dec_depth * engine.pair_batches)
-    convs_per_pair_batch = sum(isinstance(m, Conv3x3) for m in model.modules())  # both heads
-    expected_conv = convs_per_pair_batch * engine.pair_batches
+    expected = expected_launches(model, engine.encoder_batches, engine.pair_batches)
     log(f"[slice] request a: {len(req_a)} pairs 512x384 in {t_a:.3f} s (cold); "
         f"request b: {len(req_b)} pairs, buckets {sorted(set(shapes(req_b)))}, "
         f"in {t_b:.3f} s; request c (= a, warm): {t_c:.3f} s, "
         f"{len(req_a) / t_c:.3f} pairs/s")
     log(f"[slice] engine: {engine.encoder_batches} encoder batches, "
-        f"{engine.pair_batches} pair batches -> {expected} attention calls, "
-        f"{convs_per_pair_batch} x {engine.pair_batches} = {expected_conv} 3x3 conv calls; "
-        f"launches {launches}; peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
-    if launches["fused_attention"] != expected:
-        raise AssertionError(f"attention launches {launches['fused_attention']} != "
-                             f"{expected}: some attention call of the main path "
-                             f"bypassed the kernel")
-    if launches["conv3x3"] != expected_conv:
-        raise AssertionError(f"conv3x3 launches {launches['conv3x3']} != {expected_conv}: "
-                             f"some 3x3 conv of the main path bypassed the kernel")
+        f"{engine.pair_batches} pair batches; per DPT head {PER_HEAD}; launches "
+        f"{launches} (expected {expected}); peak device memory {peak} bytes "
+        f"({peak / 2**30:.3f} GiB)")
+    if launches != expected:
+        raise AssertionError(f"launches {launches} != {expected}: some call of the main "
+                             f"path bypassed its kernel")
     drift = float(np.abs(out_a["pred1"]["pts3d"] - out_c["pred1"]["pts3d"]).max()
                   / np.abs(out_a["pred1"]["pts3d"]).max())
     if not drift <= 1e-3:
         raise AssertionError(f"request c differs from request a by {drift:.3e}")
 
     # bf16 kernel forward vs fp32 plain forward (plain attention, fp32
-    # cuDNN convs), same weights
+    # cuDNN convs, the plain fp32 upsample and tail), same weights
     model32 = dust3r_512_dpt(dtype=torch.float32, attn_impl="plain", conv_impl="ref",
                              device="cuda", seed=SEED + 1)
     model32.load_state_dict(model.state_dict())
@@ -381,9 +598,6 @@ def _align(torch, name, out, device):
 def scene_phase(torch, engine, pairs):
     import numpy as np
 
-    from dust3r_tpu_torch.models.heads import Conv3x3
-    from dust3r_tpu_torch.ops.conv3x3 import conv3x3_kernel
-    from dust3r_tpu_torch.ops.fused_attention import fused_attention
     from dust3r_tpu_torch.tools.scenes import synthetic_scene
 
     # (i) a synthetic scene with a known answer, at full resolution
@@ -403,16 +617,13 @@ def scene_phase(torch, engine, pairs):
     # its launch counts start at 0 here
     model = engine.model
     batches = (engine.encoder_batches, engine.pair_batches)
-    fused_attention.launches = 0
-    conv3x3_kernel.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     out = engine.infer_pairs(pairs, to_cpu=False)
     torch.cuda.synchronize()
-    launches = dict(fused_attention=fused_attention.launches,
-                    conv3x3=conv3x3_kernel.launches)
-    enc, pair = engine.encoder_batches - batches[0], engine.pair_batches - batches[1]
-    expected = dict(fused_attention=model.enc_depth * enc + 4 * model.dec_depth * pair,
-                    conv3x3=sum(isinstance(m, Conv3x3) for m in model.modules()) * pair)
+    launches = read_launches()
+    expected = expected_launches(model, engine.encoder_batches - batches[0],
+                                 engine.pair_batches - batches[1])
     log(f"[scene] quick start: {len(pairs)} pairs served on the device in "
         f"{time.perf_counter() - t0:.3f} s; launches {launches} (expected {expected})")
     if launches != expected:
@@ -434,24 +645,28 @@ def main(argv):
     device_phase(torch)
     build_phase()
     attn_rows = attention_kernel_phase(torch)
-    conv_rows, conv_total = conv_kernel_phase(torch)
+    _, conv_total = conv_kernel_phase(torch)
+    _, up_total = up2x_kernel_phase(torch)
+    _, tail_total = tail_kernel_phase(torch)
     if "--kernels-only" in argv:
         return 0
     launches, engine, pairs = slice_phase(torch)
     scene_phase(torch, engine, pairs)
-    enc = attn_rows[0]
-    kernels = [dict(name="fused_attention", route="cuda",
-                    source="dust3r_tpu_torch/csrc/fused_attention.cu",
-                    replaces="dust3r_tpu/ops/pallas_attention.py:142",
-                    launches=launches["fused_attention"],
-                    max_abs_err=max(r["max_abs_err"] for r in attn_rows),
-                    ms=enc["ms"], plain_ms=enc["plain_ms"]),
-               dict(name="conv3x3", route="cuda",
-                    source="dust3r_tpu_torch/csrc/conv3x3.cu",
-                    replaces="dust3r_tpu/ops/conv3x3.py:74",
-                    launches=launches["conv3x3"],
-                    max_abs_err=max(r["max_abs_err"] for r in conv_rows),
-                    ms=conv_total["ms"], plain_ms=conv_total["plain_ms"])]
+    # attention: the encoder's self-attention shape; conv3x3 and up2x: one
+    # DPT head's calls at batch 8, summed; dpt_tail: the head's one call
+    rows = dict(fused_attention=dict(attn_rows[0], max_abs_err=max(
+        r["max_abs_err"] for r in attn_rows)), conv3x3=conv_total, up2x=up_total,
+        dpt_tail=tail_total)
+    where = dict(
+        fused_attention=("fused_attention.cu", "dust3r_tpu/ops/pallas_attention.py:142"),
+        conv3x3=("conv3x3.cu", "dust3r_tpu/ops/conv3x3.py:74"),
+        up2x=("up2x.cu", "scripts/exp_up_pallas_r2.py:79"),
+        dpt_tail=("dpt_tail.cu", "scripts/exp_tailk_r2.py:78, scripts/exp_tailk2_r2.py:113"))
+    kernels = [dict(name=name, route="cuda", source=f"dust3r_tpu_torch/csrc/{src}",
+                    replaces=replaces, launches=launches[name],
+                    **{k: rows[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                  "bound_by", "library_ms")})
+               for name, (src, replaces) in where.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

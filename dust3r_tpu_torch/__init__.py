@@ -2,11 +2,11 @@
 
 Scene reconstruction (images -> pairs -> engine -> pointmaps and
 confidences -> global aligner -> one scene's pointmaps, poses and focals),
-with the fused 2D-RoPE attention and the DPT heads' 3x3 convs as
-hand-written CUDA kernels (`csrc/`, built at first use into
-`build/dust3r_tpu_torch/`). The
-JAX package `dust3r_tpu` is the reference this port is tested against; the
-port imports no JAX.
+with the fused 2D-RoPE attention and the DPT heads' 3x3 convs, 2x
+upsamples and tails as hand-written CUDA kernels (`csrc/`, built at first
+use into `build/dust3r_tpu_torch/`). Entry points run on the CUDA card
+unless the caller passes `device="cpu"`. The JAX package `dust3r_tpu` is
+the reference this port is tested against; the port imports no JAX.
 
 Precision: params fp32; the transformer body computes in the model's
 `dtype` (bf16 on the card) with fp32 LayerNorm and softmax; heads fp32.

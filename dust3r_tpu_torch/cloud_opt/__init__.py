@@ -26,8 +26,9 @@ def global_aligner(dust3r_output, device=None, mode=GlobalAlignerMode.PointCloud
     """Build a scene optimizer from an inference output dict: numpy
     predictions (`inference()`) or device tensors
     (`InferenceEngine.infer_pairs(..., to_cpu=False)`). `device`: where the
-    scene's observations and parameters live; None takes the predictions'
-    device (the CPU for numpy)."""
+    scene's observations and parameters live; None keeps tensor predictions
+    on their device and puts numpy ones on the CUDA card, and raises when
+    there is none (pass device="cpu" for the CPU)."""
     view1, view2 = dust3r_output["view1"], dust3r_output["view2"]
     pred1, pred2 = dust3r_output["pred1"], dust3r_output["pred2"]
     try:

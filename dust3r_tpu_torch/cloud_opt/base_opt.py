@@ -13,7 +13,8 @@ of bf16 observations fit the card's memory without chunking.
 
 The observations are built on the scene's device from the predictions as
 they come: device tensors from `InferenceEngine.infer_pairs(...,
-to_cpu=False)` stay there, host numpy is copied once. The init and the
+to_cpu=False)` stay there, host numpy is copied once (to the CUDA card
+unless a `device` is given). The init and the
 confidence maps work on host copies (numpy), as in the JAX package. The
 parameters are a dict of tensors on the device; the masks that freeze them
 are host numpy.
@@ -26,6 +27,7 @@ import time
 import numpy as np
 import torch
 
+from ..utils.device import default_device
 from ..utils.geometry import geotrf, inv
 from ..utils.pose import matrix_to_pose_vec, pose_vec_to_matrix
 from .commons import (ALL_DISTS, compute_edge_scores, edge_str, get_conf_trf,
@@ -66,11 +68,12 @@ def rigid_apply(R, t, pts):
 
 
 def _scene_device(device, pts):
-    """`device`, else the predictions' device (the CPU for numpy)."""
+    """`device`, else the predictions' device when they are tensors, else
+    the CUDA card (raises without one)."""
     if device is not None:
         return torch.device(device)
     first = pts[0] if isinstance(pts, (list, tuple)) else pts
-    return first.device if isinstance(first, torch.Tensor) else torch.device("cpu")
+    return first.device if isinstance(first, torch.Tensor) else default_device("global_aligner")
 
 
 class BasePCOptimizer:

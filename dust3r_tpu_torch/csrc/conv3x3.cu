@@ -19,15 +19,10 @@
 //     four warps of 64 x 32 (or 64 x 16); blockIdx.x walks the channel
 //     tiles, so the blocks that read the same pixels run side by side and
 //     share them in L2;
-//   * a k-loop over the nine taps x Cin/32 channel chunks: each step stages
-//     a 128 x 32 slice of x (fp32, 16-byte loads, the tap's shift applied
-//     to the pixel index and the zero halo applied in the load) and the
-//     matching 32 x BN slice of W in registers, rounds x to bf16 and stores
-//     both to a double-buffered shared-memory tile, so the global loads of
-//     step k+1 are in flight while the tensor cores work on step k;
-//   * mma.sync m16n8k16 bf16 with fp32 accumulators in registers, A
-//     fragments by ldmatrix and B fragments by ldmatrix.trans; rows padded
-//     by 8 elements so fragment loads hit distinct banks;
+//   * the k-loop of conv3x3_igemm.cuh over the nine taps x Cin/32 channel
+//     chunks (x rounded to bf16 on its way to a double-buffered shared tile,
+//     the next step's global loads in flight during this step's products),
+//     mma.sync m16n8k16 bf16 with fp32 accumulators in registers;
 //   * the bias added in the epilogue, y stored once in fp32.
 // Not carried over from the TPU design: the three tap-column matmuls into a
 // bf16 Z of 3 * Cout channels and the vertical combine outside the kernel
@@ -38,179 +33,31 @@
 // not synchronise; the entry point returns cudaGetLastError() after the
 // launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "conv3x3_igemm.cuh"
 
 namespace {
 
-constexpr int kBM = 128;            // output pixels per block
-constexpr int kBK = 32;             // input channels per k-step (one tap)
-constexpr int kThreads = 128;       // four warps: 2 (pixels) x 2 (channels)
-constexpr int kAStride = kBK + 8;   // bf16 per A row in shared memory (80 bytes)
-constexpr int kRowsPerPass = kThreads / (kBK / 4);  // A rows one pass of 16-byte loads covers
-constexpr int kARows = kBM / kRowsPerPass;          // A rows each thread stages
-
-// acc (16x8 fp32) += a (16x16 bf16, row-major) * b (16x8 bf16, col-major)
-__device__ __forceinline__ void mma_bf16(float (&acc)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The A fragment of a 16x16 tile: lane i passes row (i % 16), column
-// 8 * (i / 16) of the tile.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// B fragments of two adjacent 8-column tiles of a row-major (16 k-rows,
-// 16 n-columns) tile: lane i passes k-row (i % 16), column 8 * (i / 16);
-// r[0], r[1] are the first tile's (b0, b1), r[2], r[3] the second's.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ uint2 to_bf16x4(float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&lo);
-  u.y = *reinterpret_cast<uint32_t*>(&hi);
-  return u;
-}
+using namespace conv3x3_igemm;
 
 template <int BN>
 __global__ void __launch_bounds__(kThreads)
 conv3x3_igemm_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ wp,
                      const float* __restrict__ bias, float* __restrict__ y, int H, int W,
                      int cin, int cout, int npix) {
-  constexpr int kBStride = BN + 8;           // bf16 per B row in shared memory
-  constexpr int kWN = BN / 2;                // channels per warp
-  constexpr int kNT = kWN / 8;               // 8-column mma tiles per warp
-  constexpr int kMT = 4;                     // 16-row mma tiles per warp (64 rows)
-  constexpr int kBVecs = kBK * BN / 8 / kThreads;  // 16-byte B loads per thread
-  static_assert(kNT % 2 == 0 && kBVecs >= 1, "tile shape");
-
-  __shared__ __align__(16) __nv_bfloat16 as[2][kBM][kAStride];
-  __shared__ __align__(16) __nv_bfloat16 bs[2][kBK][kBStride];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int warp_m = warp >> 1;
-  const int warp_n = warp & 1;
+  constexpr int kWN = BN / 2;  // channels per warp
+  constexpr int kNT = kWN / 8;  // 8-column mma tiles per warp
+  __shared__ __align__(16) Tiles<BN> sm;
   const int n0 = blockIdx.x * BN;
   const int m0 = blockIdx.y * kBM;
-
-  // the pixels this thread stages: rows r0 + kRowsPerPass * i of the tile
-  const int quad = tid % (kBK / 4);  // which 4 of the chunk's 32 channels
-  const int r0 = tid / (kBK / 4);
-  int pix[kARows], ph[kARows], pw[kARows];
-#pragma unroll
-  for (int i = 0; i < kARows; ++i) {
-    const int m = m0 + r0 + kRowsPerPass * i;
-    pix[i] = m;
-    ph[i] = m < npix ? (m / W) % H : -2;  // -2: every tap falls outside
-    pw[i] = m % W;
-  }
-
-  const int chunks = cin / kBK;
-  const int nk = 9 * chunks;
-  float4 areg[kARows];
-  uint4 breg[kBVecs];
-
-  auto load = [&](int kc) {
-    const int tap = kc / chunks;
-    const int c0 = (kc - tap * chunks) * kBK + quad * 4;
-    const int dy = tap / 3 - 1;
-    const int dx = tap % 3 - 1;
-    const int shift = dy * W + dx;
-#pragma unroll
-    for (int i = 0; i < kARows; ++i) {
-      const int hh = ph[i] + dy;
-      const int ww = pw[i] + dx;
-      if (hh >= 0 && hh < H && ww >= 0 && ww < W) {
-        areg[i] = *reinterpret_cast<const float4*>(
-            x + (size_t)(pix[i] + shift) * cin + c0);
-      } else {
-        areg[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kBVecs; ++i) {
-      const int v = tid + i * kThreads;
-      const int row = v / (BN / 8);
-      const int col = (v % (BN / 8)) * 8;
-      breg[i] = *reinterpret_cast<const uint4*>(
-          wp + (size_t)(kc * kBK + row) * cout + n0 + col);
-    }
-  };
-
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < kARows; ++i) {
-      *reinterpret_cast<uint2*>(&as[buf][r0 + kRowsPerPass * i][quad * 4]) =
-          to_bf16x4(areg[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < kBVecs; ++i) {
-      const int v = tid + i * kThreads;
-      *reinterpret_cast<uint4*>(&bs[buf][v / (BN / 8)][(v % (BN / 8)) * 8]) = breg[i];
-    }
-  };
-
-  float acc[kMT][kNT][4];
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-  load(0);
-  store(0);
-  __syncthreads();
-  for (int kc = 0; kc < nk; ++kc) {
-    const int cur = kc & 1;
-    if (kc + 1 < nk) load(kc + 1);  // in flight during the products below
-#pragma unroll
-    for (int ks = 0; ks < kBK / 16; ++ks) {
-      uint32_t a[kMT][4];
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        ldmatrix_x4(a[mt], &as[cur][warp_m * 64 + mt * 16 + (lane & 15)]
-                             [ks * 16 + (lane >> 4) * 8]);
-      }
-#pragma unroll
-      for (int np = 0; np < kNT / 2; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, &bs[cur][ks * 16 + (lane & 15)]
-                                 [warp_n * kWN + np * 16 + (lane >> 4) * 8]);
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-          mma_bf16(acc[mt][2 * np], a[mt], b[0], b[1]);
-          mma_bf16(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
-        }
-      }
-    }
-    if (kc + 1 < nk) store(cur ^ 1);
-    __syncthreads();
-  }
+  Acc<BN> acc;
+  mainloop<BN>(x, wp, H, W, cin, cout, npix, n0, m0, sm, acc);
 
   // epilogue: lane (g, t) holds rows g and g + 8, columns 2t and 2t + 1 of
   // each 16 x 8 tile
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warp_m = warp >> 1;
+  const int warp_n = warp & 1;
   const int g = lane >> 2;
   const int t = lane & 3;
 #pragma unroll

@@ -4,10 +4,14 @@ Counterpart of `dust3r_tpu/models/heads.py`, with the reference's torch
 tensor names (`proj`, `dpt.act_postprocess.*`, `dpt.scratch.*`,
 `dpt.head.*`). Heads run in fp32 on fp32 tokens; the DPT trunk's tensors
 are NCHW-shaped in `torch.channels_last` memory (NHWC, the layout of the
-JAX heads and of the conv3x3 kernel; the tokens reshape into it with no
-copy) and it returns NHWC, the layout the postprocess uses. Its 20 stride-1
-3x3 convolutions are `Conv3x3` modules that go through the conv3x3
-dispatcher (`ops/conv3x3.py`): the CUDA kernel for CUDA tensors by default.
+JAX heads and of the kernels; the tokens reshape into it with no copy).
+Three dispatchers carry it, each to its CUDA kernel for CUDA tensors by
+default: 19 of its 20 stride-1 3x3 convolutions are `Conv3x3` modules
+through `ops/conv3x3.py`, its five 2x upsamples `Upsample2x` modules
+through `ops/upsample.py`, and its tail (the last 3x3 conv, the ReLU, the
+1x1 conv and the postprocess) is one `ops/dpt_tail.py` call that reads the
+`dpt.head.2` and `dpt.head.4` modules' weights. The model's `conv_impl`
+goes to all three.
 """
 from __future__ import annotations
 
@@ -19,6 +23,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv3x3 import conv3x3 as conv3x3_op
+from ..ops.dpt_tail import dpt_tail as dpt_tail_op
+from ..ops.dpt_tail import kernel_conf_vmin
+from ..ops.upsample import up2x as up2x_op
 
 Mode = Tuple[str, float, float]
 
@@ -82,10 +89,15 @@ class LinearPts3d(nn.Module):
 
 
 class Upsample2x(nn.Module):
-    """Bilinear 2x upsample with align_corners=True (NCHW)."""
+    """Bilinear 2x upsample with align_corners=True (NCHW-shaped, channels_last
+    memory) through the up2x dispatcher. `impl` is the dispatcher's."""
+
+    def __init__(self, impl=None):
+        super().__init__()
+        self.impl = impl
 
     def forward(self, x):
-        return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=True)
+        return up2x_op(x, self.impl)
 
 
 class Conv3x3(nn.Conv2d):
@@ -123,7 +135,7 @@ class FeatureFusionBlock(nn.Module):
             self.resConfUnit1 = ResidualConvUnit(features, conv_impl)
         self.resConfUnit2 = ResidualConvUnit(features, conv_impl)
         self.out_conv = nn.Conv2d(features, features, 1)
-        self.upsample = Upsample2x()
+        self.upsample = Upsample2x(conv_impl)
 
     def forward(self, x, res=None):
         out = x if res is None else x + self.resConfUnit1(res)
@@ -146,12 +158,18 @@ class _Scratch(nn.Module):
 
 class DPTOutputAdapter(nn.Module):
     """DPT fusion trunk over 4 hooked decoder layers (entry 0 of the hook
-    list is the encoder output). `conv_impl` goes to its 20 `Conv3x3`s."""
+    list is the encoder output) and the regression head, up to the
+    postprocessed pointmap and confidence. `conv_impl` goes to its
+    `Conv3x3`s, its `Upsample2x`s and its tail."""
 
-    def __init__(self, dim_tokens, hooks, nch, layer_dims=(96, 192, 384, 768),
-                 feature_dim=256, conv_impl=None):
+    def __init__(self, dim_tokens, hooks, nch, depth_mode, conf_mode,
+                 layer_dims=(96, 192, 384, 768), feature_dim=256, conv_impl=None):
         super().__init__()
         self.hooks = tuple(hooks)
+        self.depth_mode, self.conf_mode = depth_mode, conf_mode
+        self.conv_impl = conv_impl
+        # the tail kernel's conf offset; None: modes it does not take
+        self.conf_vmin = kernel_conf_vmin(depth_mode, conf_mode)
         l0, l1, l2, l3 = layer_dims
         self.act_postprocess = nn.ModuleList([
             nn.Sequential(nn.Conv2d(dim_tokens[0], l0, 1),
@@ -164,7 +182,7 @@ class DPTOutputAdapter(nn.Module):
         ])
         self.scratch = _Scratch(layer_dims, feature_dim, conv_impl)
         self.head = nn.Sequential(
-            Conv3x3(feature_dim, feature_dim // 2, impl=conv_impl), Upsample2x(),
+            Conv3x3(feature_dim, feature_dim // 2, impl=conv_impl), Upsample2x(conv_impl),
             Conv3x3(feature_dim // 2, 32, impl=conv_impl), nn.ReLU(),
             nn.Conv2d(32, nch, 1))
 
@@ -182,7 +200,24 @@ class DPTOutputAdapter(nn.Module):
         path = s.refinenet3(path, layers[2])
         path = s.refinenet2(path, layers[1])
         path = s.refinenet1(path, layers[0])
-        return self.head(path).permute(0, 2, 3, 1)  # NHWC
+        return self.tail(self.head[1](self.head[0](path)))
+
+    def tail(self, y):
+        """head[2:] and the postprocess on y (B, 128, H, W): one dpt_tail
+        call with the weights of head[2] (3x3, 128 -> 32) and head[4] (1x1,
+        32 -> 4). Modes the tail kernel does not take run the modules
+        themselves, and raise where the kernel was asked for."""
+        if self.conf_vmin is not None:
+            conv2, conv3 = self.head[2], self.head[4]
+            pts3d, conf = dpt_tail_op(y, conv2.weight, conv2.bias, conv3.weight, conv3.bias,
+                                      self.conf_vmin, self.conv_impl)
+            return dict(pts3d=pts3d, conf=conf)
+        if self.conv_impl == "kernel" or (self.conv_impl is None and y.is_cuda):
+            raise ValueError(f"the dpt_tail kernel takes depth mode ('exp', -inf, inf) and "
+                             f"conf mode ('exp', vmin, inf), not {self.depth_mode} and "
+                             f"{self.conf_mode}; conv_impl='ref' runs any mode")
+        out = self.head[2:](y).permute(0, 2, 3, 1)  # NHWC
+        return postprocess(out, self.depth_mode, self.conf_mode)
 
 
 class DPTHead(nn.Module):
@@ -194,14 +229,12 @@ class DPTHead(nn.Module):
                  conv_impl=None):
         super().__init__()
         self.patch_size = patch_size
-        self.depth_mode = depth_mode
-        self.conf_mode = conf_mode if has_conf else None
         self.dpt = DPTOutputAdapter((enc_dim, dec_dim, dec_dim, dec_dim), hooks,
-                                    3 + int(has_conf), conv_impl=conv_impl)
+                                    3 + int(has_conf), depth_mode,
+                                    conf_mode if has_conf else None, conv_impl=conv_impl)
 
     def forward(self, decout, img_shape):
-        out = self.dpt([t.float() for t in decout], img_shape, self.patch_size)
-        return postprocess(out, self.depth_mode, self.conf_mode)
+        return self.dpt([t.float() for t in decout], img_shape, self.patch_size)
 
 
 def head_factory(head_type, output_mode, *, patch_size, dec_depth, depth_mode,

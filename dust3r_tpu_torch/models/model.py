@@ -5,11 +5,13 @@ Counterpart of `dust3r_tpu/models/model.py` for inference: encode / decode
 / head are separate methods so the inference engine encodes each unique
 image once; images are NHWC at their true orientation; params are fp32,
 the transformer body computes in `dtype` (bf16 on the card) and the heads
-in fp32. `attn_impl` and `conv_impl` pick the attention and DPT 3x3 conv
-paths (None: the kernels for CUDA tensors). Submodule names are the
+in fp32. `attn_impl` and `conv_impl` pick the attention and DPT head
+paths (conv3x3, up2x and dpt_tail; None: the kernels for CUDA tensors). Submodule names are the
 reference's torch tensor names, so
 `checkpoint.state_dict_from_jax` output loads with `load_state_dict`.
-Parameters are made from a seeded `torch.Generator` on `device`.
+Parameters are made from a seeded `torch.Generator` on `device`: the CUDA
+card when none is given (it raises without one; pass device="cpu" for the
+CPU, device="meta" for shapes only).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 from torch import nn
 
 from ..ops.rope import rope_tables
+from ..utils.device import default_device
 from .blocks import Block, DecoderBlock, LayerNormF32, Linear, PatchEmbed
 from .heads import head_factory
 
@@ -39,6 +42,8 @@ class AsymmetricCroCo3DStereo(nn.Module):
         super().__init__()
         if not pos_embed.startswith("RoPE"):
             raise NotImplementedError(f"unsupported pos_embed {pos_embed}")
+        device = (torch.device(device) if device is not None
+                  else default_device(type(self).__name__))
         self.img_size = tuple(img_size)
         self.patch_size = patch_size
         self.enc_depth = enc_depth
@@ -69,7 +74,7 @@ class AsymmetricCroCo3DStereo(nn.Module):
             self.dec_norm = LayerNormF32(dec_embed_dim)
             self.downstream_head1 = head_factory(head_type, output_mode, **head_kw)
             self.downstream_head2 = head_factory(head_type, output_mode, **head_kw)
-        self.to_empty(device=device if device is not None else "cpu")
+        self.to_empty(device=device)
         if self.patch_embed.proj.weight.device.type != "meta":  # meta: shapes only
             self.reset_parameters(seed)
 

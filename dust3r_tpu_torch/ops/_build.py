@@ -3,9 +3,10 @@
 Each `csrc/*.cu` is compiled by `nvcc` for `sm_90a` into a shared library
 with a plain C interface (no PyTorch headers: seconds, not minutes). The
 library lands in `build/dust3r_tpu_torch/<hash>/`, keyed by a hash of the
-sources and flags, so an edited source builds anew and an unchanged one is
-loaded as it is. `build` starts one nvcc per source, all at once. A failed
-build raises; nothing falls back.
+source, the shared headers (`csrc/*.cuh`) and the flags, so an edited
+source or header builds anew and an unchanged one is loaded as it is.
+`build` starts one nvcc per source, all at once. A failed build raises;
+nothing falls back.
 """
 from __future__ import annotations
 
@@ -39,6 +40,8 @@ def nvcc_path():
 def _out_dir(name):
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
     return src, BUILD_ROOT / digest.hexdigest()[:16]
 
 

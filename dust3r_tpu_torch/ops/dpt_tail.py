@@ -1,0 +1,156 @@
+"""The DPT head's tail: conv2 (3x3, 128 -> 32) + ReLU + conv3 (1x1, 32 -> 4)
++ the exp postprocess, as one CUDA kernel; its wrapper, its plain versions
+and the dispatcher.
+
+Replaces `scripts/exp_tailk_r2.py::tail_pallas` and
+`scripts/exp_tailk2_r2.py::tail3_pallas` (two TPU blockings of one
+function: the last four lines of `dust3r_tpu/models/heads.py::DPTHead`).
+The kernel is `csrc/dpt_tail.cu` (hand-written for sm_90a: the conv3x3
+implicit GEMM at 32 output channels, then an epilogue that applies the
+ReLU, the 1x1 and the postprocess to each pixel in shared memory; its
+header says what bounds it on the card and how the design answers that).
+Like conv3x3 it rounds y and w2 to bf16 and sums in fp32; the rest is fp32.
+
+It serves the depth mode ('exp', -inf, inf) and a conf mode ('exp',
+conf_vmin, inf), those of every published config (`kernel_conf_vmin`
+tells). Layouts are PyTorch's: y is (B, 128, H, W) in `torch.channels_last`
+memory (the upsample's output), w2 (32, 128, 3, 3), b2 (32,), w3
+(4, 32, 1, 1), b3 (4,); the results are pts3d (B, H, W, 3) and conf
+(B, H, W), contiguous fp32, as the JAX head returns them.
+
+* `dpt_tail_ref` is fp32 throughout (`F.conv2d`, ReLU, the 1x1, the
+  postprocess), the counterpart of the script's `tail_xla` and of the JAX
+  head's last lines.
+* `dpt_tail_bf16_ref` is the kernel's function in plain PyTorch: y and w2
+  rounded to bf16, everything else fp32.
+* `dpt_tail_kernel` is the wrapper. For CPU tensors it returns
+  `dpt_tail_bf16_ref`; for CUDA tensors it launches the kernel or raises.
+  `dpt_tail_kernel.launches` counts kernel launches.
+* `dpt_tail(..., impl)` dispatches: impl None (auto: the kernel for CUDA
+  tensors, 'ref' for CPU tensors), 'ref' or 'kernel'. Nothing falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .conv3x3 import pack_weight
+
+IMPLS = ("ref", "kernel")
+CIN, HIDDEN, NOUT = 128, 32, 4  # y's channels, conv2's outputs, conv3's outputs
+
+
+def kernel_conf_vmin(depth_mode, conf_mode):
+    """conf_vmin when the kernel serves these modes (depth ('exp', -inf,
+    inf), conf ('exp', vmin, inf) with a finite vmin), else None."""
+    if tuple(depth_mode) != ("exp", -math.inf, math.inf) or conf_mode is None:
+        return None
+    name, vmin, vmax = conf_mode
+    if name != "exp" or vmax != math.inf or not math.isfinite(vmin):
+        return None
+    return float(vmin)
+
+
+def _postprocess(o4, conf_vmin):
+    """o4 (B, 4, H, W) -> pts3d (B, H, W, 3), conf (B, H, W): the JAX
+    `reg_dense_depth` ('exp', -inf, inf) and `reg_dense_conf` ('exp',
+    conf_vmin, inf)."""
+    o4 = o4.permute(0, 2, 3, 1)
+    xyz = o4[..., 0:3]
+    d = xyz.norm(dim=-1, keepdim=True)
+    pts = xyz / d.clamp(min=1e-8) * torch.expm1(d)
+    return pts.contiguous(), (conf_vmin + o4[..., 3].exp()).contiguous()
+
+
+def dpt_tail_ref(y, w2, b2, w3, b3, conf_vmin):
+    """The tail in fp32: conv2 + b2, ReLU, conv3 + b3, postprocess."""
+    h = F.relu(F.conv2d(y, w2, b2, padding=1))
+    return _postprocess(F.conv2d(h, w3, b3), conf_vmin)
+
+
+def dpt_tail_bf16_ref(y, w2, b2, w3, b3, conf_vmin):
+    """The kernel's function in plain PyTorch: y and w2 rounded to bf16
+    (their products are exact in fp32), the rest in fp32."""
+    yr = y.to(torch.bfloat16).float()
+    w2r = w2.to(torch.bfloat16).float()
+    return dpt_tail_ref(yr, w2r, b2, w3, b3, conf_vmin)
+
+
+_LIB = None
+
+
+def _kernel():
+    global _LIB
+    if _LIB is None:
+        from ._build import load_library
+
+        fn = load_library("dpt_tail").dust3r_dpt_tail
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_float] + [ctypes.c_void_p] * 2
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _LIB = fn
+    return _LIB
+
+
+def _check(y, w2, b2, w3, b3):
+    tensors = (y, w2, b2, w3, b3)
+    if not (y.is_cuda and all(t.device == y.device for t in tensors)):
+        raise ValueError("y, w2, b2, w3 and b3 must lie on one CUDA device")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"dpt_tail kernel takes fp32 tensors, got "
+                        f"{[t.dtype for t in tensors]}")
+    want = ((CIN,), (HIDDEN, CIN, 3, 3), (HIDDEN,), (NOUT, HIDDEN, 1, 1), (NOUT,))
+    got = (tuple(y.shape[1:2]),) + tuple(tuple(t.shape) for t in tensors[1:])
+    if y.dim() != 4 or got != want:
+        raise ValueError(f"want y (B, {CIN}, H, W), w2 {want[1]}, b2 {want[2]}, w3 "
+                         f"{want[3]}, b3 {want[4]}; got y {tuple(y.shape)}, "
+                         f"{[tuple(t.shape) for t in tensors[1:]]}")
+    B, _, H, W = y.shape
+    if B * H * W == 0 or B * H * W * CIN >= 2 ** 31 - 1:
+        raise ValueError(f"unsupported size {tuple(y.shape)}")
+    if not y.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError("y must be channels_last (NHWC memory)")
+    if y.data_ptr() % 16:
+        raise ValueError("y must start at a 16-byte aligned address")
+
+
+def dpt_tail_kernel(y, w2, b2, w3, b3, conf_vmin):
+    """y (B, 128, H, W) fp32 channels_last -> pts3d (B, H, W, 3), conf
+    (B, H, W), both contiguous fp32."""
+    if y.device.type == "cpu":
+        return dpt_tail_bf16_ref(y, w2, b2, w3, b3, conf_vmin)
+    _check(y, w2, b2, w3, b3)
+    B, _, H, W = y.shape
+    w2p = pack_weight(w2)
+    w3c, b2c, b3c = w3.reshape(NOUT, HIDDEN).contiguous(), b2.contiguous(), b3.contiguous()
+    pts = torch.empty((B, H, W, 3), device=y.device, dtype=torch.float32)
+    conf = torch.empty((B, H, W), device=y.device, dtype=torch.float32)
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        err = _kernel()(y.data_ptr(), w2p.data_ptr(), b2c.data_ptr(), w3c.data_ptr(),
+                        b3c.data_ptr(), float(conf_vmin), pts.data_ptr(), conf.data_ptr(),
+                        B, H, W, stream)
+    if err != 0:
+        raise RuntimeError(f"dpt_tail kernel launch failed: CUDA error {err} "
+                           f"(y {tuple(y.shape)})")
+    dpt_tail_kernel.launches += 1
+    return pts, conf
+
+
+dpt_tail_kernel.launches = 0
+
+
+def dpt_tail(y, w2, b2, w3, b3, conf_vmin, impl=None):
+    """The DPT head's tail. impl: None (auto: the kernel for CUDA tensors,
+    else 'ref'), 'ref' or 'kernel' ('kernel' on CPU tensors runs the
+    kernel's plain version, as its wrapper does)."""
+    if impl is None:
+        impl = "kernel" if y.is_cuda else "ref"
+    if impl == "kernel":
+        return dpt_tail_kernel(y, w2, b2, w3, b3, conf_vmin)
+    if impl == "ref":
+        return dpt_tail_ref(y, w2, b2, w3, b3, conf_vmin)
+    raise ValueError(f"dpt_tail impl {impl!r} not in {IMPLS} or None")

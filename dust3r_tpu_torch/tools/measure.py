@@ -9,13 +9,14 @@
 InferenceEngine -> inference, at full width with seeded random weights
 (bf16 body, fp32 heads).
 
-  ab       each kernel against its plain version, end to end: three
-           models with the same weights, "kernels" (both kernels),
-           "plain attention" (plain bf16 attention, conv kernel) and "ref
-           conv" (attention kernel, fp32 cuDNN 3x3 convs), warmed, then
-           timed in the order kernels, plain attention, ref conv, ref conv,
-           plain attention, kernels, `--reps` times; prints pairs/s of
-           every run and the medians.
+  ab       the kernels against their plain versions, end to end: three
+           models with the same weights, "kernels" (all four kernels),
+           "plain attention" (plain bf16 attention, the DPT head kernels)
+           and "ref heads" (attention kernel; the DPT heads' plain fp32
+           versions: cuDNN 3x3 convs, the plain upsample and tail, i.e.
+           conv_impl="ref"), warmed, then timed in the order kernels, plain
+           attention, ref heads, ref heads, plain attention, kernels,
+           `--reps` times; prints pairs/s of every run and the medians.
   profile  one warm request under torch.profiler: the device's busy share
            of the request's wall time, device time by kernel class and by
            kernel; the Chrome trace goes to `--out`. The classes match
@@ -69,7 +70,7 @@ def _pairs_per_s(pairs, engine):
 AB_VARIANTS = {  # name: (attn_impl, conv_impl) of the model
     "kernels": ("kernel", "kernel"),
     "plain attention": ("plain", "kernel"),
-    "ref conv": ("kernel", "ref"),
+    "ref heads": ("kernel", "ref"),
 }
 
 
@@ -101,6 +102,10 @@ def _kernel_class(name):
         return "attention kernel"
     if "conv3x3_igemm" in n:
         return "conv3x3 kernel"
+    if "up2x_align_corners" in n:
+        return "up2x kernel"
+    if "dpt_tail" in n:
+        return "dpt_tail kernel"
     if "conv" in n or "cudnn" in n or "implicit" in n or "winograd" in n:
         return "conv (cuDNN)"
     if any(s in n for s in ("gemm", "xmma", "cutlass", "nvjet")):

@@ -57,7 +57,7 @@ def _scenes(out, obs="fp32", **kw):
     jdt, tdt = OBS[obs]
     js = jax_global_aligner(out, mode=JaxMode.PointCloudOptimizer, verbose=False,
                             obs_dtype=jdt, **kw)
-    ts = global_aligner(out, verbose=False, obs_dtype=tdt, **kw)
+    ts = global_aligner(out, device="cpu", verbose=False, obs_dtype=tdt, **kw)
     return js, ts
 
 
@@ -316,7 +316,7 @@ GOLDEN_SPREAD = dict(log10_loss=0.5, final_above=0.45, focal_rtol=5e-3, pose_ato
 
 def test_alignment_against_the_golden():
     out, poses, _, focal = make_synthetic_scene(n_imgs=5, seed=0)
-    ts = global_aligner(out, verbose=False, obs_dtype=torch.float32)
+    ts = global_aligner(out, device="cpu", verbose=False, obs_dtype=torch.float32)
     final = ts.compute_global_alignment(init="mst", niter=300, schedule="cosine", lr=0.01)
     golden = np.load(GOLDEN)
     np.testing.assert_allclose(np.log10(ts.last_losses[::10]),
@@ -339,7 +339,7 @@ def test_bf16_observations_recover_the_scene():
     """The default bf16 observations, MST init, 300 iterations: what
     chip_smoke.py asks of its full-resolution scene."""
     out, poses, depths, focal = make_synthetic_scene(n_imgs=4, seed=1)
-    ts = global_aligner(out, verbose=False)
+    ts = global_aligner(out, device="cpu", verbose=False)
     assert ts.obs_pred_i.dtype == torch.bfloat16 and ts.obs_w_i.dtype == torch.bfloat16
     ts.compute_global_alignment(init="mst", niter=300, schedule="cosine", lr=0.01)
     assert ts.last_losses[-1] < ts.last_losses[10]
@@ -397,7 +397,7 @@ def test_known_poses_init_matches_jax():
 def test_pair_viewer_matches_jax():
     out, poses, depths, focal = make_synthetic_scene(n_imgs=2)
     jv = jax_global_aligner(out, mode=JaxMode.PairViewer, verbose=False)
-    tv = global_aligner(out, mode=GlobalAlignerMode.PairViewer, verbose=False)
+    tv = global_aligner(out, mode=GlobalAlignerMode.PairViewer, device="cpu", verbose=False)
     np.testing.assert_allclose(_np(tv.get_focals()).ravel(), np.asarray(jv.get_focals()),
                                rtol=1e-5)
     np.testing.assert_allclose(_np(tv.get_im_poses()), np.asarray(jv.get_im_poses()), atol=1e-3)
@@ -419,8 +419,8 @@ def test_device_tensor_predictions_build_the_same_scene():
     as_tensors = dict(view1=out["view1"], view2=out["view2"],
                       pred1={k: _t(v) for k, v in out["pred1"].items()},
                       pred2={k: _t(v) for k, v in out["pred2"].items()})
-    a = global_aligner(out, verbose=False)
-    b = global_aligner(as_tensors, verbose=False)
+    a = global_aligner(out, device="cpu", verbose=False)
+    b = global_aligner(as_tensors, verbose=False)  # tensors stay on their device
     assert b.device == torch.device("cpu")
     for name in ("obs_pred_i", "obs_pred_j", "obs_w_i", "obs_w_j"):
         torch.testing.assert_close(getattr(b, name), getattr(a, name), rtol=0, atol=0)
@@ -434,13 +434,13 @@ def test_not_ported_paths_raise():
 
     out, *_ = make_synthetic_scene(n_imgs=3)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        global_aligner(out, mode=GlobalAlignerMode.ModularPointCloudOptimizer)
+        global_aligner(out, mode=GlobalAlignerMode.ModularPointCloudOptimizer, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ModularPointCloudOptimizer(out["view1"], out["view2"], out["pred1"], out["pred2"])
     with pytest.raises(NotImplementedError, match="int8"):
-        global_aligner(out, obs_dtype=torch.int8)
+        global_aligner(out, obs_dtype=torch.int8, device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
-        global_aligner(out, mesh=object())
+        global_aligner(out, mesh=object(), device="cpu")
 
 
 # ---------------------------------------------------------------------- #

@@ -29,6 +29,8 @@ from dust3r_tpu_torch.checkpoint import state_dict_from_jax  # noqa: E402
 from dust3r_tpu_torch.models import heads  # noqa: E402
 from dust3r_tpu_torch.ops.conv3x3 import (conv3x3, conv3x3_bf16_ref, conv3x3_kernel,  # noqa: E402
                                           conv3x3_ref, pack_weight)
+from dust3r_tpu_torch.ops.dpt_tail import dpt_tail_kernel  # noqa: E402
+from dust3r_tpu_torch.ops.upsample import up2x_kernel  # noqa: E402
 
 CASES = {  # name: (B, H, W, Cin, Cout)
     "cin16_cout8": (2, 7, 9, 16, 8),
@@ -152,11 +154,12 @@ def dpt_pair():
 
 @pytest.mark.parametrize("conv_impl", [None, "ref", "kernel"])
 def test_dpt_head_through_the_dispatcher_matches_jax(dpt_pair, conv_impl):
-    """The head's 20 3x3 convs go through the dispatcher on CPU tensors.
-    None and 'ref' run fp32 convs and hold to the JAX head at the model
-    tests' 2e-4 of mean |x|; 'kernel' runs the bf16-operand plain version
-    and holds to the fp32 JAX head at the repo's bf16-vs-fp32 pointmap
-    parity budget, normalized RMSE 1e-2."""
+    """The head's 3x3 convs, upsamples and tail go through their dispatchers
+    on CPU tensors. None and 'ref' run the fp32 plain versions and hold to
+    the JAX head at the model tests' 2e-4 of mean |x|; 'kernel' runs the
+    kernels' plain versions (bf16 conv operands) and holds to the fp32 JAX
+    head at the repo's bf16-vs-fp32 pointmap parity budget, normalized RMSE
+    1e-2."""
     cfg, modes, decout, want, head_sd, img_hw = dpt_pair
     head = heads.DPTHead(16, modes["depth_mode"], modes["conf_mode"], hooks=(0, 6, 9, 12),
                          enc_dim=cfg["enc_embed_dim"], dec_dim=cfg["dec_embed_dim"],
@@ -164,10 +167,11 @@ def test_dpt_head_through_the_dispatcher_matches_jax(dpt_pair, conv_impl):
     convs = [m for m in head.modules() if isinstance(m, heads.Conv3x3)]
     assert len(convs) == 20 and all(m.impl == conv_impl for m in convs)
     head.load_state_dict(head_sd, strict=True)
-    before = conv3x3_kernel.launches
+    kernels = (conv3x3_kernel, up2x_kernel, dpt_tail_kernel)
+    before = [k.launches for k in kernels]
     with torch.no_grad():
         got = head([torch.from_numpy(t) for t in decout], img_hw)
-    assert conv3x3_kernel.launches == before  # CPU tensors: no kernel launch
+    assert [k.launches for k in kernels] == before  # CPU tensors: no kernel launch
     for key in ("pts3d", "conf"):
         a, b = got[key].numpy(), np.asarray(want[key])
         if conv_impl == "kernel":
@@ -177,28 +181,30 @@ def test_dpt_head_through_the_dispatcher_matches_jax(dpt_pair, conv_impl):
             np.testing.assert_allclose(a / scale, b / scale, rtol=2e-4, atol=2e-4)
 
 
-def test_dpt_trunk_feeds_every_conv_channels_last():
-    """The trunk's tensors reach each 3x3 conv in channels_last memory
-    (what the kernel reads), with no copy for the layout, at both buckets'
-    row counts (24 and 21 patch rows)."""
-    seen = []
+def test_dpt_trunk_feeds_every_conv_channels_last(monkeypatch):
+    """The trunk's tensors reach each 3x3 conv, each upsample and the tail
+    in channels_last memory (what the kernels read), with no copy for the
+    layout, at both buckets' row counts (24 and 21 patch rows): 19 convs (the
+    20th, head.2, is the tail's), 5 upsamples and 1 tail per forward."""
+    seen = {"conv3x3": [], "up2x": [], "dpt_tail": []}
 
-    def spy(x, w, b, impl):
-        seen.append(x.is_contiguous(memory_format=torch.channels_last))
-        return conv3x3_ref(x, w, b)
+    def spy(name, fn):
+        def wrapped(x, *args):
+            seen[name].append(x.is_contiguous(memory_format=torch.channels_last))
+            return fn(x, *args)
+        return wrapped
 
+    for name, attr in (("conv3x3", "conv3x3_op"), ("up2x", "up2x_op"),
+                       ("dpt_tail", "dpt_tail_op")):
+        monkeypatch.setattr(heads, attr, spy(name, getattr(heads, attr)))
     head = heads.DPTHead(16, ("exp", -np.inf, np.inf), ("exp", 1, np.inf), hooks=(0, 1, 2, 3),
                          enc_dim=32, dec_dim=32)
     rng = np.random.default_rng(4)
-    orig = heads.conv3x3_op
-    heads.conv3x3_op = spy
-    try:
-        for rows in (24, 21):
-            decout = [torch.from_numpy(rng.standard_normal((1, rows * 2, 32)).astype(np.float32))
-                      for _ in range(4)]
-            with torch.no_grad():
-                out = head(decout, (rows * 16, 32))
-            assert out["pts3d"].shape == (1, rows * 16, 32, 3)
-    finally:
-        heads.conv3x3_op = orig
-    assert len(seen) == 40 and all(seen)
+    for rows in (24, 21):
+        decout = [torch.from_numpy(rng.standard_normal((1, rows * 2, 32)).astype(np.float32))
+                  for _ in range(4)]
+        with torch.no_grad():
+            out = head(decout, (rows * 16, 32))
+        assert out["pts3d"].shape == (1, rows * 16, 32, 3)
+    assert [len(seen[k]) for k in ("conv3x3", "up2x", "dpt_tail")] == [38, 10, 2]
+    assert all(all(v) for v in seen.values())

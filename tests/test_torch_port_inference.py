@@ -41,7 +41,7 @@ def engines():
     cfg = CONFIGS["tiny_linear"]
     model = jax_model("tiny_linear")
     variables = seeded_variables(model, 21)
-    port = AsymmetricCroCo3DStereo(**cfg)
+    port = AsymmetricCroCo3DStereo(**cfg, device="cpu")
     port.load_state_dict(state_dict_from_jax(variables, cfg["enc_depth"],
                                              cfg["dec_depth"], "linear"))
     return JaxEngine(model, variables, batch_size=4), InferenceEngine(port, batch_size=4)
@@ -166,6 +166,30 @@ def test_views_from_arrays_makes_load_images_views():
     assert (view["idx"], view["instance"]) == (0, "0")
     with pytest.raises(ValueError):
         image.views_from_arrays([arr[:40]])  # not a multiple of the patch size
+
+
+def test_entry_points_run_on_the_card_unless_asked(monkeypatch):
+    """With no CUDA device the model constructors, and global_aligner on
+    numpy predictions, raise and name device="cpu": nothing lands on the
+    CPU unless the caller asks for it. With one, the card is the default."""
+    from dust3r_tpu_torch.cloud_opt import global_aligner
+    from dust3r_tpu_torch.model import dust3r_512_dpt
+    from dust3r_tpu_torch.tools.scenes import synthetic_scene
+    from dust3r_tpu_torch.utils.device import default_device
+
+    out, _, _ = synthetic_scene(3, 8, 8, 10.0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        dust3r_512_dpt()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        AsymmetricCroCo3DStereo(**CONFIGS["tiny_linear"])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        global_aligner(out, verbose=False)
+    assert global_aligner(out, device="cpu", verbose=False).device == torch.device("cpu")
+    assert AsymmetricCroCo3DStereo(**CONFIGS["tiny_linear"], device="cpu").patch_embed \
+        .proj.weight.device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert default_device("AsymmetricCroCo3DStereo") == torch.device("cuda")
 
 
 def test_port_imports_no_jax_pil_or_triton():

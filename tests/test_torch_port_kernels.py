@@ -10,13 +10,18 @@ Tolerances, against the plain version computed in fp32 from the same
 inputs and scaled by its max |x|: attention 1e-2 for bf16 inputs (8-bit
 mantissa, P rounded to bf16 before P.v), 1e-5 for fp32 inputs; conv3x3
 1e-3 against `conv3x3_bf16_ref` (the same bf16-rounded operands, products
-exact in fp32, only the order of the fp32 sums differs).
+exact in fp32, only the order of the fp32 sums differs); up2x 1e-5 against
+`up2x_ref` (two fp32 lerps either way, FMA contraction aside); dpt_tail
+1e-3 against `dpt_tail_bf16_ref` on each output (conv3x3's sums, then fp32
+through the 1x1 and the exp).
 """
 import pytest
 import torch
 
 from dust3r_tpu_torch.models.blocks import token_positions
 from dust3r_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_bf16_ref, conv3x3_kernel
+from dust3r_tpu_torch.ops.dpt_tail import dpt_tail, dpt_tail_bf16_ref, dpt_tail_kernel
+from dust3r_tpu_torch.ops.upsample import up2x, up2x_kernel, up2x_ref
 from dust3r_tpu_torch.ops.fused_attention import (SUPPORTED_HEAD_DIMS, attention_ref,
                                                   fused_attention)
 
@@ -129,3 +134,96 @@ def test_conv3x3_kernel_refuses_what_it_cannot_serve(card):
     with pytest.raises(ValueError, match="bias"):
         conv3x3_kernel(x, w, torch.zeros(16, device=card))
     assert conv3x3_kernel.launches == before
+
+
+UP2X_RTOL = 1e-5
+UP2X_CASES = {  # name: (C, Hc, Wc); the DPT head's upsamples at 512x384 and 512x336
+    "refinenet4": (256, 12, 16),
+    "refinenet3": (256, 24, 32),
+    "refinenet2": (256, 48, 64),
+    "refinenet1": (256, 96, 128),
+    "head.1": (128, 192, 256),
+    "ragged_11_rows": (256, 11, 16),
+    "ragged_21_rows": (256, 21, 32),
+    "ragged_168_rows": (128, 168, 256),
+    "single_row": (4, 1, 5),
+    "single_column": (8, 3, 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UP2X_CASES))
+def test_up2x_kernel_matches_plain_version(card, case):
+    c, h, w = UP2X_CASES[case]
+    gen = torch.Generator(device=card).manual_seed(c + h + w)
+    x = torch.randn(2, c, h, w, device=card, generator=gen).contiguous(
+        memory_format=torch.channels_last)
+    before = up2x_kernel.launches
+    out = up2x(x)  # auto: the kernel for CUDA tensors
+    torch.cuda.synchronize()
+    assert up2x_kernel.launches == before + 1
+    ref = up2x_ref(x)
+    assert out.shape == ref.shape == (2, c, 2 * h, 2 * w) and out.dtype == torch.float32
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    err = (out - ref).abs().max().item() / ref.abs().max().item()
+    assert err <= UP2X_RTOL, f"{case}: rel err {err:.3e}"
+
+
+def test_up2x_kernel_refuses_what_it_cannot_serve(card):
+    x = torch.zeros(1, 8, 4, 4, device=card).contiguous(memory_format=torch.channels_last)
+    before = up2x_kernel.launches
+    with pytest.raises(ValueError, match="channels_last"):
+        up2x_kernel(x.contiguous())
+    with pytest.raises(ValueError, match="multiple"):
+        up2x_kernel(x[:, :6].contiguous(memory_format=torch.channels_last))
+    with pytest.raises(TypeError):
+        up2x_kernel(x.half())
+    assert up2x_kernel.launches == before
+
+
+TAIL_RTOL = 1e-3
+TAIL_CASES = {  # name: (B, H, W); the head's tail at 512x384 and 512x336, and ragged
+    "384x512": (2, 384, 512),
+    "336x512": (2, 336, 512),
+    "ragged_13x7": (3, 13, 7),
+    "single_pixel": (1, 1, 1),
+}
+
+
+def _tail_args(card, B, H, W, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    y = (0.3 * torch.randn(B, 128, H, W, device=card, generator=gen)).contiguous(
+        memory_format=torch.channels_last)
+    w2 = 0.05 * torch.randn(32, 128, 3, 3, device=card, generator=gen)
+    b2 = 0.05 * torch.randn(32, device=card, generator=gen)
+    w3 = 0.2 * torch.randn(4, 32, 1, 1, device=card, generator=gen)
+    b3 = 0.1 * torch.randn(4, device=card, generator=gen)
+    return y, w2, b2, w3, b3
+
+
+@pytest.mark.parametrize("case", sorted(TAIL_CASES))
+def test_dpt_tail_kernel_matches_plain_version(card, case):
+    B, H, W = TAIL_CASES[case]
+    args = _tail_args(card, B, H, W, seed=H + W)
+    before = dpt_tail_kernel.launches
+    pts, conf = dpt_tail(*args, 1.0)  # auto: the kernel for CUDA tensors
+    torch.cuda.synchronize()
+    assert dpt_tail_kernel.launches == before + 1
+    want = dpt_tail_bf16_ref(*args, 1.0)
+    assert pts.shape == (B, H, W, 3) and conf.shape == (B, H, W)
+    assert pts.is_contiguous() and conf.is_contiguous()
+    for name, got, ref in (("pts3d", pts, want[0]), ("conf", conf, want[1])):
+        assert torch.isfinite(got).all()
+        err = (got - ref).abs().max().item() / ref.abs().max().item()
+        assert err <= TAIL_RTOL, f"{case} {name}: rel err {err:.3e}"
+
+
+def test_dpt_tail_kernel_refuses_what_it_cannot_serve(card):
+    y, w2, b2, w3, b3 = _tail_args(card, 1, 4, 4, seed=0)
+    before = dpt_tail_kernel.launches
+    with pytest.raises(ValueError, match="channels_last"):
+        dpt_tail_kernel(y.contiguous(), w2, b2, w3, b3, 1.0)
+    with pytest.raises(ValueError, match="want"):
+        dpt_tail_kernel(y, w2[:16], b2[:16], w3, b3, 1.0)
+    with pytest.raises(TypeError):
+        dpt_tail_kernel(y.half(), w2, b2, w3, b3, 1.0)
+    assert dpt_tail_kernel.launches == before

@@ -83,7 +83,7 @@ def pair(request):
     cfg = CONFIGS[name]
     model = jax_model(name)
     variables = seeded_variables(model, 12)
-    port = AsymmetricCroCo3DStereo(**cfg).eval()
+    port = AsymmetricCroCo3DStereo(**cfg, device="cpu").eval()
     sd = state_dict_from_jax(variables, cfg["enc_depth"], cfg["dec_depth"],
                              cfg["head_type"])
     port.load_state_dict(sd, strict=True)
@@ -234,7 +234,7 @@ def test_gelu_and_layernorm_follow_the_dtype(dtype):
 def test_bf16_body_keeps_fp32_heads():
     """The body computes in bf16, the heads in fp32 on fp32 tokens."""
     cfg = CONFIGS["tiny_linear"]
-    port = AsymmetricCroCo3DStereo(**cfg, dtype=torch.bfloat16, seed=3).eval()
+    port = AsymmetricCroCo3DStereo(**cfg, dtype=torch.bfloat16, seed=3, device="cpu").eval()
     img1, img2 = (torch.from_numpy(a) for a in images(9))
     with torch.no_grad():
         f, pos = port.encode(img1)
@@ -247,9 +247,9 @@ def test_bf16_body_keeps_fp32_heads():
 
 def test_seeded_init_is_reproducible():
     cfg = CONFIGS["tiny_linear"]
-    a = AsymmetricCroCo3DStereo(**cfg, seed=5).state_dict()
-    b = AsymmetricCroCo3DStereo(**cfg, seed=5).state_dict()
-    c = AsymmetricCroCo3DStereo(**cfg, seed=6).state_dict()
+    a = AsymmetricCroCo3DStereo(**cfg, seed=5, device="cpu").state_dict()
+    b = AsymmetricCroCo3DStereo(**cfg, seed=5, device="cpu").state_dict()
+    c = AsymmetricCroCo3DStereo(**cfg, seed=6, device="cpu").state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["enc_blocks.0.attn.qkv.weight"],
                            c["enc_blocks.0.attn.qkv.weight"])

@@ -144,7 +144,7 @@ def test_wrapper_builds_rope_tables_once_per_positions_tensor(monkeypatch):
     monkeypatch.setattr(model_mod, "rope_tables", counting_rope_tables)
     model = model_mod.AsymmetricCroCo3DStereo(
         img_size=(32, 32), patch_size=16, enc_embed_dim=32, enc_depth=3,
-        enc_num_heads=2, dec_embed_dim=48, dec_depth=4, dec_num_heads=2)
+        enc_num_heads=2, dec_embed_dim=48, dec_depth=4, dec_num_heads=2, device="cpu")
     img = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (1, 32, 48, 3)).astype(np.float32))
     with torch.no_grad():
