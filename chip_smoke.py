@@ -6,14 +6,20 @@
 
 Phases (each prints its lines; a failed phase raises and the exit code is 1):
   1. device: requires CUDA; prints the card's name and power limit;
-  2. build: compiles the four kernels from `dust3r_tpu_torch/csrc/` (one nvcc
-     per source, all started together, sm_90a);
+  2. build: compiles the four kernel sources from `dust3r_tpu_torch/csrc/`
+     (one nvcc per source, all started together, sm_90a);
   3. kernels: each kernel (fused_attention, conv3x3, up2x, dpt_tail) against
      its plain PyTorch version on the card, at the shapes the main path gives
-     it, with the times of the kernel, the plain version and the one PyTorch
-     call that computes the same function (where there is one), and the
-     least time the card could take (bytes at 3.35 TB/s or operations at
+     it (attention in the main path's layouts: heads read as strided views of
+     the projections, each call's bits held to the same kernel on contiguous
+     copies), with the times of the kernel, the plain version and the one
+     PyTorch call that computes the same function (where there is one), and
+     the least time the card could take (bytes at 3.35 TB/s or operations at
      989 TFLOP/s bf16 / 67 TFLOP/s fp32, whichever is larger);
+  3b. variants: the attention-variants entry point (fused_attention with 2
+     and 4 heads a block, attention_variant's three softmax variants) driven
+     once at the encoder shape with its launch counts from 0, then each
+     against its plain version (and G > 1 against G = 1, bit for bit);
   4. slice: `DUSt3R_ViTLarge_BaseDecoder_512_dpt` at full width (seeded random
      weights, bf16 body, fp32 heads) serves three requests through
      make_pairs -> InferenceEngine -> inference; checks outputs, the four
@@ -26,16 +32,16 @@ Phases (each prints its lines; a failed phase raises and the exit code is 1):
      (`infer_pairs(..., to_cpu=False)`, the four kernels' launches counted
      from 0 and checked): finite, falling losses, poses and positive focals.
 The second-to-last line is a JSON object of the kernels, with the launches
-of the slice's run; the last line is {"ok": true, "device": {...}}. With
+of the slice's run (of the variants phase for the variants); the last line is {"ok": true, "device": {...}}. With
 `--kernels-only` neither line is printed. Without a CUDA device, or outside
 a checkout of the repo, it exits non-zero and prints no result.
 Throughput A/B, a profile of the slice and one of the aligner's loop:
-`dust3r_tpu_torch/tools/measure.py`.
+`dust3r_tpu_torch/tools/measure.py`; the TPU attention experiments' rows
+at their scripts' shapes: `dust3r_tpu_torch/tools/attn_variants.py`.
 """
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -50,7 +56,7 @@ KERNEL_RTOL = 1e-2
 # (the parity budget of BASELINE.json)
 PARITY_RMSE = 1e-2
 H384, H336, W = 384, 336, 512  # the 512x384 and 512x336 buckets
-KERNELS = ("fused_attention", "conv3x3", "up2x", "dpt_tail")
+SOURCES = ("fused_attention", "conv3x3", "up2x", "dpt_tail")
 # max abs error of conv3x3 against conv3x3_bf16_ref over max |ref|: both
 # take the same bf16-rounded operands, whose products are exact in fp32;
 # only the order of the fp32 sums differs. The same for dpt_tail against
@@ -63,10 +69,6 @@ UP2X_RTOL = 1e-5
 # 20th, head.2, is read by the tail kernel), its 5 upsamples (4 fusion
 # blocks, 1 in the head) and its tail
 PER_HEAD = dict(conv3x3=19, up2x=5, dpt_tail=1)
-# the card's peaks (the H100 SXM data sheet, dense): HBM bytes/s, and
-# operations/s by type; bounds are the larger of bytes and operations times
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = dict(bf16=989e12, fp32=67e12)
 # the scene phase: 6 images (a complete symmetrized graph of 30 edges),
 # focal 1.2 x the width; recovery limits on that exact scene
 SCENE_IMAGES = 6
@@ -108,12 +110,11 @@ def log(msg):
 
 
 def device_phase(torch):
+    from dust3r_tpu_torch.tools.card import card_name
+
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    card = smi.stdout.strip()
+    card = card_name()
     log(card)
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}; {torch.cuda.get_device_name(0)}, "
@@ -125,39 +126,17 @@ def build_phase():
     from dust3r_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.build(KERNELS)  # one nvcc per source, all started together
-    for name in KERNELS:
+    _build.build(SOURCES)  # one nvcc per source, all started together
+    for name in SOURCES:
         _build.load_library(name)
-    log(f"[build] {', '.join(k + '.cu' for k in KERNELS)}: {time.perf_counter() - t0:.2f} s "
+    log(f"[build] {', '.join(k + '.cu' for k in SOURCES)}: {time.perf_counter() - t0:.2f} s "
         f"in all (nvcc: " + ", ".join(f"{k} {_build.build_seconds.get(k, 0.0):.2f} s"
-                                      for k in KERNELS)
+                                      for k in SOURCES)
         + "; 0 means the library was already built)")
-    for name in KERNELS:
+    for name in SOURCES:
         for line in _build.ptxas_log(name).splitlines():
             if "Used" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
-
-
-def time_ms(torch, fn, iters=20, warmup=3):
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound(nbytes, ops):
-    """(ms, what bounds it): the least time the card could take to move
-    `nbytes` (each input read once, each output written once) and to do
-    `ops` ({type: operations}), whichever is larger."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = sum(n / PEAK_OPS_PER_S[k] for k, n in ops.items())
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def summed(rows, count_key="count"):
@@ -182,69 +161,122 @@ def _rel_err(out, ref):
 
 
 def attention_kernel_phase(torch):
-    """fused_attention against attention_ref at the main path's shapes. The
-    kernel gets its RoPE tables built once, as the model hands them to every
-    layer; the plain version builds its own on each call, as on its path.
-    The library call is `F.scaled_dot_product_attention` on bf16 q, k, v:
-    the same function for the no-RoPE shape, and on q and k rotated
-    beforehand (outside the timing) for the RoPE shapes."""
+    """fused_attention against attention_ref at the main path's shapes and
+    in its layouts: self-attention reads its heads as (B, H, N, d) views of
+    the (B, N, 3C) qkv projection, cross-attention of three (B, N, C)
+    projections; each call's bits are held to the same kernel on contiguous
+    copies. The kernel gets its RoPE tables built once, as the model hands
+    them to every layer; the plain version builds its own on each call, as
+    on its path. The library call is `F.scaled_dot_product_attention` on
+    bf16 q, k, v in the same layout: the same function for the no-RoPE
+    shape, and on q and k rotated beforehand (outside the timing) for the
+    RoPE shapes."""
     import torch.nn.functional as F
 
-    from dust3r_tpu_torch.models.blocks import token_positions
     from dust3r_tpu_torch.ops.fused_attention import attention_ref, fused_attention
-    from dust3r_tpu_torch.ops.rope import apply_rope2d, rope_tables
+    from dust3r_tpu_torch.ops.rope import rope_tables
+    from dust3r_tpu_torch.tools.attn_variants import make_qkv, positions, rotated_like
+    from dust3r_tpu_torch.tools.card import attention_bound, time_ms, warm_up
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    dev = "cuda"
-
-    def pos(B, h, w):
-        return token_positions(B, h // 16, w // 16, dev).contiguous()
-
-    cases = [  # name, (B, H, Nq, Nk, d), positions_q, positions_k
-        ("encoder_self", (8, 16, 768, 768, 64), pos(8, H384, W), pos(8, H384, W)),
-        ("decoder_self", (8, 12, 768, 768, 64), pos(8, H384, W), pos(8, H384, W)),
-        ("decoder_cross_768x672", (8, 12, 768, 672, 64), pos(8, H384, W),
-         pos(8, H336, W)),
-        ("no_rope_196", (2, 12, 196, 196, 64), None, None),
+    g384, g336 = (H384 // 16, W // 16), (H336 // 16, W // 16)
+    cases = [  # name, (B, H, Nq, Nk, d), layout, token grids of q and k (None: no RoPE)
+        ("encoder_self", (8, 16, 768, 768, 64), "qkv", g384, g384),
+        ("decoder_self", (8, 12, 768, 768, 64), "qkv", g384, g384),
+        ("decoder_cross_768x672", (8, 12, 768, 672, 64), "packed", g384, g336),
+        ("no_rope_196", (2, 12, 196, 196, 64), "contiguous", None, None),
     ]
     rows = []
-    for name, (B, Hh, Nq, Nk, d), pq, pk in cases:
-        def rnd(n):
-            return torch.randn(B, Hh, n, d, device=dev, generator=gen).to(torch.bfloat16)
-
-        q, k, v = rnd(Nq), rnd(Nk), rnd(Nk)
-        tq, tk = ((None, None) if pq is None else
-                  (rope_tables(pq, d), rope_tables(pk, d)))
+    for name, (B, Hh, Nq, Nk, d), layout, grid_q, grid_k in cases:
+        q, k, v = make_qkv(B, Hh, Nq, Nk, d, layout, gen)
+        pq, pk = ((None, None) if grid_q is None else
+                  (positions(B, grid_q, "grid", gen), positions(B, grid_k, "grid", gen)))
+        tq, tk = ((None, None) if pq is None else (rope_tables(pq, d), rope_tables(pk, d)))
 
         def kernel():
             return fused_attention(q, k, v, pq, pk, 100.0, tq, tk)
 
         out = kernel()
+        contiguous = fused_attention(q.contiguous(), k.contiguous(), v.contiguous(), pq, pk,
+                                     100.0, tq, tk)
         torch.cuda.synchronize()
+        identical = torch.equal(out, contiguous)
         ref = attention_ref(q.float(), k.float(), v.float(), pq, pk)
         err, rel = _rel_err(out, ref)
         if not (out.shape == ref.shape and torch.isfinite(out).all()):
             raise AssertionError(f"{name}: bad kernel output {tuple(out.shape)}")
-        qr, kr = (q, k) if pq is None else (apply_rope2d(q, pq), apply_rope2d(k, pk))
-        ms = time_ms(torch, kernel)
-        plain_ms = time_ms(torch, lambda: attention_ref(q, k, v, pq, pk))
-        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qr, kr, v))
-        # q, k, v and the output in bf16, the four fp32 RoPE tables; QK^T and
-        # PV on bf16 tensor cores
-        table_bytes = 0 if pq is None else 8 * B * (Nq + Nk) * d
-        bound_ms, bound_by = bound(2 * B * Hh * (2 * Nq + 2 * Nk) * d + table_bytes,
-                                   dict(bf16=4 * B * Hh * Nq * Nk * d))
+        qr, kr = (q, k) if pq is None else (rotated_like(q, pq), rotated_like(k, pk))
+        if not rows:  # the run's first timed kernel: the clocks settle first
+            warm_up(kernel)
+        ms = time_ms(kernel)
+        plain_ms = time_ms(lambda: attention_ref(q, k, v, pq, pk))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qr, kr, v))
+        bound_ms, bound_by = attention_bound(B, Hh, Nq, Nk, d, rope=pq is not None)
         log(f"[kernel] fused_attention {name} q{(B, Hh, Nq, d)} k{(B, Hh, Nk, d)} bf16 "
-            f"rope={pq is not None}: max_abs_err {err:.3e} rel {rel:.3e} "
+            f"{layout} (strides q{q.stride()} k{k.stride()}) rope={pq is not None}: bits "
+            f"equal the contiguous call's: {identical}; max_abs_err {err:.3e} rel {rel:.3e} "
             f"(limit {KERNEL_RTOL:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"sdpa{'' if pq is None else ' (q, k rotated beforehand)'} {library_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by})")
+        if not identical:
+            raise AssertionError(f"{name}: the strided call's bits differ from the "
+                                 f"contiguous call's")
         if not rel <= KERNEL_RTOL:
             raise AssertionError(f"{name}: kernel disagrees with the plain version, "
                                  f"rel err {rel:.3e} > {KERNEL_RTOL:g}")
         rows.append(dict(name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
     return rows
+
+
+def variants_phase(torch):
+    """The attention-variants entry point at the encoder shape (8,16,768,64),
+    q, k, v as views of a (B, N, 3C) qkv: fused_attention with 2 and 4 heads
+    a block and attention_variant's three softmax variants, each called once
+    with the launch counts from 0 (the counts of this path), then each
+    against its plain version (tools/attn_variants.measure: G > 1 bit for
+    bit against G = 1, with times, library call and bound). Returns the
+    measured rows and the launch counts."""
+    from dust3r_tpu_torch.ops.attention_variants import SOFTMAXES, attention_variant
+    from dust3r_tpu_torch.ops.fused_attention import fused_attention
+    from dust3r_tpu_torch.ops.rope import rope_tables
+    from dust3r_tpu_torch.tools.attn_variants import RTOL, make_qkv, measure, positions
+
+    B, Hh, N, d = 8, 16, 768, 64
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v = make_qkv(B, Hh, N, N, d, "qkv", gen)
+    pos = positions(B, (H384 // 16, W // 16), "grid", gen)
+    tables = rope_tables(pos, d)
+    configs = [(f"G={G}", G, None) for G in (2, 4)] + [(s, 1, s) for s in SOFTMAXES]
+
+    reset_launches()
+    for _, G, softmax in configs:
+        if softmax is None:
+            fused_attention(q, k, v, pos, pos, 100.0, tables, tables, G)
+        else:
+            attention_variant(q, k, v, pos, pos, 100.0, softmax=softmax, tables_q=tables,
+                              tables_k=tables)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    expected = dict(fused_attention=2, fused_attention_grouped=2, attention_variant=3,
+                    conv3x3=0, up2x=0, dpt_tail=0)
+    log(f"[variants] entry point at {(B, Hh, N, d)}: launches {launches} (expected {expected})")
+    if launches != expected:
+        raise AssertionError(f"variants launches {launches} != {expected}")
+
+    rows = {}
+    for label, G, softmax in configs:
+        r = measure(q, k, v, pos, pos, G, softmax)
+        log(f"[variants] {label} {(B, Hh, N, d)} qkv views: kernel {r['ms']:.4f} ms, G=1 "
+            f"contiguous {r['baseline_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa (q, k "
+            f"rotated beforehand) {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}); max_abs_err {r['max_abs_err']:.3e} rel {r['rel']:.3e} "
+            f"(limit {RTOL:g})"
+            + ("" if r["identical"] is None else f"; bits equal G=1's: {r['identical']}"))
+        if not r["rel"] <= RTOL or r["identical"] is False:
+            raise AssertionError(f"variants {label}: the kernel disagrees ({r})")
+        rows[label] = dict(r, count=1)
+    return rows, launches
 
 
 def conv_kernel_phase(torch):
@@ -256,6 +288,7 @@ def conv_kernel_phase(torch):
     import torch.nn.functional as F
 
     from dust3r_tpu_torch.ops.conv3x3 import conv3x3_bf16_ref, conv3x3_kernel, conv3x3_ref
+    from dust3r_tpu_torch.tools.card import bound, time_ms
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
@@ -276,10 +309,10 @@ def conv_kernel_phase(torch):
         xb = x.to(torch.bfloat16)
         wb = wt.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
         bb = None if b is None else b.to(torch.bfloat16)
-        t = dict(ms=time_ms(torch, lambda: conv3x3_kernel(x, wt, b)),
-                 plain_ms=time_ms(torch, lambda: conv3x3_bf16_ref(x, wt, b)),
-                 fp32_ms=time_ms(torch, lambda: conv3x3_ref(x, wt, b)),
-                 library_ms=time_ms(torch, lambda: F.conv2d(xb, wb, bb, padding=1)))
+        t = dict(ms=time_ms(lambda: conv3x3_kernel(x, wt, b)),
+                 plain_ms=time_ms(lambda: conv3x3_bf16_ref(x, wt, b)),
+                 fp32_ms=time_ms(lambda: conv3x3_ref(x, wt, b)),
+                 library_ms=time_ms(lambda: F.conv2d(xb, wb, bb, padding=1)))
         M = BATCH_SIZE * h * w
         flops = 2 * M * cout * 9 * cin
         bound_ms, bound_by = bound(4 * (M * cin + 9 * cin * cout + cout + M * cout),
@@ -313,6 +346,7 @@ def up2x_kernel_phase(torch):
     import torch.nn.functional as F
 
     from dust3r_tpu_torch.ops.upsample import up2x_kernel, up2x_ref
+    from dust3r_tpu_torch.tools.card import bound, time_ms
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
@@ -327,9 +361,9 @@ def up2x_kernel_phase(torch):
             raise AssertionError(f"up2x {name}: bad kernel output {tuple(out.shape)}")
         err, rel = _rel_err(out, ref)
         del ref
-        t = dict(ms=time_ms(torch, lambda: up2x_kernel(x)),
-                 plain_ms=time_ms(torch, lambda: up2x_ref(x)),
-                 library_ms=time_ms(torch, lambda: F.interpolate(
+        t = dict(ms=time_ms(lambda: up2x_kernel(x)),
+                 plain_ms=time_ms(lambda: up2x_ref(x)),
+                 library_ms=time_ms(lambda: F.interpolate(
                      x, scale_factor=2, mode="bilinear", align_corners=True)))
         # x read once, 4x its bytes written; 4 multiplies and 2 adds a value
         bound_ms, bound_by = bound(5 * 4 * x.numel(), dict(fp32=6 * 4 * x.numel()))
@@ -359,6 +393,7 @@ def tail_kernel_phase(torch):
     from dust3r_tpu_torch.models.heads import postprocess
     from dust3r_tpu_torch.ops.conv3x3 import conv3x3_kernel
     from dust3r_tpu_torch.ops.dpt_tail import dpt_tail_bf16_ref, dpt_tail_kernel
+    from dust3r_tpu_torch.tools.card import bound, time_ms
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     modes = (("exp", -float("inf"), float("inf")), ("exp", 1.0, float("inf")))
@@ -386,9 +421,9 @@ def tail_kernel_phase(torch):
             h32 = F.relu(conv3x3_kernel(y, w2, b2))
             return postprocess(F.conv2d(h32, w3, b3).permute(0, 2, 3, 1), *modes)
 
-        t = dict(ms=time_ms(torch, lambda: dpt_tail_kernel(*args)),
-                 plain_ms=time_ms(torch, lambda: dpt_tail_bf16_ref(*args)),
-                 unfused_ms=time_ms(torch, unfused))
+        t = dict(ms=time_ms(lambda: dpt_tail_kernel(*args)),
+                 plain_ms=time_ms(lambda: dpt_tail_bf16_ref(*args)),
+                 unfused_ms=time_ms(unfused))
         M = BATCH_SIZE * h * w
         nbytes = 4 * (M * 128 + 32 * 128 * 9 + 32 + 4 * 32 + 4 + M * 3 + M)
         # conv2 on bf16 tensor cores; conv3 and ~20 operations a pixel of
@@ -410,32 +445,40 @@ def tail_kernel_phase(torch):
 
 
 def kernel_counters():
-    """Each kernel's wrapper, whose `launches` counts its kernel launches."""
+    """Each kernel's wrapper and the attribute that counts its launches
+    (fused_attention's launches with more than one head a block are also
+    counted apart)."""
+    from dust3r_tpu_torch.ops.attention_variants import attention_variant
     from dust3r_tpu_torch.ops.conv3x3 import conv3x3_kernel
     from dust3r_tpu_torch.ops.dpt_tail import dpt_tail_kernel
     from dust3r_tpu_torch.ops.fused_attention import fused_attention
     from dust3r_tpu_torch.ops.upsample import up2x_kernel
 
-    return dict(fused_attention=fused_attention, conv3x3=conv3x3_kernel, up2x=up2x_kernel,
-                dpt_tail=dpt_tail_kernel)
+    return dict(fused_attention=(fused_attention, "launches"),
+                fused_attention_grouped=(fused_attention, "grouped_launches"),
+                attention_variant=(attention_variant, "launches"),
+                conv3x3=(conv3x3_kernel, "launches"), up2x=(up2x_kernel, "launches"),
+                dpt_tail=(dpt_tail_kernel, "launches"))
 
 
 def reset_launches():
-    for fn in kernel_counters().values():
-        fn.launches = 0
+    for fn, attr in kernel_counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_launches():
-    return {name: fn.launches for name, fn in kernel_counters().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in kernel_counters().items()}
 
 
 def expected_launches(model, encoder_batches, pair_batches):
     """Each kernel's launches for the engine's batches: attention in every
     encoder layer of an encoder batch and 4 calls (self and cross, two
-    streams) in every decoder layer of a pair batch; the DPT kernels
-    PER_HEAD times in each of a pair batch's two heads."""
+    streams) in every decoder layer of a pair batch, all with one head a
+    block; the DPT kernels PER_HEAD times in each of a pair batch's two
+    heads; the softmax variants never (the model does not call them)."""
     expected = dict(fused_attention=model.enc_depth * encoder_batches
-                    + 4 * model.dec_depth * pair_batches)
+                    + 4 * model.dec_depth * pair_batches,
+                    fused_attention_grouped=0, attention_variant=0)
     expected.update({k: 2 * n * pair_batches for k, n in PER_HEAD.items()})
     return expected
 
@@ -645,6 +688,7 @@ def main(argv):
     device_phase(torch)
     build_phase()
     attn_rows = attention_kernel_phase(torch)
+    variant_rows, variant_launches = variants_phase(torch)
     _, conv_total = conv_kernel_phase(torch)
     _, up_total = up2x_kernel_phase(torch)
     _, tail_total = tail_kernel_phase(torch)
@@ -652,13 +696,28 @@ def main(argv):
         return 0
     launches, engine, pairs = slice_phase(torch)
     scene_phase(torch, engine, pairs)
-    # attention: the encoder's self-attention shape; conv3x3 and up2x: one
-    # DPT head's calls at batch 8, summed; dpt_tail: the head's one call
-    rows = dict(fused_attention=dict(attn_rows[0], max_abs_err=max(
-        r["max_abs_err"] for r in attn_rows)), conv3x3=conv_total, up2x=up_total,
-        dpt_tail=tail_total)
+    # attention: the encoder's self-attention shape, read from the qkv
+    # projection; its grouped form: the G = 2 and G = 4 calls of the
+    # variants phase, summed; attention_variant: its three softmax
+    # variants' calls, summed; conv3x3 and up2x: one DPT head's calls at
+    # batch 8, summed; dpt_tail: the head's one call. Launches: the slice's
+    # run (requests (a)-(c)); the variants phase's for the variants
+    launches.update({k: variant_launches[k]
+                     for k in ("fused_attention_grouped", "attention_variant")})
+    rows = dict(
+        fused_attention=dict(attn_rows[0], max_abs_err=max(r["max_abs_err"] for r in attn_rows)),
+        fused_attention_grouped=summed([variant_rows[k] for k in ("G=2", "G=4")]),
+        attention_variant=summed([variant_rows[k] for k in
+                                  ("nomax", "bf16_logits", "bf16_exp")]),
+        conv3x3=conv_total, up2x=up_total, dpt_tail=tail_total)
     where = dict(
-        fused_attention=("fused_attention.cu", "dust3r_tpu/ops/pallas_attention.py:142"),
+        fused_attention=("fused_attention.cu", "dust3r_tpu/ops/pallas_attention.py:142, "
+                         "scripts/exp_attn_dma_r2.py:103, scripts/exp_attn_layout_r2.py:89, "
+                         "scripts/bench_attn3.py:19"),
+        fused_attention_grouped=("fused_attention.cu", "scripts/exp_attn_r2.py:144, "
+                                 "scripts/exp_attn_vmem_r2.py:104"),
+        attention_variant=("fused_attention.cu", "scripts/exp_attn_variants.py:83, "
+                           "scripts/exp_softmax_r2.py:65"),
         conv3x3=("conv3x3.cu", "dust3r_tpu/ops/conv3x3.py:74"),
         up2x=("up2x.cu", "scripts/exp_up_pallas_r2.py:79"),
         dpt_tail=("dpt_tail.cu", "scripts/exp_tailk_r2.py:78, scripts/exp_tailk2_r2.py:113"))

@@ -1,493 +1,103 @@
 // Fused 2D-RoPE attention for Hopper (sm_90a), with a plain C interface.
 //
 // Replaces dust3r_tpu/ops/pallas_attention.py::fused_attention (the Pallas
-// TPU kernel _attn_kernel). Per (batch, head):
-//   O = softmax((R_q q)(R_k k)^T * d^-1/2) v
-// RoPE in fp32 (head dim halves [y | x], rotate-half within each half),
-// q scaled before rounding back to the input type, matmul operands in the
-// input type with fp32 accumulation, max-subtracted softmax in fp32, P
-// rounded to the input type before P.v, output divided by the row sum.
+// TPU kernel _attn_kernel, row 1 of the repo's TPU kernels) and, through
+// its strides, the head-packed TPU experiments that read q, k and v out of
+// the (B, N, 3C) qkv projection or (B, N, C) projections and write
+// (B, N, C): scripts/exp_attn_dma_r2.py::attn_dma (row 6) and
+// scripts/exp_attn_layout_r2.py::attn_qkv_layout (row 7). With G > 1 heads
+// a block it is also the counterpart of the heads-per-program experiments
+// scripts/exp_attn_r2.py::attn_g (row 3) and exp_attn_vmem_r2.py (row 5).
 //
-// What bounds it on an H100: at DUSt3R's sizes (N <= ~1200 tokens, d = 64)
-// the two products are 4*N*N*d FLOPs against 4*N*d input/output elements,
-// about N/2 FLOPs per byte in bf16 (384 at N = 768), above the card's
-// ~295 FLOP/byte ridge: the bf16 tensor-core rate is the bound, and the
-// (N, N) logits must never reach device memory. The design:
-//   * one block per (batch*head, 64-row query tile), four warps of 16 rows;
-//   * K and V streamed through shared memory in 64-key tiles with 16-byte
-//     loads, RoPE applied to Q and to each K tile as it is loaded (the
-//     tables are precomputed in fp32 by the wrapper, as the JAX version
-//     builds them outside pallas_call);
-//   * q.k^T and P.v on bf16 tensor cores with mma.sync m16n8k16, the logits
-//     tile of a warp (16 x 64) living in registers, the P fragments reused
-//     in registers as the A operand of P.v, V's B fragments read transposed
-//     from its row-major tile by ldmatrix;
-//   * an online softmax in fp32 (running max and row sum per query row);
-//   * the ragged last query and key tiles masked (672 and 196 tokens are
-//     not multiples of 64).
-// fp32 inputs take a plain FMA kernel of the same structure (one thread per
-// query row); it is for parity checks, not for the card's main path.
-// Not carried over from the TPU design: the whole (N, N) tile in VMEM, the
-// heads-per-program grouping and the ones-column row-sum fold.
-//
-// A kernel launches on the caller's stream, allocates nothing and does not
-// synchronise; the entry point returns cudaGetLastError() after the launch.
+// With a softmax other than the exact one it serves the TPU experiments
+// that vary row 1's softmax (one head a block, bf16):
+//   * scripts/exp_softmax_r2.py::attn with safe=False (row 9): "nomax",
+//     p = exp(s) with no running max and no rescale of the accumulator. It
+//     overflows where a logit passes ~88, as row 9 does; nothing in the
+//     model asks for it;
+//   * scripts/exp_attn_variants.py's kern_bf16s and kern_bf16exp (row 4):
+//     "bf16_logits" (the logits tile rounded to bf16 after the fp32 mma,
+//     then the bf16 exp) and "bf16_exp" (fp32 logits and max, then
+//     exp2 of bf16((s - m) log2 e) on bf16 pairs, one sm_90
+//     ex2.approx.ftz.bf16x2 a pair; P comes out of it in bf16).
+// Row 4's kern_base and row 9's safe=True are the exact softmax. What
+// bounds a variant is what bounds row 1: at d = 64 a logit costs 256
+// tensor-core FLOPs and one exp, and 989 TFLOP/s / 256 is about the SM's
+// fp32 exp rate, so whether a cheaper exp (or none of the max's passes)
+// moves the time is measured, not assumed. Every variant divides by the
+// fp32 row sum of P as its exp made it; the TPU's ones-column fold is not
+// carried over.
+// The kernels and what bounds them are in attention_core.cuh.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_core.cuh"
 
 namespace {
 
-constexpr int kRowsPerBlock = 64;  // query rows per block
-constexpr int kKeysPerTile = 64;   // keys per shared-memory tile
-constexpr int kWarps = kRowsPerBlock / 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kF32Chunk = 16;      // keys scored at a time by the fp32 kernel
-static_assert(kRowsPerBlock == kKeysPerTile, "one tile loader serves Q, K and V");
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// Element c of a RoPE-rotated row of length D, in fp32.
-template <int D, typename T>
-__device__ __forceinline__ float rope_elem(const T* row, const float* cos_row,
-                                           const float* sin_row, int c) {
-  constexpr int kHalf = D / 2;
-  constexpr int kQuarter = D / 4;
-  const int base = c < kHalf ? 0 : kHalf;
-  const int cc = c - base;
-  const float partner = cc < kQuarter ? -to_f32(row[base + cc + kQuarter])
-                                      : to_f32(row[base + cc - kQuarter]);
-  return to_f32(row[c]) * cos_row[c] + partner * sin_row[c];
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// 8 bf16 <-> 8 fp32, through one 16-byte load or store
-__device__ __forceinline__ void unpack8(uint4 u, float (&f)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 x = __bfloat1622float2(h[i]);
-    f[2 * i] = x.x;
-    f[2 * i + 1] = x.y;
-  }
-}
-
-__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
-  return make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]), pack_bf16(f[4], f[5]),
-                    pack_bf16(f[6], f[7]));
-}
-
-__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-}
-
-// acc (16x8 fp32) += a (16x16 bf16, row-major) * b (16x8 bf16, col-major)
-__device__ __forceinline__ void mma_bf16(float (&acc)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The B fragment (b0, b1) of mma m16n8k16 from a row-major (16 k-rows,
-// 8 n-columns) bf16 tile in shared memory: lane i < 16 passes the address
-// of k-row i (lanes 16-31 repeat them), and .trans hands each lane the
-// k-pairs of its column.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1,
-                                                  const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b0), "=r"(b1)
-               : "r"(addr)
-               : "memory");
-}
-
-// Rows [row0, row0 + 64) of a (n, D) bf16 matrix into shared memory (row
-// stride kStride): rotated by RoPE in fp32 when cos is not null, times
-// scale, rounded to bf16. Rows past n and columns in [D, kDK) are zero.
-template <int D, int kDK, int kStride>
-__device__ __forceinline__ void load_rope_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                               const float* cos, const float* sin,
-                                               int row0, int n, float scale) {
-  constexpr int kHalf = D / 2;
-  constexpr int kQuarter = D / 4;
-  if constexpr (kQuarter % 8 == 0) {
-    // 16-byte loads: a unit is 8 columns c0 of the first quarter of a half
-    // and their rotate-half partners c1 = c0 + D/4. The tables repeat with
-    // period D/4 within each half (rope_cos_sin concatenates the
-    // frequencies twice), so cos[c1] == cos[c0] and sin[c1] == sin[c0].
-    constexpr int kChunks = kQuarter / 8;
-    constexpr int kUnits = 2 * kChunks;
-    for (int i = threadIdx.x; i < kRowsPerBlock * kUnits; i += kThreads) {
-      const int r = i / kUnits, u = i % kUnits;
-      const int c0 = (u / kChunks) * kHalf + (u % kChunks) * 8;
-      const int c1 = c0 + kQuarter;
-      const int row = row0 + r;
-      float a[8] = {}, b[8] = {};
-      if (row < n) {
-        const __nv_bfloat16* s = src + (size_t)row * D;
-        unpack8(*reinterpret_cast<const uint4*>(s + c0), a);
-        unpack8(*reinterpret_cast<const uint4*>(s + c1), b);
-        if (cos != nullptr) {
-          float cs[8], sn[8];
-          load8(cos + (size_t)row * D + c0, cs);
-          load8(sin + (size_t)row * D + c0, sn);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const float x = a[j] * cs[j] + (-b[j]) * sn[j];
-            const float y = b[j] * cs[j] + a[j] * sn[j];
-            a[j] = x;
-            b[j] = y;
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          a[j] *= scale;
-          b[j] *= scale;
-        }
-      }
-      *reinterpret_cast<uint4*>(dst + r * kStride + c0) = pack8(a);
-      *reinterpret_cast<uint4*>(dst + r * kStride + c1) = pack8(b);
-    }
-  } else {
-    for (int i = threadIdx.x; i < kRowsPerBlock * kDK; i += kThreads) {
-      const int r = i / kDK, c = i % kDK;
-      const int row = row0 + r;
-      float val = 0.f;
-      if (row < n && c < D) {
-        const size_t off = (size_t)row * D;
-        val = cos != nullptr ? rope_elem<D>(src + off, cos + off, sin + off, c)
-                             : __bfloat162float(src[off + c]);
-        val *= scale;
-      }
-      dst[r * kStride + c] = __float2bfloat16(val);
-    }
-  }
-}
-
-// Rows [row0, row0 + 64) of a (n, D) bf16 matrix copied into shared memory
-// (row stride kStride) with 16-byte accesses; rows past n are zero.
-template <int D, int kStride>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int row0, int n) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < kRowsPerBlock * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    const int row = row0 + r;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row < n) val = *reinterpret_cast<const uint4*>(src + (size_t)row * D + c);
-    *reinterpret_cast<uint4*>(dst + r * kStride + c) = val;
+template <int D>
+int launch_softmax(const attn::Args& a, int batch, int softmax, cudaStream_t stream) {
+  switch (softmax) {
+    case attn::kNoMax:
+      return attn::launch_bf16<D, 1, attn::kNoMax>(a, batch, stream);
+    case attn::kBf16Logits:
+      return attn::launch_bf16<D, 1, attn::kBf16Logits>(a, batch, stream);
+    case attn::kBf16Exp:
+      return attn::launch_bf16<D, 1, attn::kBf16Exp>(a, batch, stream);
+    default:
+      return -1;
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, const float* __restrict__ cos_q,
-                 const float* __restrict__ sin_q, const float* __restrict__ cos_k,
-                 const float* __restrict__ sin_k, __nv_bfloat16* __restrict__ o,
-                 int heads, int nq, int nk, float scale, int use_rope) {
-  constexpr int kDK = (D + 15) / 16 * 16;  // q.k^T depth, zero-padded to the mma k
-  constexpr int kStride = kDK + 8;         // row strides padded by 16 bytes so that
-  constexpr int kVStride = D + 8;          // fragment and ldmatrix rows hit 32 banks
-  constexpr int kNT = kKeysPerTile / 8;    // 8-key column tiles of the logits
-  constexpr int kDT = D / 8;               // 8-wide column tiles of the output
-  __shared__ __align__(16) __nv_bfloat16 qs[kRowsPerBlock * kStride];
-  __shared__ __align__(16) __nv_bfloat16 ks[kKeysPerTile * kStride];
-  __shared__ __align__(16) __nv_bfloat16 vs[kKeysPerTile * kVStride];  // row-major
-
-  const int bh = blockIdx.y;
-  const int b = bh / heads;
-  const int q0 = blockIdx.x * kRowsPerBlock;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;  // fragment row group
-  const int t = lane % 4;  // thread within the group
-
-  const __nv_bfloat16* kb = k + (size_t)bh * nk * D;
-  const __nv_bfloat16* vb = v + (size_t)bh * nk * D;
-  const float* cq = use_rope ? cos_q + (size_t)b * nq * D : nullptr;
-  const float* sq = use_rope ? sin_q + (size_t)b * nq * D : nullptr;
-  const float* ck = use_rope ? cos_k + (size_t)b * nk * D : nullptr;
-  const float* sk = use_rope ? sin_k + (size_t)b * nk * D : nullptr;
-
-  // Q tile: RoPE in fp32, scaled, rounded to bf16 (as the TPU kernel does)
-  load_rope_tile<D, kDK, kStride>(qs, q + (size_t)bh * nq * D, cq, sq, q0, nq, scale);
-  __syncthreads();
-
-  const int wr = warp * 16;
-  uint32_t qa[kDK / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < kDK / 16; ++kc) {
-    const __nv_bfloat16* base = qs + (wr + g) * kStride + kc * 16 + 2 * t;
-    qa[kc][0] = ld_u32(base);
-    qa[kc][1] = ld_u32(base + 8 * kStride);
-    qa[kc][2] = ld_u32(base + 8);
-    qa[kc][3] = ld_u32(base + 8 * kStride + 8);
+int launch(const attn::Args& a, int batch, int heads_per_block, int softmax, int is_bf16,
+           cudaStream_t stream) {
+  if (!is_bf16) return softmax == attn::kExact ? attn::launch_f32<D>(a, batch, stream) : -1;
+  if (softmax != attn::kExact) {
+    return heads_per_block == 1 ? launch_softmax<D>(a, batch, softmax, stream) : -1;
   }
-
-  float oacc[kDT][4];
-#pragma unroll
-  for (int n = 0; n < kDT; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g and g + 8
-  float l0 = 0.f, l1 = 0.f;              // this thread's share of the row sums
-
-  for (int k0 = 0; k0 < nk; k0 += kKeysPerTile) {
-    __syncthreads();  // the previous tile is consumed
-    load_rope_tile<D, kDK, kStride>(ks, kb, ck, sk, k0, nk, 1.f);
-    load_tile<D, kVStride>(vs, vb, k0, nk);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys
-    float s[kNT][4];
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < kDK / 16; ++kc) {
-        const __nv_bfloat16* base = ks + (n * 8 + g) * kStride + kc * 16 + 2 * t;
-        mma_bf16(s[n], qa[kc], ld_u32(base), ld_u32(base + 8));
-      }
-    }
-    const int valid = nk - k0;
-    if (valid < kKeysPerTile) {
-#pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (n * 8 + 2 * t + (j & 1) >= valid) s[n][j] = -INFINITY;
-        }
-      }
-    }
-
-    // online softmax: the four threads of a group share rows g and g + 8
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) {
-      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
-    }
-#pragma unroll
-    for (int sh = 1; sh <= 2; sh *= 2) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
-    }
-    const float corr0 = __expf(m0 - mx0);
-    const float corr1 = __expf(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    l0 *= corr0;
-    l1 *= corr1;
-#pragma unroll
-    for (int n = 0; n < kDT; ++n) {
-      oacc[n][0] *= corr0;
-      oacc[n][1] *= corr0;
-      oacc[n][2] *= corr1;
-      oacc[n][3] *= corr1;
-    }
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) {
-      s[n][0] = __expf(s[n][0] - m0);
-      s[n][1] = __expf(s[n][1] - m0);
-      s[n][2] = __expf(s[n][2] - m1);
-      s[n][3] = __expf(s[n][3] - m1);
-      l0 += s[n][0] + s[n][1];
-      l1 += s[n][2] + s[n][3];
-    }
-
-    // O += P V: the logits' accumulator layout is the A-operand layout; V's
-    // B fragments come transposed out of its row-major tile
-#pragma unroll
-    for (int kc = 0; kc < kKeysPerTile / 16; ++kc) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                              pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                              pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                              pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-      for (int n = 0; n < kDT; ++n) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, vs + (kc * 16 + (lane & 15)) * kVStride + n * 8);
-        mma_bf16(oacc[n], pa, b0, b1);
-      }
-    }
+  switch (heads_per_block) {
+    case 1:
+      return attn::launch_bf16<D, 1, attn::kExact>(a, batch, stream);
+    case 2:
+      return attn::launch_bf16<D, 2, attn::kExact>(a, batch, stream);
+    case 4:
+      return attn::launch_bf16<D, 4, attn::kExact>(a, batch, stream);
+    default:
+      return -1;
   }
-
-#pragma unroll
-  for (int sh = 1; sh <= 2; sh *= 2) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, sh);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, sh);
-  }
-  __nv_bfloat16* ob = o + (size_t)bh * nq * D;
-  const int row0 = q0 + wr + g;
-  const int row1 = row0 + 8;
-#pragma unroll
-  for (int n = 0; n < kDT; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (row0 < nq) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * D + col) =
-          __floats2bfloat162_rn(oacc[n][0] / l0, oacc[n][1] / l0);
-    }
-    if (row1 < nq) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * D + col) =
-          __floats2bfloat162_rn(oacc[n][2] / l1, oacc[n][3] / l1);
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kRowsPerBlock)
-attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ cos_q,
-                const float* __restrict__ sin_q, const float* __restrict__ cos_k,
-                const float* __restrict__ sin_k, float* __restrict__ o,
-                int heads, int nq, int nk, float scale, int use_rope) {
-  __shared__ float ks[kKeysPerTile][D];
-  __shared__ float vs[kKeysPerTile][D];
-
-  const int bh = blockIdx.y;
-  const int b = bh / heads;
-  const int tid = threadIdx.x;
-  const int row = blockIdx.x * kRowsPerBlock + tid;
-  const bool active = row < nq;
-
-  const float* qb = q + (size_t)bh * nq * D;
-  const float* kb = k + (size_t)bh * nk * D;
-  const float* vb = v + (size_t)bh * nk * D;
-  const size_t tq = (size_t)b * nq * D;
-  const size_t tk = (size_t)b * nk * D;
-
-  float qr[D];
-#pragma unroll
-  for (int c = 0; c < D; ++c) {
-    float val = 0.f;
-    if (active) {
-      const size_t off = (size_t)row * D;
-      val = use_rope ? rope_elem<D>(qb + off, cos_q + tq + off, sin_q + tq + off, c)
-                     : qb[off + c];
-    }
-    qr[c] = val * scale;
-  }
-  float oacc[D];
-#pragma unroll
-  for (int c = 0; c < D; ++c) oacc[c] = 0.f;
-  float m = -INFINITY, l = 0.f;
-
-  for (int k0 = 0; k0 < nk; k0 += kKeysPerTile) {
-    __syncthreads();
-    for (int i = tid; i < kKeysPerTile * D; i += kRowsPerBlock) {
-      const int r = i / D, c = i % D;
-      const int key = k0 + r;
-      float kv = 0.f, vv = 0.f;
-      if (key < nk) {
-        const size_t off = (size_t)key * D;
-        kv = use_rope ? rope_elem<D>(kb + off, cos_k + tk + off, sin_k + tk + off, c)
-                      : kb[off + c];
-        vv = vb[off + c];
-      }
-      ks[r][c] = kv;
-      vs[r][c] = vv;
-    }
-    __syncthreads();
-
-    const int valid = min(kKeysPerTile, nk - k0);
-    for (int j0 = 0; j0 < valid; j0 += kF32Chunk) {
-      float s[kF32Chunk];
-      float mx = m;
-#pragma unroll
-      for (int j = 0; j < kF32Chunk; ++j) {
-        float dot = 0.f;
-#pragma unroll
-        for (int c = 0; c < D; ++c) dot = fmaf(qr[c], ks[j0 + j][c], dot);
-        s[j] = j0 + j < valid ? dot : -INFINITY;
-        mx = fmaxf(mx, s[j]);
-      }
-      const float corr = expf(m - mx);
-      m = mx;
-      l *= corr;
-#pragma unroll
-      for (int c = 0; c < D; ++c) oacc[c] *= corr;
-#pragma unroll
-      for (int j = 0; j < kF32Chunk; ++j) {
-        const float p = expf(s[j] - m);
-        l += p;
-#pragma unroll
-        for (int c = 0; c < D; ++c) oacc[c] = fmaf(p, vs[j0 + j][c], oacc[c]);
-      }
-    }
-  }
-
-  if (active) {
-    float* orow = o + (size_t)bh * nq * D + (size_t)row * D;
-#pragma unroll
-    for (int c = 0; c < D; ++c) orow[c] = oacc[c] / l;
-  }
-}
-
-template <int D>
-int launch(const void* q, const void* k, const void* v, const float* cos_q,
-           const float* sin_q, const float* cos_k, const float* sin_k, void* o,
-           int batch_heads, int heads, int nq, int nk, int is_bf16, int use_rope,
-           float scale, cudaStream_t stream) {
-  const dim3 grid((nq + kRowsPerBlock - 1) / kRowsPerBlock, batch_heads);
-  if (is_bf16) {
-    attn_bf16_kernel<D><<<grid, kThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), cos_q, sin_q, cos_k, sin_k,
-        static_cast<__nv_bfloat16*>(o), heads, nq, nk, scale, use_rope);
-  } else {
-    attn_f32_kernel<D><<<grid, kRowsPerBlock, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), cos_q, sin_q, cos_k, sin_k,
-        static_cast<float*>(o), heads, nq, nk, scale, use_rope);
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q: (batch_heads, nq, d); k, v: (batch_heads, nk, d); o like q; all
-// contiguous and 16-byte aligned, bf16 (is_bf16 = 1) or fp32. cos/sin
-// tables: (batch, n, d) fp32, batch = batch_heads / heads, laid out as
-// rope_tables builds them (each half repeats with period d/4); ignored
-// (may be null) without RoPE. Returns the CUDA error code of the launch;
-// -1 for an unsupported d.
+// q: (batch, heads, nq, d) and k, v: (batch, heads, nk, d) views, o like
+// q; bf16 (is_bf16 = 1) or fp32; unit stride in d, the (batch, head, row)
+// strides of q, k, v and o in `strides` (12 values, elements), every
+// stride and base 16-byte aligned. cos/sin tables: (batch, n, d) fp32
+// contiguous, laid out as rope_tables builds them (each half repeats with
+// period d/4); ignored (may be null) without RoPE. heads_per_block (G)
+// divides heads and is 1, 2 or 4 (the fp32 kernel takes one head a block
+// for any G). softmax is attn::Softmax: kExact (0) for any G and dtype;
+// kNoMax (1), kBf16Logits (2) and kBf16Exp (3) for bf16 with G = 1.
+// Returns the CUDA error code of the launch; -1 for an unsupported d, G or
+// softmax.
 extern "C" int dust3r_fused_attention(const void* q, const void* k, const void* v,
                                       const float* cos_q, const float* sin_q,
                                       const float* cos_k, const float* sin_k, void* o,
-                                      int batch_heads, int heads, int nq, int nk, int d,
-                                      int is_bf16, int use_rope, float scale,
-                                      void* stream) {
+                                      const long long* strides, int batch, int heads, int nq,
+                                      int nk, int d, int heads_per_block, int softmax,
+                                      int is_bf16, int use_rope, float scale, void* stream) {
+  if (heads_per_block < 1 || heads % heads_per_block) return -1;
+  const attn::Args a = attn::make_args(q, k, v, cos_q, sin_q, cos_k, sin_k, o, strides, heads,
+                                       nq, nk, use_rope, scale);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 16:
-      return launch<16>(q, k, v, cos_q, sin_q, cos_k, sin_k, o, batch_heads, heads, nq, nk,
-                        is_bf16, use_rope, scale, s);
+      return launch<16>(a, batch, heads_per_block, softmax, is_bf16, s);
     case 24:
-      return launch<24>(q, k, v, cos_q, sin_q, cos_k, sin_k, o, batch_heads, heads, nq, nk,
-                        is_bf16, use_rope, scale, s);
+      return launch<24>(a, batch, heads_per_block, softmax, is_bf16, s);
     case 32:
-      return launch<32>(q, k, v, cos_q, sin_q, cos_k, sin_k, o, batch_heads, heads, nq, nk,
-                        is_bf16, use_rope, scale, s);
+      return launch<32>(a, batch, heads_per_block, softmax, is_bf16, s);
     case 64:
-      return launch<64>(q, k, v, cos_q, sin_q, cos_k, sin_k, o, batch_heads, heads, nq, nk,
-                        is_bf16, use_rope, scale, s);
+      return launch<64>(a, batch, heads_per_block, softmax, is_bf16, s);
     default:
       return -1;
   }

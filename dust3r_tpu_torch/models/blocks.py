@@ -74,8 +74,10 @@ class SelfAttention(nn.Module):
     def forward(self, x, pos, rope=None):
         B, N, C = x.shape
         h = self.num_heads
-        qkv = self.qkv(x).reshape(B, N, 3, h, C // h).permute(2, 0, 3, 1, 4)
-        q, k, v = (t.contiguous() for t in qkv)  # each (B, h, N, d)
+        # (B, h, N, d) views of the (B, N, 3C) projection: the kernel reads
+        # the heads in place and writes (B, N, h, d), so neither the split
+        # nor the merge of the heads copies on its path
+        q, k, v = self.qkv(x).view(B, N, 3, h, C // h).permute(2, 0, 3, 1, 4)
         out = attention(q, k, v, pos, pos, self.rope_base, self.attn_impl, rope, rope)
         return self.proj(out.transpose(1, 2).reshape(B, N, C))
 
@@ -97,8 +99,8 @@ class CrossAttention(nn.Module):
         Nk = key.shape[1]
         h = self.num_heads
 
-        def heads(t, n):
-            return t.reshape(B, n, h, C // h).transpose(1, 2).contiguous()
+        def heads(t, n):  # a (B, h, n, d) view of a (B, n, C) projection
+            return t.view(B, n, h, C // h).transpose(1, 2)
 
         q = heads(self.projq(query), Nq)
         k = heads(self.projk(key), Nk)

@@ -14,7 +14,8 @@ IMPLS = ("plain", "kernel")
 
 def attention(q, k, v, positions_q=None, positions_k=None, rope_base=100.0,
               impl=None, tables_q=None, tables_k=None):
-    """q, k, v: (B, H, N, d); positions: (B, N, 2) or None.
+    """q, k, v: (B, H, N, d), any strides with unit stride in d; positions:
+    (B, N, 2) or None.
 
     impl: None (auto: the kernel for CUDA tensors, else the plain version),
     'plain' or 'kernel'. 'kernel' on CPU tensors runs the kernel's plain

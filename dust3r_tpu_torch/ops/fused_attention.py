@@ -1,17 +1,24 @@
 """Fused 2D-RoPE attention: the CUDA kernel's wrapper and its plain version.
 
 Replaces `dust3r_tpu/ops/pallas_attention.py::fused_attention`. The kernel
-is `csrc/fused_attention.cu` (hand-written for sm_90a: mma.sync bf16 tensor
-cores, K/V streamed through shared memory, online softmax in fp32; its
-header says what bounds it on the card and how the design answers that).
+is `csrc/fused_attention.cu` on the core of `csrc/attention_core.cuh`
+(hand-written for sm_90a: mma.sync bf16 tensor cores, K/V streamed through
+shared memory, online softmax in fp32; the header says what bounds it on
+the card and how the design answers that). Its addressing is strided, so
+q, k and v may be head views of the projections (`(B, N, 3C)` or
+`(B, N, C)` seen as `(B, H, N, d)`) and the output lands head-packed.
 
 * `attention_ref` is the plain PyTorch version, the counterpart of the JAX
-  `attention_ref`: RoPE in the token dtype, logits and softmax in fp32, P
-  cast to the value dtype before P.v. The CPU tests and the card-side
-  comparison use it.
+  `attention_ref`: RoPE in the token dtype, logits from the fp32 upcasts
+  of the rotated q and k (exact products, fp32 sums, as the JAX einsum
+  with `preferred_element_type=float32`), softmax in fp32, P cast to the
+  value dtype, P.v with fp32 sums (the JAX einsum's too) rounded to the
+  value dtype. The CPU tests and the card-side comparison use it.
 * `fused_attention` is the wrapper. For a CPU tensor it returns the plain
   version (the kernel cannot run there); for a CUDA tensor it launches the
-  kernel or raises. `fused_attention.launches` counts kernel launches.
+  kernel or raises. `fused_attention.launches` counts kernel launches,
+  `fused_attention.grouped_launches` those of the bf16 kernel with more
+  than one head a block (the fp32 kernel runs one head a block for any G).
 """
 from __future__ import annotations
 
@@ -23,44 +30,61 @@ from .rope import apply_rope2d, rope_tables
 
 SUPPORTED_HEAD_DIMS = (16, 24, 32, 64)
 SUPPORTED_DTYPES = (torch.bfloat16, torch.float32)
+# heads a block of the bf16 kernel: 128 threads each; 8 (1024 threads at
+# most 64 registers each) does not fit the kernel's registers
+HEADS_PER_PROGRAM = (1, 2, 4)
 
 
 def attention_ref(q, k, v, positions_q=None, positions_k=None, rope_base=100.0):
     """Plain attention. q, k, v: (B, H, N, d); positions: (B, N, 2) or None.
 
-    RoPE rotates q and k (not v), then softmax(q k^T / sqrt(d)) v with the
-    softmax in fp32 and the result in v's dtype. The products run in the
-    input dtype; for bf16 inputs torch rounds the logits to bf16 where the
-    JAX version keeps them in fp32, so a bf16 check upcasts to fp32 first.
-    """
+    RoPE rotates q and k (not v) in their dtype, then softmax(q k^T /
+    sqrt(d)) v: the logits from fp32 upcasts of the rotated q and k, the
+    softmax in fp32, P cast to v's dtype, P.v from fp32 upcasts rounded to
+    v's dtype (a bf16 matmul on the CPU rounds differently with and
+    without oneDNN)."""
     if positions_q is not None:
         q = apply_rope2d(q, positions_q, rope_base)
     if positions_k is not None:
         k = apply_rope2d(k, positions_k, rope_base)
     scale = q.shape[-1] ** -0.5
-    logits = torch.matmul(q, k.transpose(-1, -2)).float() * scale
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     weights = torch.softmax(logits, dim=-1)
-    return torch.matmul(weights.to(v.dtype), v)
+    return torch.matmul(weights.to(v.dtype).float(), v.float()).to(v.dtype)
 
 
 _LIB = None
 
 
 def _kernel():
+    """`csrc/fused_attention.cu`'s C entry, built at first use: q, k, v,
+    four tables, o, the 12 strides; batch, heads, nq, nk, d, heads a block,
+    softmax, bf16, use_rope; scale, stream."""
     global _LIB
     if _LIB is None:
         from ._build import load_library
 
-        lib = load_library("fused_attention")
-        fn = lib.dust3r_fused_attention
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        fn = load_library("fused_attention").dust3r_fused_attention
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _LIB = fn
     return _LIB
 
 
-def _check(q, k, v, positions_q, positions_k):
+def check_heads_per_program(heads_per_program, heads):
+    """Refuse a heads-a-block count the kernel has no instance for."""
+    if heads_per_program not in HEADS_PER_PROGRAM:
+        raise ValueError(f"heads_per_program {heads_per_program} not in {HEADS_PER_PROGRAM}: "
+                         f"a block holds 128 threads a head, and 8 heads (1024 threads at "
+                         f"most 64 registers each) do not fit the kernel's registers")
+    if heads % heads_per_program:
+        raise ValueError(f"heads_per_program {heads_per_program} does not divide "
+                         f"the {heads} heads")
+
+
+def check(q, k, v, positions_q, positions_k, heads_per_program=1):
+    """Refuse what the kernel cannot serve, naming it."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("q, k and v must lie on one CUDA device")
     if q.dtype not in SUPPORTED_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -75,12 +99,24 @@ def _check(q, k, v, positions_q, positions_k):
     if k.shape != (B, H, Nk, d) or v.shape != k.shape:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
-    if Nq == 0 or Nk == 0 or B * H == 0 or B * H > 65535:
+    if Nq == 0 or Nk == 0 or B * H == 0 or B * H // heads_per_program > 65535:
         raise ValueError(f"unsupported sizes B*H={B * H}, Nq={Nq}, Nk={Nk}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("q, k, v must be contiguous")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("q, k, v must start at 16-byte aligned addresses")
+    align = 16 // q.element_size()
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must have unit stride in the head dim, got strides "
+                             f"{t.stride()}")
+        # (batch, head, row) strides address 16-byte loads; a dim of size 1
+        # is never stepped over
+        if any(s % align for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
+            raise ValueError(f"{name}'s batch, head and row strides {t.stride()[:3]} must be "
+                             f"multiples of {align} elements (16 bytes)")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start at a 16-byte aligned address")
+        # the kernel's head and row offsets within a batch entry are 32-bit
+        if sum((n - 1) * s for s, n in zip(t.stride()[1:], t.shape[1:])) >= 2 ** 31:
+            raise ValueError(f"{name}'s offsets within a batch entry pass 2^31 elements "
+                             f"(strides {t.stride()}, shape {tuple(t.shape)})")
     if (positions_q is None) != (positions_k is None):
         raise ValueError("give positions for both q and k, or for neither")
     if positions_q is not None:
@@ -106,19 +142,12 @@ def _kernel_tables(positions, tables, head_dim, base):
     return cos, sin
 
 
-def fused_attention(q, k, v, positions_q=None, positions_k=None, rope_base=100.0,
-                    tables_q=None, tables_k=None):
-    """q, k, v: (B, H, N, d), Nq may differ from Nk; positions (B, N, 2)
-    integer (y, x) or None for no RoPE. Returns (B, H, Nq, d) in q's dtype.
-
-    tables_q / tables_k: optional fp32 (cos, sin) of the positions from
-    `rope_tables(positions, d, rope_base)`, for a caller that shares them
-    across layers; building them takes some twenty small launches. The
-    kernel reads them; the plain version builds its own in the token dtype,
-    as the JAX reference does."""
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, positions_q, positions_k, rope_base)
-    _check(q, k, v, positions_q, positions_k)
+def launch(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k,
+           heads_per_program=1, softmax=0):
+    """Launch the kernel on checked CUDA q, k, v with `heads_per_program`
+    heads a block and the softmax code `softmax` (0: exact; the variants'
+    codes are in `attention_variants`); returns the (B, H, Nq, d) view of a
+    new head-packed (B, Nq, H, d) output, or raises."""
     B, H, Nq, d = q.shape
     Nk = k.shape[2]
     use_rope = positions_q is not None
@@ -128,18 +157,47 @@ def fused_attention(q, k, v, positions_q=None, positions_k=None, rope_base=100.0
         tables = [t.data_ptr() for t in (cos_q, sin_q, cos_k, sin_k)]
     else:
         tables = [None] * 4
-    out = torch.empty_like(q)
+    out = torch.empty(B, Nq, H, d, dtype=q.dtype, device=q.device).transpose(1, 2)
+    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
+    fn = _kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), *tables,
-                        out.data_ptr(), B * H, H, Nq, Nk, d,
-                        int(q.dtype == torch.bfloat16), int(use_rope),
-                        d ** -0.5, stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *tables, out.data_ptr(),
+                 ctypes.addressof(strides), B, H, Nq, Nk, d, heads_per_program, softmax,
+                 int(q.dtype == torch.bfloat16), int(use_rope), d ** -0.5, stream)
     if err != 0:
-        raise RuntimeError(f"fused_attention kernel launch failed: CUDA error {err} "
-                           f"(q {tuple(q.shape)} {q.dtype}, Nk={Nk})")
+        raise RuntimeError(f"attention kernel launch failed: CUDA error {err} "
+                           f"(q {tuple(q.shape)} {q.dtype}, Nk={Nk}, G={heads_per_program}, "
+                           f"softmax {softmax})")
+    return out
+
+
+def fused_attention(q, k, v, positions_q=None, positions_k=None, rope_base=100.0,
+                    tables_q=None, tables_k=None, heads_per_program=1):
+    """q, k, v: (B, H, N, d), Nq may differ from Nk, any strides with unit
+    stride in d; positions (B, N, 2) integer (y, x) or None for no RoPE.
+    Returns (B, H, Nq, d) in q's dtype; on the card it is a view of a
+    head-packed (B, Nq, H, d) tensor, so `out.transpose(1, 2).reshape(B,
+    Nq, H * d)` copies nothing.
+
+    tables_q / tables_k: optional fp32 (cos, sin) of the positions from
+    `rope_tables(positions, d, rope_base)`, for a caller that shares them
+    across layers; building them takes some twenty small launches. The
+    kernel reads them; the plain version builds its own in the token dtype,
+    as the JAX reference does. heads_per_program: the heads a block of the
+    bf16 kernel serves (1, 2 or 4, dividing H), as the JAX argument of the
+    same name; every value gives the same bits."""
+    check_heads_per_program(heads_per_program, q.shape[1])
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, positions_q, positions_k, rope_base)
+    check(q, k, v, positions_q, positions_k, heads_per_program)
+    out = launch(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k,
+                 heads_per_program)
     fused_attention.launches += 1
+    if heads_per_program > 1 and q.dtype == torch.bfloat16:  # fp32: one head a block
+        fused_attention.grouped_launches += 1
     return out
 
 
 fused_attention.launches = 0
+fused_attention.grouped_launches = 0

@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import argparse
 import statistics
-import subprocess
 import time
 from pathlib import Path
 
@@ -42,15 +41,10 @@ from dust3r_tpu_torch.inference import InferenceEngine, inference
 from dust3r_tpu_torch.model import dust3r_512_dpt
 from dust3r_tpu_torch.utils.image import views_from_arrays
 
+from .card import card_name
+
 SEED = 0
 BATCH_SIZE = 8
-
-
-def _card():
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    return smi.stdout.strip()
 
 
 def _request():
@@ -194,7 +188,7 @@ def main():
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("measure: no CUDA device")
-    print(_card())
+    print(card_name())
     if args.cmd == "ab":
         ab(args.reps)
     elif args.cmd == "profile":

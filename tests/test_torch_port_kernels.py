@@ -8,7 +8,12 @@ installed; there, skip the JAX-side conftest:
 
 Tolerances, against the plain version computed in fp32 from the same
 inputs and scaled by its max |x|: attention 1e-2 for bf16 inputs (8-bit
-mantissa, P rounded to bf16 before P.v), 1e-5 for fp32 inputs; conv3x3
+mantissa, P rounded to bf16 before P.v), 1e-5 for fp32 inputs; strided
+views and 2 or 4 heads a block give the bits of the contiguous call with
+one head a block (each head's arithmetic is the same); the softmax
+variants 1e-2 against their own plain version on the same bf16 inputs
+(the bf16 ones round (s - max) at the running max and in log2 units, so a
+P may sit one bf16 unit from the plain version's); conv3x3
 1e-3 against `conv3x3_bf16_ref` (the same bf16-rounded operands, products
 exact in fp32, only the order of the fp32 sums differs); up2x 1e-5 against
 `up2x_ref` (two fp32 lerps either way, FMA contraction aside); dpt_tail
@@ -22,6 +27,8 @@ from dust3r_tpu_torch.models.blocks import token_positions
 from dust3r_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_bf16_ref, conv3x3_kernel
 from dust3r_tpu_torch.ops.dpt_tail import dpt_tail, dpt_tail_bf16_ref, dpt_tail_kernel
 from dust3r_tpu_torch.ops.upsample import up2x, up2x_kernel, up2x_ref
+from dust3r_tpu_torch.ops.attention_variants import (SOFTMAXES, attention_variant,
+                                                     attention_variant_ref)
 from dust3r_tpu_torch.ops.fused_attention import (SUPPORTED_HEAD_DIMS, attention_ref,
                                                   fused_attention)
 
@@ -71,7 +78,7 @@ def test_kernel_refuses_what_it_cannot_serve(card):
     with pytest.raises(ValueError, match="head dim"):
         fused_attention(q[..., :40].contiguous(), q[..., :40].contiguous(),
                         q[..., :40].contiguous())
-    with pytest.raises(ValueError, match="contiguous"):
+    with pytest.raises(ValueError, match="unit stride"):
         fused_attention(q.transpose(2, 3).contiguous().transpose(2, 3), q, q)
     with pytest.raises(TypeError):
         fused_attention(q.half(), q.half(), q.half())
@@ -83,6 +90,132 @@ def test_kernel_refuses_what_it_cannot_serve(card):
         flat = torch.zeros(2 * 8 * 64 + 1, device=card, dtype=torch.bfloat16)
         fused_attention(flat[1:].view(1, 2, 8, 64), q, q)
     assert fused_attention.launches == before
+
+
+def _views(card, B, H, Nq, Nk, d, layout, dtype, seed):
+    """q, k, v as the model hands them over: (B, H, N, d) views of one
+    (B, N, 3C) qkv projection ("qkv") or of three (B, N, C) ones
+    ("packed")."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    C = H * d
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=card, generator=gen).to(dtype)
+
+    if layout == "qkv":
+        return tuple(rnd(B, Nq, 3 * C).view(B, Nq, 3, H, d).permute(2, 0, 3, 1, 4))
+    return tuple(rnd(B, n, C).view(B, n, H, d).transpose(1, 2) for n in (Nq, Nk, Nk))
+
+
+LAYOUTS = {  # the main path's: name: (H, token grid of q, of k, layout)
+    "encoder_self_qkv": (16, (24, 32), (24, 32), "qkv"),
+    "decoder_self_qkv": (12, (24, 32), (24, 32), "qkv"),
+    "decoder_cross_768x672_packed": (12, (24, 32), (21, 32), "packed"),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("case", sorted(LAYOUTS))
+def test_strided_views_give_the_contiguous_bits(card, case, dtype):
+    H, gq, gk, layout = LAYOUTS[case]
+    B, d = 2, 64
+    q, k, v = _views(card, B, H, gq[0] * gq[1], gk[0] * gk[1], d, layout, dtype, seed=H)
+    assert not q.is_contiguous()
+    pq, pk = token_positions(B, *gq, card), token_positions(B, *gk, card)
+    out = fused_attention(q, k, v, pq, pk)
+    want = fused_attention(q.contiguous(), k.contiguous(), v.contiguous(), pq, pk)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    # written head-packed: merging the heads is a view
+    merged = out.transpose(1, 2).reshape(B, q.shape[2], H * d)
+    assert merged.data_ptr() == out.data_ptr() and merged.is_contiguous()
+    ref = attention_ref(q.float(), k.float(), v.float(), pq, pk)
+    err = (out.float() - ref).abs().max().item() / ref.abs().max().item()
+    assert err <= RTOL[dtype], f"{case} {dtype}: rel err {err:.3e}"
+
+
+GROUP_CASES = {  # name: (B, H, (hq, wq) token grid of q, (hk, wk) of k, rope)
+    "cross_768x672": (2, 12, (24, 32), (21, 32), True),
+    "ragged_196x672": (1, 4, (14, 14), (21, 32), True),
+    "ragged_196x77_no_rope": (2, 8, (14, 14), (7, 11), False),
+}
+
+
+@pytest.mark.parametrize("G", [2, 4])
+@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("case", sorted(GROUP_CASES))
+def test_heads_per_program_gives_the_bits_of_one_head_a_block(card, case, d, G):
+    B, H, gq, gk, rope = GROUP_CASES[case]
+    gen = torch.Generator(device=card).manual_seed(d + G)
+
+    def rnd(grid):
+        return torch.randn(B, H, grid[0] * grid[1], d, device=card, generator=gen).to(
+            torch.bfloat16)
+
+    q, k, v = rnd(gq), rnd(gk), rnd(gk)
+    pq = token_positions(B, *gq, card) if rope else None
+    pk = token_positions(B, *gk, card) if rope else None
+    before = (fused_attention.launches, fused_attention.grouped_launches)
+    out = fused_attention(q, k, v, pq, pk, heads_per_program=G)
+    torch.cuda.synchronize()
+    assert (fused_attention.launches, fused_attention.grouped_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(out, fused_attention(q, k, v, pq, pk, heads_per_program=1))
+
+
+@pytest.mark.parametrize("G", [2, 4])
+def test_fp32_runs_one_head_a_block_for_any_heads_per_program(card, G):
+    gen = torch.Generator(device=card).manual_seed(G)
+    q, k, v = (torch.randn(2, 4, 130, 64, device=card, generator=gen) for _ in range(3))
+    before = (fused_attention.launches, fused_attention.grouped_launches)
+    out = fused_attention(q, k, v, heads_per_program=G)
+    torch.cuda.synchronize()
+    assert (fused_attention.launches, fused_attention.grouped_launches) == (
+        before[0] + 1, before[1])
+    assert torch.equal(out, fused_attention(q, k, v))
+
+
+VARIANT_CASES = {  # name: (B, H, Nq grid, Nk grid, layout)
+    "self_qkv_768": (2, 16, (24, 32), (24, 32), "qkv"),
+    "cross_packed_768x672": (2, 12, (24, 32), (21, 32), "packed"),
+    "ragged_130": (2, 3, (10, 13), (10, 13), "packed"),
+}
+VARIANT_RTOL = 1e-2
+
+
+@pytest.mark.parametrize("softmax", SOFTMAXES)
+@pytest.mark.parametrize("case", sorted(VARIANT_CASES))
+def test_softmax_variant_matches_its_plain_version(card, case, softmax):
+    B, H, gq, gk, layout = VARIANT_CASES[case]
+    q, k, v = _views(card, B, H, gq[0] * gq[1], gk[0] * gk[1], 64, layout, torch.bfloat16,
+                     seed=len(case))
+    pq, pk = token_positions(B, *gq, card), token_positions(B, *gk, card)
+    before = attention_variant.launches
+    out = attention_variant(q, k, v, pq, pk, softmax=softmax)
+    torch.cuda.synchronize()
+    assert attention_variant.launches == before + 1
+    ref = attention_variant_ref(q, k, v, pq, pk, 100.0, softmax).float()
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    err = (out.float() - ref).abs().max().item() / ref.abs().max().item()
+    assert err <= VARIANT_RTOL, f"{case} {softmax}: rel err {err:.3e}"
+
+
+def test_kernel_refuses_strides_and_groupings_it_cannot_serve(card):
+    q = torch.zeros(1, 6, 8, 64, device=card, dtype=torch.bfloat16)
+    before = (fused_attention.launches, attention_variant.launches)
+    wide = torch.zeros(1, 6, 8, 68, device=card, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="multiples of 8 elements"):
+        fused_attention(wide, q, q)  # rows 136 bytes apart
+    with pytest.raises(ValueError, match="unit stride"):
+        attention_variant(q.transpose(2, 3).contiguous().transpose(2, 3), q, q,
+                          softmax="nomax")
+    with pytest.raises(ValueError, match="not in"):
+        fused_attention(q, q, q, heads_per_program=8)
+    with pytest.raises(ValueError, match="does not divide"):
+        fused_attention(q, q, q, heads_per_program=4)
+    with pytest.raises(TypeError, match="bf16"):
+        attention_variant(q.float(), q.float(), q.float(), softmax="bf16_exp")
+    assert (fused_attention.launches, attention_variant.launches) == before
 
 
 CONV_RTOL = 1e-3
