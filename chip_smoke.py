@@ -6,7 +6,7 @@
 
 Phases (each prints its lines; a failed phase raises and the exit code is 1):
   1. device: requires CUDA; prints the card's name and power limit;
-  2. build: compiles the four kernel sources from `dust3r_tpu_torch/csrc/`
+  2. build: compiles the seven kernel sources from `dust3r_tpu_torch/csrc/`
      (one nvcc per source, all started together, sm_90a);
   3. kernels: each kernel (fused_attention, conv3x3, up2x, dpt_tail) against
      its plain PyTorch version on the card, at the shapes the main path gives
@@ -20,6 +20,14 @@ Phases (each prints its lines; a failed phase raises and the exit code is 1):
      and 4 heads a block, attention_variant's three softmax variants) driven
      once at the encoder shape with its launch counts from 0, then each
      against its plain version (and G > 1 against G = 1, bit for bit);
+  3c. experiments: the other TPU experiments' entry points, each driven
+     once with its launch counts from 0: the tap-sum conv (rows 10 and 11,
+     `conv3x3_taps_kernel` "slices" and "copies") at two DPT shapes, the
+     DPT tail's epilogue (row 13, `dpt_post_kernel`) at 512x384, and row
+     3's floor modes (`attention_floor`: nosmax, qkonly, copy, copynr,
+     copymm) at the encoder shape with 1 and 4 heads a block; then each
+     against its plain version with its times, bound and library call (G =
+     4 bit for bit against G = 1), and qkonly's time at 64 keys beside 768;
   4. slice: `DUSt3R_ViTLarge_BaseDecoder_512_dpt` at full width (seeded random
      weights, bf16 body, fp32 heads) serves three requests through
      make_pairs -> InferenceEngine -> inference; checks outputs, the four
@@ -32,12 +40,14 @@ Phases (each prints its lines; a failed phase raises and the exit code is 1):
      (`infer_pairs(..., to_cpu=False)`, the four kernels' launches counted
      from 0 and checked): finite, falling losses, poses and positive focals.
 The second-to-last line is a JSON object of the kernels, with the launches
-of the slice's run (of the variants phase for the variants); the last line is {"ok": true, "device": {...}}. With
+of the slice's run (of the variants and experiments phases for theirs); the
+last line is {"ok": true, "device": {...}}. With
 `--kernels-only` neither line is printed. Without a CUDA device, or outside
 a checkout of the repo, it exits non-zero and prints no result.
 Throughput A/B, a profile of the slice and one of the aligner's loop:
-`dust3r_tpu_torch/tools/measure.py`; the TPU attention experiments' rows
-at their scripts' shapes: `dust3r_tpu_torch/tools/attn_variants.py`.
+`dust3r_tpu_torch/tools/measure.py`; the TPU experiments' rows at their
+scripts' shapes: `dust3r_tpu_torch/tools/attn_variants.py` (attention,
+rows 3-9) and `dust3r_tpu_torch/tools/conv_variants.py` (rows 10, 11, 13).
 """
 from __future__ import annotations
 
@@ -56,7 +66,8 @@ KERNEL_RTOL = 1e-2
 # (the parity budget of BASELINE.json)
 PARITY_RMSE = 1e-2
 H384, H336, W = 384, 336, 512  # the 512x384 and 512x336 buckets
-SOURCES = ("fused_attention", "conv3x3", "up2x", "dpt_tail")
+SOURCES = ("fused_attention", "conv3x3", "up2x", "dpt_tail", "conv3x3_taps", "dpt_post",
+           "attention_floor")
 # max abs error of conv3x3 against conv3x3_bf16_ref over max |ref|: both
 # take the same bf16-rounded operands, whose products are exact in fp32;
 # only the order of the fp32 sums differs. The same for dpt_tail against
@@ -103,6 +114,13 @@ UP2X_CASES = (
 )
 # the tail of one DPT head at batch 8: name, H, W, calls per head at 512x384
 TAIL_CASES = (("384x512", H384, W, 1), ("336x512", H336, W, 0))
+# the experiments phase: the tap-sum conv's shapes (name, Cin, Cout, H, W,
+# batch 8), the epilogue's h (B, H, W, C) and row 3's floors (mode, G)
+TAP_CASES = (("layer1_rn 96x128 96->256", 96, 256, 96, 128),
+             ("head_conv2 384x512 128->32", 128, 32, H384, W))
+POST_CASE = (BATCH_SIZE, H384, W, 32)
+FLOOR_CASES = tuple((m, G) for m in ("nosmax", "qkonly", "copy", "copynr", "copymm")
+                    for G in (1, 4))
 
 
 def log(msg):
@@ -258,8 +276,8 @@ def variants_phase(torch):
                               tables_k=tables)
     torch.cuda.synchronize()
     launches = read_launches()
-    expected = dict(fused_attention=2, fused_attention_grouped=2, attention_variant=3,
-                    conv3x3=0, up2x=0, dpt_tail=0)
+    expected = dict.fromkeys(launches, 0)
+    expected.update(fused_attention=2, fused_attention_grouped=2, attention_variant=3)
     log(f"[variants] entry point at {(B, Hh, N, d)}: launches {launches} (expected {expected})")
     if launches != expected:
         raise AssertionError(f"variants launches {launches} != {expected}")
@@ -276,6 +294,87 @@ def variants_phase(torch):
         if not r["rel"] <= RTOL or r["identical"] is False:
             raise AssertionError(f"variants {label}: the kernel disagrees ({r})")
         rows[label] = dict(r, count=1)
+    return rows, launches
+
+
+def experiments_phase(torch):
+    """The other TPU experiments' entry points: the tap-sum conv (rows 10,
+    11) at TAP_CASES, the DPT tail's epilogue (row 13) at POST_CASE and row
+    3's floors at the encoder shape (8,16,768,64) at FLOOR_CASES, each
+    called once with the launch counts from 0 (the counts of this path),
+    then each against its plain version with times, bound and library call
+    (tools/conv_variants.measure_conv and measure_post; tools/attn_variants.
+    measure: G = 4 bit for bit against G = 1), and qkonly at 64 keys beside
+    768 (its time must grow with the keys). Returns the measured rows by
+    kernel and the launch counts."""
+    from dust3r_tpu_torch.ops.attention_floors import attention_floor
+    from dust3r_tpu_torch.ops.conv3x3_taps import VARIANTS, conv3x3_taps_kernel
+    from dust3r_tpu_torch.ops.dpt_post import dpt_post_kernel
+    from dust3r_tpu_torch.ops.rope import rope_tables
+    from dust3r_tpu_torch.tools import attn_variants as av
+    from dust3r_tpu_torch.tools import conv_variants as cv
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    convs = {name: cv.conv_inputs(BATCH_SIZE, h, w, cin, cout, gen)
+             for name, cin, cout, h, w in TAP_CASES}
+    post = cv.post_inputs(*POST_CASE[:3], gen)
+    B, Hh, N, d = 8, 16, 768, 64
+    q, k, v = av.make_qkv(B, Hh, N, N, d, "contiguous", gen)
+    pos = av.positions(B, (H384 // 16, W // 16), "grid", gen)
+    tables = rope_tables(pos, d)
+
+    reset_launches()
+    for x, wt in convs.values():
+        for variant in VARIANTS:
+            conv3x3_taps_kernel(x, wt, variant)
+    dpt_post_kernel(*post, 1.0)
+    for mode, G in FLOOR_CASES:
+        attention_floor(q, k, v, pos, pos, 100.0, mode=mode, heads_per_program=G,
+                        tables_q=tables, tables_k=tables)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    expected = dict.fromkeys(launches, 0)
+    expected.update(conv3x3_taps_slices=len(TAP_CASES), conv3x3_taps_copies=len(TAP_CASES),
+                    dpt_post=1, attention_floor=len(FLOOR_CASES))
+    log(f"[experiments] entry points: launches {launches} (expected {expected})")
+    if launches != expected:
+        raise AssertionError(f"experiments launches {launches} != {expected}")
+
+    rows = dict(conv3x3_taps_slices=[], conv3x3_taps_copies=[], dpt_post=[],
+                attention_floor=[])
+    for name, cin, cout, h, w in TAP_CASES:
+        x, wt = convs.pop(name)
+        for variant in VARIANTS:
+            r = cv.measure_conv(x, wt, variant, row2=False)
+            log("[experiments] " + cv.conv_line(name, (BATCH_SIZE, cin, h, w), variant, r))
+            if not r["rel"] <= cv.CONV_RTOL:
+                raise AssertionError(f"conv3x3_taps {variant} {name}: the kernel disagrees "
+                                     f"with its plain version, rel err {r['rel']:.3e}")
+            rows[f"conv3x3_taps_{variant}"].append(dict(r, count=1))
+        del x, wt
+    r = cv.measure_post(*post, tail=False)
+    log("[experiments] " + cv.post_line(POST_CASE, r))
+    if not r["rel"] <= cv.POST_RTOL:
+        raise AssertionError(f"dpt_post: the kernel disagrees with its plain version: "
+                             f"{r['errs']}")
+    rows["dpt_post"].append(dict(r, count=1))
+    del post
+    for mode, G in FLOOR_CASES:
+        r = av.measure(q, k, v, pos, pos, G, mode)
+        log(f"[experiments] floor {mode} G={G} {(B, Hh, N, d)}: kernel {r['ms']:.4f} ms "
+            f"({r['wrapper_ms']:.4f} ms a call through the wrapper's launches), row-1 "
+            f"baseline {r['baseline_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"{av.library_label(mode, r['library_ms'])}, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}); max_abs_err {r['max_abs_err']:.3e} rel {r['rel']:.3e} "
+            f"(limit {av.RTOL:g})"
+            + ("" if r["identical"] is None else f"; bits equal G=1's: {r['identical']}"))
+        if not r["rel"] <= av.RTOL or r["identical"] is False:
+            raise AssertionError(f"floor {mode} G={G}: the kernel disagrees ({r})")
+        rows["attention_floor"].append(dict(r, count=1))
+    growth = av.qkonly_growth(log=lambda m: log("[experiments] " + m))
+    if not growth[768] > 2 * growth[64]:
+        raise AssertionError(f"qkonly takes {growth[768]:.4f} ms at 768 keys and "
+                             f"{growth[64]:.4f} at 64: its later key tiles' work is gone")
     return rows, launches
 
 
@@ -448,8 +547,11 @@ def kernel_counters():
     """Each kernel's wrapper and the attribute that counts its launches
     (fused_attention's launches with more than one head a block are also
     counted apart)."""
+    from dust3r_tpu_torch.ops.attention_floors import attention_floor
     from dust3r_tpu_torch.ops.attention_variants import attention_variant
     from dust3r_tpu_torch.ops.conv3x3 import conv3x3_kernel
+    from dust3r_tpu_torch.ops.conv3x3_taps import tap_sums
+    from dust3r_tpu_torch.ops.dpt_post import dpt_post_kernel
     from dust3r_tpu_torch.ops.dpt_tail import dpt_tail_kernel
     from dust3r_tpu_torch.ops.fused_attention import fused_attention
     from dust3r_tpu_torch.ops.upsample import up2x_kernel
@@ -458,7 +560,11 @@ def kernel_counters():
                 fused_attention_grouped=(fused_attention, "grouped_launches"),
                 attention_variant=(attention_variant, "launches"),
                 conv3x3=(conv3x3_kernel, "launches"), up2x=(up2x_kernel, "launches"),
-                dpt_tail=(dpt_tail_kernel, "launches"))
+                dpt_tail=(dpt_tail_kernel, "launches"),
+                conv3x3_taps_slices=(tap_sums, "slices_launches"),
+                conv3x3_taps_copies=(tap_sums, "copies_launches"),
+                dpt_post=(dpt_post_kernel, "launches"),
+                attention_floor=(attention_floor, "launches"))
 
 
 def reset_launches():
@@ -475,10 +581,11 @@ def expected_launches(model, encoder_batches, pair_batches):
     encoder layer of an encoder batch and 4 calls (self and cross, two
     streams) in every decoder layer of a pair batch, all with one head a
     block; the DPT kernels PER_HEAD times in each of a pair batch's two
-    heads; the softmax variants never (the model does not call them)."""
-    expected = dict(fused_attention=model.enc_depth * encoder_batches
-                    + 4 * model.dec_depth * pair_batches,
-                    fused_attention_grouped=0, attention_variant=0)
+    heads; the softmax variants and the other experiments' kernels never
+    (the model does not call them)."""
+    expected = dict.fromkeys(kernel_counters(), 0)
+    expected.update(fused_attention=model.enc_depth * encoder_batches
+                    + 4 * model.dec_depth * pair_batches)
     expected.update({k: 2 * n * pair_batches for k, n in PER_HEAD.items()})
     return expected
 
@@ -689,6 +796,7 @@ def main(argv):
     build_phase()
     attn_rows = attention_kernel_phase(torch)
     variant_rows, variant_launches = variants_phase(torch)
+    experiment_rows, experiment_launches = experiments_phase(torch)
     _, conv_total = conv_kernel_phase(torch)
     _, up_total = up2x_kernel_phase(torch)
     _, tail_total = tail_kernel_phase(torch)
@@ -701,15 +809,20 @@ def main(argv):
     # variants phase, summed; attention_variant: its three softmax
     # variants' calls, summed; conv3x3 and up2x: one DPT head's calls at
     # batch 8, summed; dpt_tail: the head's one call. Launches: the slice's
-    # run (requests (a)-(c)); the variants phase's for the variants
+    # run (requests (a)-(c)); the variants phase's for the variants; the
+    # conv variants, the epilogue and the floors: the experiments phase's
+    # calls, summed, and its launches
     launches.update({k: variant_launches[k]
                      for k in ("fused_attention_grouped", "attention_variant")})
+    launches.update({k: experiment_launches[k] for k in experiment_rows})
     rows = dict(
         fused_attention=dict(attn_rows[0], max_abs_err=max(r["max_abs_err"] for r in attn_rows)),
         fused_attention_grouped=summed([variant_rows[k] for k in ("G=2", "G=4")]),
         attention_variant=summed([variant_rows[k] for k in
                                   ("nomax", "bf16_logits", "bf16_exp")]),
-        conv3x3=conv_total, up2x=up_total, dpt_tail=tail_total)
+        conv3x3=conv_total, up2x=up_total, dpt_tail=tail_total,
+        **{k: summed(v) for k, v in experiment_rows.items()})
+    rows["attention_floor"]["library_ms"] = None  # no one call computes every floor
     where = dict(
         fused_attention=("fused_attention.cu", "dust3r_tpu/ops/pallas_attention.py:142, "
                          "scripts/exp_attn_dma_r2.py:103, scripts/exp_attn_layout_r2.py:89, "
@@ -720,7 +833,11 @@ def main(argv):
                            "scripts/exp_softmax_r2.py:65"),
         conv3x3=("conv3x3.cu", "dust3r_tpu/ops/conv3x3.py:74"),
         up2x=("up2x.cu", "scripts/exp_up_pallas_r2.py:79"),
-        dpt_tail=("dpt_tail.cu", "scripts/exp_tailk_r2.py:78, scripts/exp_tailk2_r2.py:113"))
+        dpt_tail=("dpt_tail.cu", "scripts/exp_tailk_r2.py:78, scripts/exp_tailk2_r2.py:113"),
+        conv3x3_taps_slices=("conv3x3_taps.cu", "scripts/exp_convk_r3.py:67"),
+        conv3x3_taps_copies=("conv3x3_taps.cu", "scripts/exp_convk2_r3.py:67"),
+        dpt_post=("dpt_post.cu", "scripts/exp_tailk2_r2.py:52"),
+        attention_floor=("attention_floor.cu", "scripts/exp_attn_r2.py:144"))
     kernels = [dict(name=name, route="cuda", source=f"dust3r_tpu_torch/csrc/{src}",
                     replaces=replaces, launches=launches[name],
                     **{k: rows[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -1,7 +1,7 @@
 // The fused 2D-RoPE attention core for Hopper (sm_90a): tile loaders,
 // mma.sync helpers, the bf16 tensor-core kernel and the fp32 FMA kernel.
 // `fused_attention.cu` instantiates it with the exact softmax and the
-// softmax variants.
+// softmax variants, `attention_floor.cu` with the floors' codes.
 //
 // Per (batch, head):  O = softmax((R_q q)(R_k k)^T * d^-1/2) v
 // RoPE in fp32 (head dim halves [y | x], rotate-half within each half), q
@@ -72,8 +72,19 @@ static_assert(kRowsPerBlock == kKeysPerTile, "one tile loader serves Q, K and V"
 //   kBf16Exp    p = 2^bf16((s - max) log2 e) on bf16x2 pairs (one
 //               ex2.approx.ftz.bf16x2 a pair), P already bf16 (row 4's
 //               kern_bf16exp).
-// The row sum is always the fp32 sum of P as the exp made it.
-enum Softmax : int { kExact = 0, kNoMax = 1, kBf16Logits = 2, kBf16Exp = 3 };
+// The row sum is always the fp32 sum of P as the exp made it. Two floors
+// of row 3 (scripts/exp_attn_r2.py) make no softmax at all:
+//   kNoSoftmax  P = bf16(s): no max, no exp, no row sum, no divide
+//               (`nosmax`; not kNoMax, which keeps the exp and the sum);
+//   kQkOnly     no P.v: the output is the fp32 logits of key tile 0
+//               (columns 0 .. D-1, as the script's s[:, :d]) rounded to
+//               bf16 (`qkonly`); every tile's logits and a value of each V
+//               tile are folded into a sink stored only when
+//               Args::store_sink is set, so no q.k^T and no load is
+//               compiled away.
+enum Softmax : int {
+  kExact = 0, kNoMax = 1, kBf16Logits = 2, kBf16Exp = 3, kNoSoftmax = 4, kQkOnly = 5
+};
 
 // Element (b, h, n, c) of a view lies at b * b + h * h + n * n + c. Head
 // and row strides are 32-bit (the wrapper checks that one batch entry's
@@ -96,6 +107,7 @@ struct Args {
   int heads, nq, nk;
   float scale;
   int use_rope;
+  int store_sink;  // nonzero: a floor kernel stores its sink (the wrappers pass 0)
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -360,6 +372,7 @@ attn_bf16_kernel(const Args args) {
   for (int n = 0; n < kDT; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g and g + 8
   float l0 = 0.f, l1 = 0.f;              // this thread's share of the row sums
+  [[maybe_unused]] uint32_t sink = 0;    // kQkOnly's fold of the work it discards
 
   for (int k0 = 0; k0 < nk; k0 += kKeysPerTile) {
     __syncthreads();  // the Q fragments are read / the previous tile is consumed
@@ -386,8 +399,26 @@ attn_bf16_kernel(const Args args) {
         for (int j = 0; j < 4; ++j) s[n][j] = __bfloat162float(__float2bfloat16(s[n][j]));
       }
     }
+    if constexpr (S == kQkOnly) {
+      static_assert(kDT <= kNT, "the output's D columns lie in key tile 0");
+      if (k0 == 0) {
+#pragma unroll
+        for (int n = 0; n < kDT; ++n) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) oacc[n][j] = s[n][j];
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sink ^= __float_as_uint(s[n][j]);
+      }
+      sink ^= ld_u32(vt + (wr + g) * kVStride + 2 * t);
+      continue;
+    }
     const int valid = nk - k0;
-    if (valid < kKeysPerTile) {
+    // kNoSoftmax: the zero K rows past nk give logits of 0, so P = 0 there
+    if (S != kNoSoftmax && valid < kKeysPerTile) {
 #pragma unroll
       for (int n = 0; n < kNT; ++n) {
 #pragma unroll
@@ -399,7 +430,13 @@ attn_bf16_kernel(const Args args) {
 
     // P, packed in bf16 pairs as the A operand of P.v (rows g and g + 8)
     uint32_t pp[kNT][2];
-    if constexpr (S == kNoMax) {
+    if constexpr (S == kNoSoftmax) {
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        pp[n][0] = pack_bf16(s[n][0], s[n][1]);
+        pp[n][1] = pack_bf16(s[n][2], s[n][3]);
+      }
+    } else if constexpr (S == kNoMax) {
 #pragma unroll
       for (int n = 0; n < kNT; ++n) {
 #pragma unroll
@@ -478,13 +515,18 @@ attn_bf16_kernel(const Args args) {
     }
   }
 
+  if constexpr (S == kNoSoftmax || S == kQkOnly) {  // no row sum to divide by
+    l0 = l1 = 1.f;
+  } else {
 #pragma unroll
-  for (int sh = 1; sh <= 2; sh *= 2) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, sh);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, sh);
+    for (int sh = 1; sh <= 2; sh *= 2) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, sh);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, sh);
+    }
   }
   __nv_bfloat16* ob =
       static_cast<__nv_bfloat16*>(args.o) + b * args.so.b + (h0 + hw) * args.so.h;
+  if (S == kQkOnly && args.store_sink) *reinterpret_cast<uint32_t*>(ob) = sink;
   const int row0 = q0 + wr + g;
   const int row1 = row0 + 8;
 #pragma unroll
@@ -636,6 +678,7 @@ inline Args make_args(const void* q, const void* k, const void* v, const float* 
   a.nk = nk;
   a.scale = scale;
   a.use_rope = use_rope;
+  a.store_sink = 0;
   return a;
 }
 

@@ -1,8 +1,10 @@
-// The 3x3 stride-1 same-pad implicit GEMM shared by conv3x3.cu and
-// dpt_tail.cu (sm_90a): the mma.sync / ldmatrix helpers and the k-loop that
-// accumulates one block's (128 output pixels x BN output channels) tile.
+// The implicit GEMM shared by conv3x3.cu, dpt_tail.cu and conv3x3_taps.cu
+// (sm_90a): the mma.sync / ldmatrix helpers, the double-buffered tiles and
+// the k-loop that accumulates one block's (128 output pixels x BN output
+// columns) tile, generic over the loader of its A tile.
 //
-// For output pixel m (flat over batch, H, W of an NHWC fp32 x) and output
+// The 3x3 stride-1 same-pad conv (`mainloop`, with `Fp32TapLoader`): for
+// output pixel m (flat over batch, H, W of an NHWC fp32 x) and output
 // channel n the tile holds
 //   acc[m, n] = sum_{dy, dx, c} bf16(x[b, h+dy-1, w+dx-1, c]) * W[dy, dx, c, n]
 // in fp32, zero outside the image. W comes packed as bf16 (9 * cin, cout),
@@ -28,8 +30,6 @@ constexpr int kBK = 32;             // input channels per k-step (one tap)
 constexpr int kThreads = 128;       // four warps: 2 (pixels) x 2 (channels)
 constexpr int kMT = 4;              // 16-row mma tiles per warp (64 rows)
 constexpr int kAStride = kBK + 8;   // bf16 per A row in shared memory (80 bytes)
-constexpr int kRowsPerPass = kThreads / (kBK / 4);  // A rows one pass of 16-byte loads covers
-constexpr int kARows = kBM / kRowsPerPass;          // A rows each thread stages
 
 // acc (16x8 fp32) += a (16x16 bf16, row-major) * b (16x8 bf16, col-major)
 __device__ __forceinline__ void mma_bf16(float (&acc)[4], const uint32_t (&a)[4],
@@ -86,75 +86,43 @@ struct Tiles {
 template <int BN>
 using Acc = float[kMT][BN / 16][4];
 
-// Accumulates the block's tile of output pixels [m0, m0 + 128) and output
-// channels [n0, n0 + BN) into acc (zeroed here). Returns after a
+// The k-loop of a block's (128 pixels x BN columns) tile, over nk k-steps
+// of 32 rows of K each. The A tile (128 pixels x 32 K-rows, bf16) comes from
+// `al`, which stages it in two steps so that its global loads overlap the
+// products: al.load(kc) issues step kc's loads into registers, al.store(a)
+// writes them to a shared (kBM x kAStride) tile. B is the packed bf16
+// (K, ldb) matrix wp: step kc reads its rows [32 kc, 32 kc + 32), columns
+// [n0, n0 + BN), by 16-byte loads. acc is zeroed here; returns after a
 // __syncthreads(), so the caller may reuse the tiles.
-template <int BN>
-__device__ __forceinline__ void mainloop(const float* __restrict__ x,
-                                         const __nv_bfloat16* __restrict__ wp, int H, int W,
-                                         int cin, int cout, int npix, int n0, int m0,
-                                         Tiles<BN>& sm, Acc<BN>& acc) {
+template <int BN, class ALoader>
+__device__ __forceinline__ void gemm_loop(ALoader& al, const __nv_bfloat16* __restrict__ wp,
+                                          int ldb, int nk, int n0, Tiles<BN>& sm,
+                                          Acc<BN>& acc) {
   constexpr int kWN = BN / 2;                      // channels per warp
   constexpr int kNT = kWN / 8;                     // 8-column mma tiles per warp
   constexpr int kBVecs = kBK * BN / 8 / kThreads;  // 16-byte B loads per thread
-  static_assert(kNT % 2 == 0 && kBVecs >= 1, "tile shape");
+  static_assert(kNT % 2 == 0 && kBVecs >= 1 && kBK * BN % (8 * kThreads) == 0, "tile shape");
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int warp_m = warp >> 1;
   const int warp_n = warp & 1;
-
-  // the pixels this thread stages: rows r0 + kRowsPerPass * i of the tile
-  const int quad = tid % (kBK / 4);  // which 4 of the chunk's 32 channels
-  const int r0 = tid / (kBK / 4);
-  int pix[kARows], ph[kARows], pw[kARows];
-#pragma unroll
-  for (int i = 0; i < kARows; ++i) {
-    const int m = m0 + r0 + kRowsPerPass * i;
-    pix[i] = m;
-    ph[i] = m < npix ? (m / W) % H : -2;  // -2: every tap falls outside
-    pw[i] = m % W;
-  }
-
-  const int chunks = cin / kBK;
-  const int nk = 9 * chunks;
-  float4 areg[kARows];
   uint4 breg[kBVecs];
 
   auto load = [&](int kc) {
-    const int tap = kc / chunks;
-    const int c0 = (kc - tap * chunks) * kBK + quad * 4;
-    const int dy = tap / 3 - 1;
-    const int dx = tap % 3 - 1;
-    const int shift = dy * W + dx;
-#pragma unroll
-    for (int i = 0; i < kARows; ++i) {
-      const int hh = ph[i] + dy;
-      const int ww = pw[i] + dx;
-      if (hh >= 0 && hh < H && ww >= 0 && ww < W) {
-        areg[i] = *reinterpret_cast<const float4*>(
-            x + (size_t)(pix[i] + shift) * cin + c0);
-      } else {
-        areg[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-    }
+    al.load(kc);
 #pragma unroll
     for (int i = 0; i < kBVecs; ++i) {
       const int v = tid + i * kThreads;
       const int row = v / (BN / 8);
       const int col = (v % (BN / 8)) * 8;
-      breg[i] = *reinterpret_cast<const uint4*>(
-          wp + (size_t)(kc * kBK + row) * cout + n0 + col);
+      breg[i] = *reinterpret_cast<const uint4*>(wp + (size_t)(kc * kBK + row) * ldb + n0 + col);
     }
   };
 
   auto store = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < kARows; ++i) {
-      *reinterpret_cast<uint2*>(&sm.a[buf][r0 + kRowsPerPass * i][quad * 4]) =
-          to_bf16x4(areg[i]);
-    }
+    al.store(sm.a[buf]);
 #pragma unroll
     for (int i = 0; i < kBVecs; ++i) {
       const int v = tid + i * kThreads;
@@ -198,6 +166,71 @@ __device__ __forceinline__ void mainloop(const float* __restrict__ x,
     if (kc + 1 < nk) store(cur ^ 1);
     __syncthreads();
   }
+}
+
+// The nine-tap A loader of a 3x3 conv on NHWC fp32 x: k-step kc takes tap
+// kc / (cin / 32) and 32 input channels. A thread stages kARows pixels,
+// 4 channels each, by 16-byte fp32 loads with the tap's shift applied to
+// the flat pixel index and the zero halo applied in the load; store rounds
+// them to bf16.
+struct Fp32TapLoader {
+  static constexpr int kVec = 4;                            // fp32 channels a load
+  static constexpr int kRowsPerPass = kThreads / (kBK / kVec);
+  static constexpr int kARows = kBM / kRowsPerPass;         // pixels a thread stages
+  const float* __restrict__ x;
+  int H, W, cin, chunks, quad, r0;
+  int pix[kARows], ph[kARows], pw[kARows];
+  float4 areg[kARows];
+
+  __device__ __forceinline__ Fp32TapLoader(const float* __restrict__ x_, int H_, int W_,
+                                           int cin_, int npix, int m0)
+      : x(x_), H(H_), W(W_), cin(cin_), chunks(cin_ / kBK), quad(threadIdx.x % (kBK / kVec)),
+        r0(threadIdx.x / (kBK / kVec)) {
+#pragma unroll
+    for (int i = 0; i < kARows; ++i) {
+      const int m = m0 + r0 + kRowsPerPass * i;
+      pix[i] = m;
+      ph[i] = m < npix ? (m / W) % H : -2;  // -2: every tap falls outside
+      pw[i] = m % W;
+    }
+  }
+
+  __device__ __forceinline__ void load(int kc) {
+    const int tap = kc / chunks;
+    const int c0 = (kc - tap * chunks) * kBK + quad * kVec;
+    const int dy = tap / 3 - 1;
+    const int dx = tap % 3 - 1;
+    const int shift = dy * W + dx;
+#pragma unroll
+    for (int i = 0; i < kARows; ++i) {
+      const int hh = ph[i] + dy;
+      const int ww = pw[i] + dx;
+      if (hh >= 0 && hh < H && ww >= 0 && ww < W) {
+        areg[i] = *reinterpret_cast<const float4*>(x + (size_t)(pix[i] + shift) * cin + c0);
+      } else {
+        areg[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(__nv_bfloat16 (*a)[kAStride]) {
+#pragma unroll
+    for (int i = 0; i < kARows; ++i) {
+      *reinterpret_cast<uint2*>(&a[r0 + kRowsPerPass * i][quad * kVec]) = to_bf16x4(areg[i]);
+    }
+  }
+};
+
+// Accumulates the 3x3 conv's tile of output pixels [m0, m0 + 128) and
+// output channels [n0, n0 + BN) into acc: the nine taps x cin / 32 channel
+// chunks of x against W packed as bf16 (9 * cin, cout).
+template <int BN>
+__device__ __forceinline__ void mainloop(const float* __restrict__ x,
+                                         const __nv_bfloat16* __restrict__ wp, int H, int W,
+                                         int cin, int cout, int npix, int n0, int m0,
+                                         Tiles<BN>& sm, Acc<BN>& acc) {
+  Fp32TapLoader al(x, H, W, cin, npix, m0);
+  gemm_loop<BN>(al, wp, cout, 9 * (cin / kBK), n0, sm, acc);
 }
 
 }  // namespace conv3x3_igemm

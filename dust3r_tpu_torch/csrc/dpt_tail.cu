@@ -32,7 +32,8 @@
 //     33 floats, so the per-pixel reads below are free of bank conflicts);
 //     then each thread finishes one pixel: four dot products of length 32
 //     against w3 in shared memory, the postprocess, three stores to pts and
-//     one to conf.
+//     one to conf (dpt_post.cuh's finish_pixel, which dpt_post.cu, TPU row
+//     13 as a kernel of its own, shares).
 // Not carried over from the TPU design: the gathered 2-row halo inputs (row
 // 12) and the W-pre-padded copy of y (row 14), which answered BlockSpecs that
 // cannot overlap; here the halo is a masked load. The 9-fold re-read of y
@@ -44,14 +45,15 @@
 // launch.
 
 #include "conv3x3_igemm.cuh"
+#include "dpt_post.cuh"
 
 namespace {
 
 using namespace conv3x3_igemm;
 
 constexpr int kCin = 128;       // conv2's input channels
-constexpr int kHid = 32;        // conv2's output channels = conv3's input
-constexpr int kOut = 4;         // conv3's output channels: xyz and conf
+constexpr int kHid = dpt_post::kHid;  // conv2's output channels = conv3's input
+constexpr int kOut = dpt_post::kOut;  // conv3's output channels: xyz and conf
 constexpr int kHStride = kHid + 1;
 
 __global__ void __launch_bounds__(kThreads)
@@ -103,25 +105,10 @@ dpt_tail_kernel(const float* __restrict__ y, const __nv_bfloat16* __restrict__ w
   }
   __syncthreads();
 
-  // one pixel per thread: conv3, then the postprocess
+  // one pixel per thread: conv3, then the postprocess (dpt_post.cuh)
   const int m = m0 + tid;
   if (m >= npix) return;
-  float o[kOut];
-#pragma unroll
-  for (int j = 0; j < kOut; ++j) {
-    float s = 0.f;
-#pragma unroll
-    for (int n = 0; n < kHid; ++n) s = fmaf(hs[tid][n], w3s[j][n], s);
-    o[j] = s + b3s[j];
-  }
-  const float d = sqrtf(o[0] * o[0] + o[1] * o[1] + o[2] * o[2]);
-  const float dc = fmaxf(d, 1e-8f);
-  const float e = expm1f(d);
-  float* p = pts + (size_t)m * 3;
-  p[0] = o[0] / dc * e;
-  p[1] = o[1] / dc * e;
-  p[2] = o[2] / dc * e;
-  conf[m] = conf_vmin + expf(o[3]);
+  dpt_post::finish_pixel(hs[tid], &w3s[0][0], b3s, conf_vmin, pts + (size_t)m * 3, conf + m);
 }
 
 }  // namespace

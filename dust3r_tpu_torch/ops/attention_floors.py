@@ -1,0 +1,137 @@
+"""The measurement floors of the fused attention: the CUDA kernels' wrapper
+and their plain version (the floor modes of TPU row 3).
+
+Counterpart of `scripts/exp_attn_r2.py::attn_g` in its floor modes, under
+the script's names (`MODES`): kernels that do part of the attention
+kernel's work, so that its time on the card splits into parts:
+
+* "copynr": q + v, the I/O alone;
+* "copy": RoPE(q) + v, the I/O and RoPE;
+* "copymm": q cos + (q P) sin + v, RoPE through a tensor-core product with
+  P the signed permutation of `rot_matrix` (equal to "copy" up to
+  rounding);
+* "qkonly": the logits q.k^T over every key, the first d columns written;
+* "nosmax": bf16(q.k^T) v, both products and no softmax at all. It is not
+  `attention_variants`' "nomax", which keeps the exp and the row sum and
+  drops only the max.
+
+The kernels are `csrc/attention_floor.cu` (hand-written for sm_90a:
+"nosmax" and "qkonly" are the attention core of `csrc/attention_core.cuh`
+with two more softmax codes, the copy modes one small kernel on the core's
+tile loaders; its header says what bounds each and how work that a floor
+discards is kept from being compiled away). They answer a question of
+speed, served by this entry point and `tools/attn_variants.py`, not by the
+model.
+
+* `attention_floor_ref` is the plain version, step by step the script's
+  arithmetic (`exp_attn_r2.py:63-115`): q and k to fp32, RoPE from fp32
+  tables; for the products q scaled by d^-1/2 and both rounded to the input
+  dtype, logits with fp32 sums; the copy modes unscaled, in fp32, rounded
+  once. The output has v's dtype.
+* `attention_floor` is the wrapper: it refuses what the kernels cannot
+  take, returns the plain version for CPU tensors and launches a kernel
+  for CUDA tensors (bf16, d = 64), or raises. `attention_floor.launches`
+  counts launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .fused_attention import check, check_heads_per_program, launch
+from .rope import apply_rope2d, rope_tables
+
+MODES = ("nosmax", "qkonly", "copy", "copynr", "copymm")  # C entry codes 0-4
+COPY_MODES = ("copy", "copynr", "copymm")
+HEAD_DIM = 64  # the kernels' head dim, the script's
+
+
+def rot_matrix(d, device=None):
+    """(d, d) fp32 P with t @ P == rotate-half(t) within each half [y | x]
+    (the script's `rot_matrix`), built on the host, then moved."""
+    h, qq = d // 2, d // 4
+    P = torch.zeros(d, d)
+    for o in (0, h):
+        for i in range(qq):
+            P[o + qq + i, o + i] = -1.0
+            P[o + i, o + qq + i] = 1.0
+    return P.to(device)
+
+
+def _check_mode(mode):
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} not in {MODES}")
+
+
+def attention_floor_ref(q, k, v, positions_q, positions_k, rope_base=100.0, mode="nosmax"):
+    """q (B, H, Nq, d), k and v (B, H, Nk, d); positions (B, N, 2) integer.
+    Returns (B, H, Nq, d) in v's dtype."""
+    _check_mode(mode)
+    dt, d = q.dtype, q.shape[-1]
+    q32, v32 = q.float(), v.float()
+    if mode == "copynr":
+        return (q32 + v32).to(v.dtype)
+    if mode == "copy":
+        return (apply_rope2d(q32, positions_q, rope_base) + v32).to(v.dtype)
+    if mode == "copymm":
+        cos, sin = rope_tables(positions_q, d, rope_base)
+        rot = torch.matmul(q32.to(dt).float(), rot_matrix(d, q.device))
+        return (q32 * cos[:, None] + rot * sin[:, None] + v32).to(v.dtype)
+    q_ = (apply_rope2d(q32, positions_q, rope_base) * d ** -0.5).to(dt)
+    k_ = apply_rope2d(k.float(), positions_k, rope_base).to(dt)
+    s = torch.matmul(q_.float(), k_.float().transpose(-1, -2))
+    if mode == "qkonly":
+        return s[..., :d].to(v.dtype)
+    return torch.matmul(s.to(dt).float(), v32).to(v.dtype)
+
+
+_LIB = None
+
+
+def _kernel():
+    """`csrc/attention_floor.cu`'s C entry, built at first use; its arguments
+    are `fused_attention.cu`'s, the mode's code in the softmax code's place."""
+    global _LIB
+    if _LIB is None:
+        from ._build import load_library
+
+        fn = load_library("attention_floor").dust3r_attention_floor
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _LIB = fn
+    return _LIB
+
+
+def attention_floor(q, k, v, positions_q, positions_k, rope_base=100.0, *, mode,
+                    heads_per_program=1, tables_q=None, tables_k=None):
+    """The floor `mode` of the fused attention (see the module docstring).
+    Arguments as `fused_attention`'s; positions are required (the script's
+    attention always rotates). heads_per_program: 1, 2 or 4 heads a block,
+    every value giving the same bits. Output as `fused_attention`'s."""
+    _check_mode(mode)
+    check_heads_per_program(heads_per_program, q.shape[1])
+    if positions_q is None or positions_k is None:
+        raise ValueError("the floors run the script's RoPE attention: give positions for "
+                         "q and k")
+    d, Nq, Nk = q.shape[-1], q.shape[2], k.shape[2]
+    if mode == "qkonly" and Nk < d:
+        raise ValueError(f"qkonly writes the logits' first d = {d} columns, and Nk = {Nk} "
+                         f"keys give fewer (the script's s[:, :d] fails there too)")
+    if mode in COPY_MODES and Nq != Nk:
+        raise ValueError(f"{mode} adds v to q: Nq = {Nq} and Nk = {Nk} must agree")
+    if q.device.type == "cpu":
+        return attention_floor_ref(q, k, v, positions_q, positions_k, rope_base, mode)
+    check(q, k, v, positions_q, positions_k, heads_per_program)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the floors are bf16 kernels, got {q.dtype}")
+    if d != HEAD_DIM:
+        raise ValueError(f"the floor kernels take head dim {HEAD_DIM} (the script's), got {d}")
+    out = launch(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k,
+                 heads_per_program, softmax=MODES.index(mode), entry=_kernel())
+    attention_floor.launches += 1
+    return out
+
+
+attention_floor.launches = 0

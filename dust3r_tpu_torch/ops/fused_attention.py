@@ -143,11 +143,12 @@ def _kernel_tables(positions, tables, head_dim, base):
 
 
 def launch(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k,
-           heads_per_program=1, softmax=0):
+           heads_per_program=1, softmax=0, entry=None):
     """Launch the kernel on checked CUDA q, k, v with `heads_per_program`
     heads a block and the softmax code `softmax` (0: exact; the variants'
     codes are in `attention_variants`); returns the (B, H, Nq, d) view of a
-    new head-packed (B, Nq, H, d) output, or raises."""
+    new head-packed (B, Nq, H, d) output, or raises. entry: another C entry
+    of the same arguments (`attention_floors`' kernels), else this one."""
     B, H, Nq, d = q.shape
     Nk = k.shape[2]
     use_rope = positions_q is not None
@@ -159,7 +160,7 @@ def launch(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k,
         tables = [None] * 4
     out = torch.empty(B, Nq, H, d, dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
-    fn = _kernel()
+    fn = _kernel() if entry is None else entry
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *tables, out.data_ptr(),

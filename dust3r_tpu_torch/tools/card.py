@@ -35,6 +35,34 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters=20, warmup=3):
+    """Mean ms of `fn` over `iters` calls captured in one CUDA graph and
+    replayed, by CUDA events: the device's time for the calls without the
+    host's time to launch them. A kernel shorter than its wrapper's launch
+    (tens of microseconds of Python) reads as the launch under `time_ms`.
+    `fn` must only enqueue work on the current stream; its outputs live in
+    the graph's pool (iters of them at once)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
 def warm_up(fn, seconds=0.5):
     """Call `fn` for `seconds` of wall time: the card's clocks rise under
     load, so the first kernel timed in a process reads slow without it."""

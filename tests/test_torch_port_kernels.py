@@ -18,12 +18,22 @@ P may sit one bf16 unit from the plain version's); conv3x3
 exact in fp32, only the order of the fp32 sums differs); up2x 1e-5 against
 `up2x_ref` (two fp32 lerps either way, FMA contraction aside); dpt_tail
 1e-3 against `dpt_tail_bf16_ref` on each output (conv3x3's sums, then fp32
-through the 1x1 and the exp).
+through the 1x1 and the exp). The TPU experiments' kernels: the tap-sum
+conv (rows 10, 11) 1e-2 against `conv3x3_taps_ref` (both round Z to bf16
+after fp32 sums in another order, then two bf16 adds), its two variants
+bit-identical (the same sums in the same order); dpt_post (row 13) 1e-5
+against `dpt_post_ref` (fp32 either way); the attention floors (row 3)
+1e-2 against `attention_floor_ref` on the same bf16 inputs, each G > 1 call
+bit-identical to G = 1.
 """
 import pytest
 import torch
 
 from dust3r_tpu_torch.models.blocks import token_positions
+from dust3r_tpu_torch.ops.attention_floors import MODES, attention_floor, attention_floor_ref
+from dust3r_tpu_torch.ops.conv3x3_taps import (VARIANTS, conv3x3_taps_kernel, conv3x3_taps_ref,
+                                               tap_sums)
+from dust3r_tpu_torch.ops.dpt_post import dpt_post_kernel, dpt_post_ref
 from dust3r_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_bf16_ref, conv3x3_kernel
 from dust3r_tpu_torch.ops.dpt_tail import dpt_tail, dpt_tail_bf16_ref, dpt_tail_kernel
 from dust3r_tpu_torch.ops.upsample import up2x, up2x_kernel, up2x_ref
@@ -360,3 +370,121 @@ def test_dpt_tail_kernel_refuses_what_it_cannot_serve(card):
     with pytest.raises(TypeError):
         dpt_tail_kernel(y.half(), w2, b2, w3, b3, 1.0)
     assert dpt_tail_kernel.launches == before
+
+
+TAPS_RTOL = 1e-2
+TAPS_CASES = {  # name: (B, Cin, Cout, H, W)
+    "layer1_rn": (2, 96, 256, 96, 128),
+    "head_conv2": (1, 128, 32, 384, 512),
+    "rcu3": (2, 256, 256, 24, 32),
+    "ragged_13x7": (3, 32, 64, 13, 7),  # 273 pixels: a ragged last M tile
+}
+
+
+@pytest.mark.parametrize("case", sorted(TAPS_CASES))
+def test_conv3x3_taps_kernel_matches_plain_version(card, case):
+    B, cin, cout, h, w = TAPS_CASES[case]
+    gen = torch.Generator(device=card).manual_seed(cin + cout + h)
+    x = torch.randn(B, cin, h, w, device=card, generator=gen).contiguous(
+        memory_format=torch.channels_last)
+    wt = 0.05 * torch.randn(cout, cin, 3, 3, device=card, generator=gen)
+    outs = {}
+    for variant in VARIANTS:
+        before = getattr(tap_sums, f"{variant}_launches")
+        outs[variant] = conv3x3_taps_kernel(x, wt, variant)
+        torch.cuda.synchronize()
+        assert getattr(tap_sums, f"{variant}_launches") == before + 1
+        ref = conv3x3_taps_ref(x, wt, variant).float()
+        out = outs[variant]
+        assert out.shape == ref.shape and out.dtype == torch.bfloat16
+        assert out.is_contiguous(memory_format=torch.channels_last)
+        err = (out.float() - ref).abs().max().item() / ref.abs().max().item()
+        assert err <= TAPS_RTOL, f"{case} {variant}: rel err {err:.3e}"
+    assert torch.equal(outs["slices"], outs["copies"])
+
+
+def test_conv3x3_taps_kernel_refuses_what_it_cannot_serve(card):
+    x = torch.zeros(1, 64, 8, 8, device=card).contiguous(memory_format=torch.channels_last)
+    w = torch.zeros(32, 64, 3, 3, device=card)
+    before = (tap_sums.slices_launches, tap_sums.copies_launches)
+    with pytest.raises(ValueError, match="one device"):
+        conv3x3_taps_kernel(x, w.cpu())
+    with pytest.raises(TypeError):
+        conv3x3_taps_kernel(x.half(), w.half())
+    with pytest.raises(ValueError, match="multiples"):
+        conv3x3_taps_kernel(x, w[:16], "copies")
+    assert (tap_sums.slices_launches, tap_sums.copies_launches) == before
+
+
+POST_RTOL = 1e-5
+POST_CASES = {"384x512": (2, 384, 512), "ragged_13x7": (3, 13, 7), "single_pixel": (1, 1, 1)}
+
+
+@pytest.mark.parametrize("case", sorted(POST_CASES))
+def test_dpt_post_kernel_matches_plain_version(card, case):
+    B, H, W = POST_CASES[case]
+    gen = torch.Generator(device=card).manual_seed(H + W)
+    h = torch.relu(0.5 * torch.randn(B, 32, H, W, device=card, generator=gen)).contiguous(
+        memory_format=torch.channels_last)
+    w3 = 0.2 * torch.randn(4, 32, 1, 1, device=card, generator=gen)
+    b3 = 0.1 * torch.randn(4, device=card, generator=gen)
+    before = dpt_post_kernel.launches
+    pts, conf = dpt_post_kernel(h, w3, b3, 1.0)
+    torch.cuda.synchronize()
+    assert dpt_post_kernel.launches == before + 1
+    want = dpt_post_ref(h, w3, b3, 1.0)
+    assert pts.shape == (B, H, W, 3) and conf.shape == (B, H, W)
+    for name, got, ref in (("pts3d", pts, want[0]), ("conf", conf, want[1])):
+        assert got.is_contiguous() and torch.isfinite(got).all()
+        err = (got - ref).abs().max().item() / ref.abs().max().item()
+        assert err <= POST_RTOL, f"{case} {name}: rel err {err:.3e}"
+
+
+FLOOR_RTOL = 1e-2
+FLOOR_CASES = {  # name: (B, H, (hq, wq) token grid of q, (hk, wk) of k)
+    "self_768": (2, 4, (24, 32), (24, 32)),
+    "ragged_130": (2, 3, (10, 13), (10, 13)),
+    "cross_130x77": (2, 4, (10, 13), (7, 11)),  # nosmax and qkonly (copies need Nq == Nk)
+}
+
+
+@pytest.mark.parametrize("case,mode", [
+    (c, m) for c in sorted(FLOOR_CASES) for m in MODES
+    if FLOOR_CASES[c][2] == FLOOR_CASES[c][3] or m in ("nosmax", "qkonly")])
+def test_attention_floor_matches_plain_version(card, case, mode):
+    B, H, gq, gk = FLOOR_CASES[case]
+    gen = torch.Generator(device=card).manual_seed(len(case) + MODES.index(mode))
+
+    def rnd(grid):
+        return torch.randn(B, H, grid[0] * grid[1], 64, device=card, generator=gen).to(
+            torch.bfloat16)
+
+    q, k, v = rnd(gq), rnd(gk), rnd(gk)
+    pq, pk = token_positions(B, *gq, card), token_positions(B, *gk, card)
+    ref = attention_floor_ref(q, k, v, pq, pk, 100.0, mode).float()
+    outs = []
+    for G in (1, 2, 4) if H % 4 == 0 else (1,):
+        before = attention_floor.launches
+        outs.append(attention_floor(q, k, v, pq, pk, mode=mode, heads_per_program=G))
+        torch.cuda.synchronize()
+        assert attention_floor.launches == before + 1
+    out = outs[0]
+    assert out.shape == q.shape and out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    err = (out.float() - ref).abs().max().item() / ref.abs().max().item()
+    assert err <= FLOOR_RTOL, f"{case} {mode}: rel err {err:.3e}"
+    assert all(torch.equal(o, out) for o in outs[1:])
+
+
+def test_attention_floor_refuses_what_it_cannot_serve(card):
+    q = torch.zeros(1, 4, 64, 64, device=card, dtype=torch.bfloat16)
+    pos = token_positions(1, 8, 8, card)
+    before = attention_floor.launches
+    with pytest.raises(TypeError, match="bf16"):
+        attention_floor(q.float(), q.float(), q.float(), pos, pos, mode="copynr")
+    with pytest.raises(ValueError, match="head dim"):
+        attention_floor(q[..., :32].contiguous(), q[..., :32].contiguous(),
+                        q[..., :32].contiguous(), pos, pos, mode="nosmax")
+    with pytest.raises(ValueError, match="Nk"):
+        attention_floor(q, q[:, :, :48], q[:, :, :48], pos, token_positions(1, 6, 8, card),
+                        mode="qkonly")
+    assert attention_floor.launches == before
