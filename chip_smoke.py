@@ -6,16 +6,22 @@
 
 Phases (each prints its lines; a failed phase raises and the exit code is 1):
   1. device: requires CUDA; prints the card's name and power limit;
-  2. build: compiles the seven kernel sources from `dust3r_tpu_torch/csrc/`
+  2. build: compiles the eight kernel sources from `dust3r_tpu_torch/csrc/`
      (one nvcc per source, all started together, sm_90a);
-  3. kernels: each kernel (fused_attention, conv3x3, up2x, dpt_tail) against
-     its plain PyTorch version on the card, at the shapes the main path gives
-     it (attention in the main path's layouts: heads read as strided views of
-     the projections, each call's bits held to the same kernel on contiguous
-     copies), with the times of the kernel, the plain version and the one
-     PyTorch call that computes the same function (where there is one), and
-     the least time the card could take (bytes at 3.35 TB/s or operations at
-     989 TFLOP/s bf16 / 67 TFLOP/s fp32, whichever is larger);
+  3. kernels: each kernel of the main path (fused_attention's sm90 kernel,
+     conv3x3, up2x, dpt_tail) against its plain PyTorch version on the card,
+     at the shapes the main path gives it (attention in the main path's
+     layouts: heads read as strided views of the projections, each call's
+     bits held to the same kernel on contiguous copies, and its distance
+     from the mma.sync core's, the baseline; conv3x3 on the weight packed
+     once, as the model's modules keep it), with the times of the kernel,
+     the plain version and the one PyTorch call that computes the same
+     function (where there is one), each by CUDA events over a loop of calls
+     and, for the kernels, the baseline and the library calls, also as
+     replays of a CUDA graph (the device's time without the host's
+     launches), and the least time the card could take (bytes at 3.35 TB/s
+     or operations at 989 TFLOP/s bf16 / 67 TFLOP/s fp32, whichever is
+     larger);
   3b. variants: the attention-variants entry point (fused_attention with 2
      and 4 heads a block, attention_variant's three softmax variants) driven
      once at the encoder shape with its launch counts from 0, then each
@@ -66,8 +72,8 @@ KERNEL_RTOL = 1e-2
 # (the parity budget of BASELINE.json)
 PARITY_RMSE = 1e-2
 H384, H336, W = 384, 336, 512  # the 512x384 and 512x336 buckets
-SOURCES = ("fused_attention", "conv3x3", "up2x", "dpt_tail", "conv3x3_taps", "dpt_post",
-           "attention_floor")
+SOURCES = ("fused_attention_sm90", "conv3x3", "up2x", "dpt_tail", "fused_attention",
+           "conv3x3_taps", "dpt_post", "attention_floor")
 # max abs error of conv3x3 against conv3x3_bf16_ref over max |ref|: both
 # take the same bf16-rounded operands, whose products are exact in fp32;
 # only the order of the fp32 sums differs. The same for dpt_tail against
@@ -153,7 +159,7 @@ def build_phase():
         + "; 0 means the library was already built)")
     for name in SOURCES:
         for line in _build.ptxas_log(name).splitlines():
-            if "Used" in line or "spill" in line:
+            if "Used" in line or "spill" in line or "arning" in line:
                 log(f"[build] {name}: {line.strip()}")
 
 
@@ -179,22 +185,23 @@ def _rel_err(out, ref):
 
 
 def attention_kernel_phase(torch):
-    """fused_attention against attention_ref at the main path's shapes and
-    in its layouts: self-attention reads its heads as (B, H, N, d) views of
-    the (B, N, 3C) qkv projection, cross-attention of three (B, N, C)
-    projections; each call's bits are held to the same kernel on contiguous
-    copies. The kernel gets its RoPE tables built once, as the model hands
-    them to every layer; the plain version builds its own on each call, as
-    on its path. The library call is `F.scaled_dot_product_attention` on
-    bf16 q, k, v in the same layout: the same function for the no-RoPE
-    shape, and on q and k rotated beforehand (outside the timing) for the
-    RoPE shapes."""
+    """fused_attention (its sm90 kernel on the main path's calls) against
+    attention_ref at the main path's shapes and in its layouts:
+    self-attention reads its heads as (B, H, N, d) views of the (B, N, 3C)
+    qkv projection, cross-attention of three (B, N, C) projections; each
+    call's bits are held to the same kernel on contiguous copies, and its
+    output to the mma.sync core's (`core="mma"`, the baseline). The kernels
+    get their RoPE tables built once, as the model hands them to every
+    layer; the plain version builds its own on each call, as on its path.
+    The library call is `F.scaled_dot_product_attention` on bf16 q, k, v in
+    the same layout: the same function for the no-RoPE shape, and on q and k
+    rotated beforehand (outside the timing) for the RoPE shapes."""
     import torch.nn.functional as F
 
     from dust3r_tpu_torch.ops.fused_attention import attention_ref, fused_attention
     from dust3r_tpu_torch.ops.rope import rope_tables
     from dust3r_tpu_torch.tools.attn_variants import make_qkv, positions, rotated_like
-    from dust3r_tpu_torch.tools.card import attention_bound, time_ms, warm_up
+    from dust3r_tpu_torch.tools.card import attention_bound, graph_ms, time_ms, warm_up
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     g384, g336 = (H384 // 16, W // 16), (H336 // 16, W // 16)
@@ -214,36 +221,52 @@ def attention_kernel_phase(torch):
         def kernel():
             return fused_attention(q, k, v, pq, pk, 100.0, tq, tk)
 
+        def baseline():
+            return fused_attention(q, k, v, pq, pk, 100.0, tq, tk, core="mma")
+
         out = kernel()
         contiguous = fused_attention(q.contiguous(), k.contiguous(), v.contiguous(), pq, pk,
                                      100.0, tq, tk)
+        base = baseline()
         torch.cuda.synchronize()
         identical = torch.equal(out, contiguous)
         ref = attention_ref(q.float(), k.float(), v.float(), pq, pk)
         err, rel = _rel_err(out, ref)
+        base_err = _rel_err(base, ref)[0]
+        from_base = (out.float() - base.float()).abs().max().item()
         if not (out.shape == ref.shape and torch.isfinite(out).all()):
             raise AssertionError(f"{name}: bad kernel output {tuple(out.shape)}")
         qr, kr = (q, k) if pq is None else (rotated_like(q, pq), rotated_like(k, pk))
+
+        def library():
+            return F.scaled_dot_product_attention(qr, kr, v)
+
         if not rows:  # the run's first timed kernel: the clocks settle first
             warm_up(kernel)
-        ms = time_ms(kernel)
-        plain_ms = time_ms(lambda: attention_ref(q, k, v, pq, pk))
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qr, kr, v))
+        t = dict(ms=time_ms(kernel), graph_ms=graph_ms(kernel),
+                 baseline_ms=time_ms(baseline), baseline_graph_ms=graph_ms(baseline),
+                 plain_ms=time_ms(lambda: attention_ref(q, k, v, pq, pk)),
+                 library_ms=time_ms(library), library_graph_ms=graph_ms(library))
         bound_ms, bound_by = attention_bound(B, Hh, Nq, Nk, d, rope=pq is not None)
+        flops = 4 * B * Hh * Nq * Nk * d
         log(f"[kernel] fused_attention {name} q{(B, Hh, Nq, d)} k{(B, Hh, Nk, d)} bf16 "
-            f"{layout} (strides q{q.stride()} k{k.stride()}) rope={pq is not None}: bits "
-            f"equal the contiguous call's: {identical}; max_abs_err {err:.3e} rel {rel:.3e} "
-            f"(limit {KERNEL_RTOL:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"sdpa{'' if pq is None else ' (q, k rotated beforehand)'} {library_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by})")
+            f"{layout} (strides q{q.stride()} k{k.stride()}) rope={pq is not None}: sm90 "
+            f"kernel's bits equal the contiguous call's: {identical}; max_abs_err {err:.3e} rel "
+            f"{rel:.3e} (limit {KERNEL_RTOL:g}; the mma.sync baseline's {base_err:.3e}, max "
+            f"|sm90 - baseline| {from_base:.3e}); sm90 kernel {t['ms']:.4f} ms, graph "
+            f"{t['graph_ms']:.4f} ms ({flops / t['graph_ms'] / 1e9:.1f} TFLOP/s); mma.sync "
+            f"baseline {t['baseline_ms']:.4f} ms, graph {t['baseline_graph_ms']:.4f} ms; plain "
+            f"{t['plain_ms']:.4f} ms; sdpa{'' if pq is None else ' (q, k rotated beforehand)'} "
+            f"{t['library_ms']:.4f} ms, graph {t['library_graph_ms']:.4f} ms; bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
         if not identical:
             raise AssertionError(f"{name}: the strided call's bits differ from the "
                                  f"contiguous call's")
         if not rel <= KERNEL_RTOL:
             raise AssertionError(f"{name}: kernel disagrees with the plain version, "
                                  f"rel err {rel:.3e} > {KERNEL_RTOL:g}")
-        rows.append(dict(name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
+        rows.append(dict(name=name, max_abs_err=err, baseline_err=base_err, bound_ms=bound_ms,
+                         bound_by=bound_by, **t))
     return rows
 
 
@@ -277,7 +300,7 @@ def variants_phase(torch):
     torch.cuda.synchronize()
     launches = read_launches()
     expected = dict.fromkeys(launches, 0)
-    expected.update(fused_attention=2, fused_attention_grouped=2, attention_variant=3)
+    expected.update(fused_attention_core=2, fused_attention_grouped=2, attention_variant=3)
     log(f"[variants] entry point at {(B, Hh, N, d)}: launches {launches} (expected {expected})")
     if launches != expected:
         raise AssertionError(f"variants launches {launches} != {expected}")
@@ -386,17 +409,24 @@ def conv_kernel_phase(torch):
     the rows and their sums over one head's 19 conv3x3 calls."""
     import torch.nn.functional as F
 
-    from dust3r_tpu_torch.ops.conv3x3 import conv3x3_bf16_ref, conv3x3_kernel, conv3x3_ref
-    from dust3r_tpu_torch.tools.card import bound, time_ms
+    from dust3r_tpu_torch.ops.conv3x3 import (conv3x3_bf16_ref, conv3x3_kernel, conv3x3_ref,
+                                              pack_weight, plan)
+    from dust3r_tpu_torch.tools.card import bound, graph_ms, time_ms
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for name, cin, cout, h, w, bias, count in CONV_CASES:
         x = torch.randn(BATCH_SIZE, cin, h, w, device="cuda", generator=gen).contiguous(
             memory_format=torch.channels_last)
         wt = torch.randn(cout, cin, 3, 3, device="cuda", generator=gen) * (9 * cin) ** -0.5
         b = torch.randn(cout, device="cuda", generator=gen) if bias else None
-        out = conv3x3_kernel(x, wt, b)
+        wp = pack_weight(wt)  # once, as the model's Conv3x3 modules keep it
+
+        def kernel():
+            return conv3x3_kernel(x, wt, b, packed=wp)
+
+        out = kernel()
         torch.cuda.synchronize()
         ref = conv3x3_bf16_ref(x, wt, b)
         ref32 = conv3x3_ref(x, wt, b)
@@ -408,31 +438,39 @@ def conv_kernel_phase(torch):
         xb = x.to(torch.bfloat16)
         wb = wt.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
         bb = None if b is None else b.to(torch.bfloat16)
-        t = dict(ms=time_ms(lambda: conv3x3_kernel(x, wt, b)),
+        def library():
+            return F.conv2d(xb, wb, bb, padding=1)
+
+        t = dict(ms=time_ms(kernel), graph_ms=graph_ms(kernel),
                  plain_ms=time_ms(lambda: conv3x3_bf16_ref(x, wt, b)),
                  fp32_ms=time_ms(lambda: conv3x3_ref(x, wt, b)),
-                 library_ms=time_ms(lambda: F.conv2d(xb, wb, bb, padding=1)))
+                 library_ms=time_ms(library), library_graph_ms=graph_ms(library))
         M = BATCH_SIZE * h * w
         flops = 2 * M * cout * 9 * cin
         bound_ms, bound_by = bound(4 * (M * cin + 9 * cin * cout + cout + M * cout),
                                    dict(bf16=flops))
+        bn, tiles, splits = plan(BATCH_SIZE, h, w, cin, cout, sms)
         log(f"[kernel] conv3x3 {name} x{(BATCH_SIZE, cin, h, w)} -> {cout} "
-            f"bias={bias} x{count}/head: max_abs_err {err:.3e} rel {rel:.3e} (limit "
-            f"{CONV_RTOL:g}; vs fp32 conv rel {rel32:.3e}); kernel {t['ms']:.4f} ms "
-            f"({flops / t['ms'] / 1e9:.1f} TFLOP/s), bf16 plain {t['plain_ms']:.4f} ms, fp32 "
-            f"cuDNN {t['fp32_ms']:.4f} ms, bf16 F.conv2d {t['library_ms']:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by})")
+            f"bias={bias} x{count}/head ({tiles} tiles of 128 x {bn}, {splits} splits): "
+            f"max_abs_err {err:.3e} rel {rel:.3e} (limit {CONV_RTOL:g}; vs fp32 conv rel "
+            f"{rel32:.3e}); kernel {t['ms']:.4f} ms, graph {t['graph_ms']:.4f} ms "
+            f"({flops / t['graph_ms'] / 1e9:.1f} TFLOP/s), bf16 plain {t['plain_ms']:.4f} ms, "
+            f"fp32 cuDNN {t['fp32_ms']:.4f} ms, bf16 F.conv2d {t['library_ms']:.4f} ms, graph "
+            f"{t['library_graph_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         if not rel <= CONV_RTOL:
             raise AssertionError(f"conv3x3 {name}: kernel disagrees with its plain "
                                  f"version, rel err {rel:.3e} > {CONV_RTOL:g}")
         rows.append(dict(name=name, count=count, max_abs_err=err, bound_ms=bound_ms,
                          bound_by=bound_by, **t))
     total = summed(rows)
-    fp32 = sum(r["count"] * r["fp32_ms"] for r in rows)
+    extra = {k: sum(r["count"] * r[k] for r in rows)
+             for k in ("fp32_ms", "graph_ms", "library_graph_ms")}
     log(f"[kernel] conv3x3, one DPT head's {sum(r['count'] for r in rows)} conv3x3 calls at "
-        f"batch 8: kernel {total['ms']:.4f} ms, bf16 plain {total['plain_ms']:.4f} ms, fp32 "
-        f"cuDNN {fp32:.4f} ms, bf16 F.conv2d {total['library_ms']:.4f} ms, bound "
+        f"batch 8: kernel {total['ms']:.4f} ms, graph {extra['graph_ms']:.4f} ms, bf16 plain "
+        f"{total['plain_ms']:.4f} ms, fp32 cuDNN {extra['fp32_ms']:.4f} ms, bf16 F.conv2d "
+        f"{total['library_ms']:.4f} ms, graph {extra['library_graph_ms']:.4f} ms, bound "
         f"{total['bound_ms']:.4f} ms ({total['bound_by']})")
+    total.update(extra)
     return rows, total
 
 
@@ -544,9 +582,9 @@ def tail_kernel_phase(torch):
 
 
 def kernel_counters():
-    """Each kernel's wrapper and the attribute that counts its launches
-    (fused_attention's launches with more than one head a block are also
-    counted apart)."""
+    """Each kernel's wrapper and the attribute that counts its launches:
+    fused_attention's sm90 kernel, its mma.sync core (`core_launches`) and,
+    of those, the core's launches with more than one head a block."""
     from dust3r_tpu_torch.ops.attention_floors import attention_floor
     from dust3r_tpu_torch.ops.attention_variants import attention_variant
     from dust3r_tpu_torch.ops.conv3x3 import conv3x3_kernel
@@ -557,6 +595,7 @@ def kernel_counters():
     from dust3r_tpu_torch.ops.upsample import up2x_kernel
 
     return dict(fused_attention=(fused_attention, "launches"),
+                fused_attention_core=(fused_attention, "core_launches"),
                 fused_attention_grouped=(fused_attention, "grouped_launches"),
                 attention_variant=(attention_variant, "launches"),
                 conv3x3=(conv3x3_kernel, "launches"), up2x=(up2x_kernel, "launches"),
@@ -579,8 +618,9 @@ def read_launches():
 def expected_launches(model, encoder_batches, pair_batches):
     """Each kernel's launches for the engine's batches: attention in every
     encoder layer of an encoder batch and 4 calls (self and cross, two
-    streams) in every decoder layer of a pair batch, all with one head a
-    block; the DPT kernels PER_HEAD times in each of a pair batch's two
+    streams) in every decoder layer of a pair batch, all on the sm90
+    kernel (none on the mma.sync core); conv3x3 once a call, split or not;
+    the DPT kernels PER_HEAD times in each of a pair batch's two
     heads; the softmax variants and the other experiments' kernels never
     (the model does not call them)."""
     expected = dict.fromkeys(kernel_counters(), 0)
@@ -805,28 +845,39 @@ def main(argv):
     launches, engine, pairs = slice_phase(torch)
     scene_phase(torch, engine, pairs)
     # attention: the encoder's self-attention shape, read from the qkv
-    # projection; its grouped form: the G = 2 and G = 4 calls of the
+    # projection, on the sm90 kernel; its mma.sync core (the baseline) at
+    # the same call; its grouped form: the G = 2 and G = 4 calls of the
     # variants phase, summed; attention_variant: its three softmax
     # variants' calls, summed; conv3x3 and up2x: one DPT head's calls at
-    # batch 8, summed; dpt_tail: the head's one call. Launches: the slice's
-    # run (requests (a)-(c)); the variants phase's for the variants; the
-    # conv variants, the epilogue and the floors: the experiments phase's
-    # calls, summed, and its launches
+    # batch 8, summed; dpt_tail: the head's one call. Device times: the
+    # kernels' and library calls' CUDA-graph replays where the phase took
+    # them (the attention kernels and conv3x3), else CUDA events over a loop
+    # of calls. Launches: the slice's run (requests (a)-(c)); the variants
+    # phase's for the variants; the conv variants, the epilogue and the
+    # floors: the experiments phase's calls, summed, and its launches
     launches.update({k: variant_launches[k]
                      for k in ("fused_attention_grouped", "attention_variant")})
     launches.update({k: experiment_launches[k] for k in experiment_rows})
+    enc = attn_rows[0]
     rows = dict(
-        fused_attention=dict(attn_rows[0], max_abs_err=max(r["max_abs_err"] for r in attn_rows)),
+        fused_attention=dict(enc, ms=enc["graph_ms"], library_ms=enc["library_graph_ms"],
+                             max_abs_err=max(r["max_abs_err"] for r in attn_rows)),
+        fused_attention_mma=dict(enc, ms=enc["baseline_graph_ms"],
+                                 library_ms=enc["library_graph_ms"],
+                                 max_abs_err=max(r["baseline_err"] for r in attn_rows)),
         fused_attention_grouped=summed([variant_rows[k] for k in ("G=2", "G=4")]),
         attention_variant=summed([variant_rows[k] for k in
                                   ("nomax", "bf16_logits", "bf16_exp")]),
-        conv3x3=conv_total, up2x=up_total, dpt_tail=tail_total,
+        conv3x3=dict(conv_total, ms=conv_total["graph_ms"],
+                     library_ms=conv_total["library_graph_ms"]),
+        up2x=up_total, dpt_tail=tail_total,
         **{k: summed(v) for k, v in experiment_rows.items()})
     rows["attention_floor"]["library_ms"] = None  # no one call computes every floor
     where = dict(
-        fused_attention=("fused_attention.cu", "dust3r_tpu/ops/pallas_attention.py:142, "
-                         "scripts/exp_attn_dma_r2.py:103, scripts/exp_attn_layout_r2.py:89, "
-                         "scripts/bench_attn3.py:19"),
+        fused_attention=("fused_attention_sm90.cu", "dust3r_tpu/ops/pallas_attention.py:142, "
+                         "scripts/exp_attn_dma_r2.py:103, scripts/exp_attn_layout_r2.py:89"),
+        fused_attention_mma=("fused_attention.cu", "dust3r_tpu/ops/pallas_attention.py:142, "
+                             "scripts/bench_attn3.py:19"),
         fused_attention_grouped=("fused_attention.cu", "scripts/exp_attn_r2.py:144, "
                                  "scripts/exp_attn_vmem_r2.py:104"),
         attention_variant=("fused_attention.cu", "scripts/exp_attn_variants.py:83, "
@@ -838,6 +889,7 @@ def main(argv):
         conv3x3_taps_copies=("conv3x3_taps.cu", "scripts/exp_convk2_r3.py:67"),
         dpt_post=("dpt_post.cu", "scripts/exp_tailk2_r2.py:52"),
         attention_floor=("attention_floor.cu", "scripts/exp_attn_r2.py:144"))
+    launches["fused_attention_mma"] = launches.pop("fused_attention_core")
     kernels = [dict(name=name, route="cuda", source=f"dust3r_tpu_torch/csrc/{src}",
                     replaces=replaces, launches=launches[name],
                     **{k: rows[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",

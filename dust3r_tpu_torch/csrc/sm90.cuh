@@ -1,0 +1,299 @@
+// Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
+// (fused_attention_sm90.cu, conv3x3.cu): mbarriers, TMA tile loads, the
+// wgmma shared-memory descriptor, the wgmma.mma_async wrappers and their
+// fences, and the host helper that encodes a CUtensorMap.
+//
+// The kernels built on it share one shape: a ring of shared-memory stages
+// that TMA fills (cp.async.bulk.tensor, completion counted in bytes on an
+// mbarrier), one producer warp that keeps those loads in flight, and
+// consumer warpgroups that run wgmma on the stages that have arrived and
+// hand each stage back through an "empty" mbarrier.
+//
+// Conventions (the PTX ISA's):
+//   * an mbarrier phase completes when its arrival count and its expected
+//     transaction bytes are both met; waiting with parity P returns once
+//     the phase of parity P has completed, so the consumer of the j-th use
+//     of a stage of an S-stage ring waits with parity (j / S) & 1 and the
+//     producer refilling it waits on the empty barrier with the opposite;
+//   * a TMA destination and a wgmma operand tile with a 128-byte (64-byte)
+//     swizzle start on a 1024-byte (512-byte) boundary; the swizzle XORs
+//     the 16-byte chunk index of an address with its bits 7-9 (7-8), so TMA
+//     and wgmma agree on where each element lies, and a k16 slice of a
+//     K-major tile is reached by adding its byte offset (32 bytes a slice)
+//     to the descriptor's start address;
+//   * wgmma reads its A registers and updates its accumulators
+//     asynchronously: neither may be touched between the wgmma and the
+//     wgmma.wait_group that covers it, and fence_operand() after that wait
+//     keeps the compiler from moving an access across it.
+// cuTensorMapEncodeTiled is a driver function; the kernels' libraries link
+// no -lcuda, so encode_tensor_map() reaches it through the runtime's
+// cudaGetDriverEntryPoint, and each map goes to its kernel as a
+// `const __grid_constant__ CUtensorMap` parameter.
+#pragma once
+
+#include <cuda.h>
+#include <cudaTypedefs.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sm90 {
+
+// ---- shared memory and mbarriers ------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// after the inits, before any thread uses the barriers
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// one arrival, and `bytes` more transaction bytes for the phase to wait for
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  while (!mbar_try_wait(addr, parity)) {
+  }
+}
+
+// orders this thread's generic-proxy shared-memory writes before later
+// async-proxy reads of them (wgmma operands written by threads)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// a barrier over `count` threads (a multiple of 32) on hardware barrier
+// `id` (0 is __syncthreads')
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---- TMA -----------------------------------------------------------------
+
+// The box of `map` at coordinates (c0, c1, c2, c3), innermost first, into
+// shared memory at dst; its bytes complete on `bar`. Out-of-bounds
+// elements, negative coordinates included, arrive as zeros.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// ---- wgmma -----------------------------------------------------------------
+
+// descriptor layout types (bits 62-63)
+constexpr uint64_t kSwizzle128B = 1;
+constexpr uint64_t kSwizzle64B = 2;
+
+// The descriptor of a wgmma operand tile at p (shared memory): start
+// address, leading and stride byte offsets, swizzle. For a K-major tile
+// with a 128-byte (64-byte) swizzle, rows of 128 (64) bytes, the stride
+// byte offset is 8 rows (1024 or 512 bytes) and the leading one unused;
+// for an MN-major tile with a 128-byte swizzle (64 MN elements a row of
+// 128 bytes, successive K in successive rows) the stride byte offset is 8
+// K-rows (1024 bytes) and the leading one the distance between 64-wide MN
+// blocks.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lead_bytes,
+                                              uint32_t stride_bytes, uint64_t swizzle) {
+  const uint64_t addr = smem_addr(p);
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)((lead_bytes & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((stride_bytes & 0x3FFFF) >> 4) << 32) | (swizzle << 62);
+}
+
+// the descriptor moved on by `bytes` (a multiple of 16) within its tile
+__device__ __forceinline__ uint64_t desc_advance(uint64_t desc, uint32_t bytes) {
+  return desc + (bytes >> 4);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// until at most N of this warpgroup's committed wgmma groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pins registers in place for the compiler: an access to them is not moved
+// across this point (after a wgmma_wait, for the accumulators and the A
+// registers of the wgmma it covered).
+template <int N>
+__device__ __forceinline__ void fence_operand(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_operand(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d (64 x N fp32, the warpgroup's accumulator fragment) += A (64 x 16 bf16)
+// * B (16 x N bf16), or = when scale_d is 0: wgmma_ss for N = 32, 64, 128,
+// wgmma_rs for N = 64 (the forms the kernels take). wgmma_ss takes A from
+// shared memory through its descriptor. wgmma_rs takes A in registers: warp
+// w of the warpgroup holds rows 16w..16w+15, lane (g = lane / 4, t = lane %
+// 4) packs (row g, cols 2t, 2t+1), (row g+8, cols 2t, 2t+1), (row g, cols
+// 2t+8, 2t+9), (row g+8, cols 2t+8, 2t+9) as bf16 pairs in a[0..3] (the
+// mma.m16n8k16 A layout). B comes from shared memory, K-major
+// (kTransB = 0: N rows of K) or MN-major (1: K rows of N). In d, lane
+// (g, t) of warp w holds rows 16w + g (d[4j], d[4j+1]) and 16w + g + 8
+// (d[4j+2], d[4j+3]) at columns 8j + 2t and 8j + 2t + 1.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+}
+
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      "%28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      "%28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43,"
+      "%44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+// ---- host ------------------------------------------------------------------
+
+// Errors of encode_tensor_map, beside a CUresult (> 0): the runtime gave
+// no entry point for cuTensorMapEncodeTiled.
+constexpr int kNoEncoder = -2;
+
+// Encodes a tiled tensor map of `rank` dims (innermost first): dims and
+// box in elements, strides in bytes for dims 1..rank-1 (a dim of size 1
+// may carry any stride: it is never stepped over), no interleave, zero
+// fill out of bounds. Returns 0, kNoEncoder or the CUresult.
+inline int encode_tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                             const void* base, const uint64_t* dims, const uint64_t* strides,
+                             const uint32_t* box, CUtensorMapSwizzle swizzle) {
+  static const PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn,
+                                                             12000, cudaEnableDefault, &status);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &status);
+#endif
+    return err == cudaSuccess && status == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn)
+               : nullptr;
+  }();
+  if (encode == nullptr) return kNoEncoder;
+  uint64_t steps[4];
+  for (int i = 1; i < rank; ++i) steps[i - 1] = dims[i] == 1 ? 16 : strides[i - 1];
+  const uint32_t unit[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base),
+                            dims, steps, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return static_cast<int>(r);
+}
+
+}  // namespace sm90

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv3x3 import conv3x3 as conv3x3_op
+from ..ops.conv3x3 import pack_weight
 from ..ops.dpt_tail import dpt_tail as dpt_tail_op
 from ..ops.dpt_tail import kernel_conf_vmin
 from ..ops.upsample import up2x as up2x_op
@@ -103,13 +104,28 @@ class Upsample2x(nn.Module):
 class Conv3x3(nn.Conv2d):
     """3x3 stride-1 same-pad conv through the conv3x3 dispatcher, with
     `nn.Conv2d`'s parameters (`weight` (Cout, Cin, 3, 3), `bias`), as the
-    JAX `Conv3x3` keeps `nn.Conv`'s. `impl` is the dispatcher's."""
+    JAX `Conv3x3` keeps `nn.Conv`'s. `impl` is the dispatcher's. The
+    kernel's packed weight is kept between calls and packed again when the
+    weight changes (another version, as an in-place update or a load makes,
+    or another tensor)."""
 
     def __init__(self, cin, cout, bias=True, impl=None):
         super().__init__(cin, cout, 3, padding=1, bias=bias)
         self.impl = impl
+        self._packed = None  # (weight version, data_ptr, device), packed weight
+
+    def packed_weight(self):
+        """`pack_weight(self.weight)`, packed once per version of the weight."""
+        w = self.weight
+        key = (w._version, w.data_ptr(), w.device)
+        if self._packed is None or self._packed[0] != key:
+            self._packed = (key, pack_weight(w))
+        return self._packed[1]
 
     def forward(self, x):
+        if x.is_cuda and self.impl in (None, "kernel"):
+            return conv3x3_op(x, self.weight, self.bias, self.impl,
+                              packed=self.packed_weight())
         return conv3x3_op(x, self.weight, self.bias, self.impl)
 
 

@@ -1,26 +1,30 @@
 """3x3 stride-1 same-pad convolution: the CUDA kernel's wrapper, its plain
-versions and the dispatcher of the DPT heads.
+versions, its weight packing and the dispatcher of the DPT heads.
 
 Replaces `dust3r_tpu/ops/conv3x3.py::_conv3x3_pallas_raw`. The kernel is
-`csrc/conv3x3.cu` (hand-written for sm_90a: an implicit GEMM over the nine
-taps on mma.sync bf16 tensor cores, fp32 accumulation; its header says what
-bounds it on the card and how the design answers that). Like the TPU kernel
-it rounds x and w to bf16 and accumulates in fp32; unlike it, it never
-stores the per-tap partial sums, so it rounds less, never more.
+`csrc/conv3x3.cu` (hand-written for sm_90a: an implicit GEMM fed by a TMA
+ring, the products on wgmma with fp32 accumulation, the reduction split
+over several blocks on small grids; its header says what bounds it on the
+card and how the design answers that). Like the TPU kernel it rounds x and
+w to bf16 and accumulates in fp32; unlike it, it never stores the per-tap
+partial sums, so it rounds less, never more.
 
 Layouts are PyTorch's: x is (B, Cin, H, W), w is `nn.Conv2d`'s
 (Cout, Cin, 3, 3), b is (Cout,) or None. The kernel reads x in
 `torch.channels_last` memory (NHWC, the layout of the JAX function) and
-writes y in it.
+writes y in it; it reads w packed by `pack_weight`, which the model's
+`Conv3x3` modules do once per version of their weight.
 
 * `conv3x3_ref` is fp32 `F.conv2d`, the counterpart of the JAX
   `conv3x3_ref`.
 * `conv3x3_bf16_ref` is the kernel's plain version: `F.conv2d` in fp32 on
   bf16-rounded x and w, plus the bias. The CPU tests and the card-side
   comparison use it.
+* `plan` is the launch's shape: output channels a block and how many
+  blocks a tile splits the reduction over.
 * `conv3x3_kernel` is the wrapper. For a CPU tensor it returns the plain
-  version; for a CUDA tensor it launches the kernel or raises.
-  `conv3x3_kernel.launches` counts kernel launches.
+  version; for a CUDA tensor it launches the kernel (once a call, split or
+  not) or raises. `conv3x3_kernel.launches` counts kernel launches.
 * `conv3x3(x, w, b, impl)` dispatches: impl None (auto: the kernel for CUDA
   tensors, 'ref' for CPU tensors), 'ref' or 'kernel'. Nothing falls back.
 """
@@ -52,6 +56,13 @@ def conv3x3_bf16_ref(x, w, b=None):
 
 
 _LIB = None
+_COUNTERS = {}  # device -> zeroed uint32 tile counters of the split reduction
+
+# the kernel's block: an 8 x 16 patch of output pixels; channels a block
+BLOCK_ROWS, BLOCK_COLS = 8, 16
+BLOCK_CHANNELS = (128, 64, 32)
+MAX_SPLITS = 16
+COUNTERS = 1 << 16
 
 
 def _kernel():
@@ -60,17 +71,46 @@ def _kernel():
         from ._build import load_library
 
         fn = load_library("conv3x3").dust3r_conv3x3
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LIB = fn
     return _LIB
 
 
 def pack_weight(w):
-    """(Cout, Cin, 3, 3) -> the kernel's bf16 (9 * Cin, Cout): row
-    (dy * 3 + dx) * Cin + ci holds the tap's weights of every output channel."""
+    """(Cout, Cin, 3, 3) -> the kernel's bf16 (Cin / 32, 9, Cout, 32): chunk
+    c of 32 input channels, tap dy * 3 + dx, output channel co, input
+    channel c * 32 + i at [c, dy * 3 + dx, co, i]. A step of the kernel
+    reads one chunk's three taps of one tap row for a block of channels as
+    one box."""
     cout, cin = w.shape[:2]
-    return w.permute(2, 3, 1, 0).reshape(9 * cin, cout).to(torch.bfloat16).contiguous()
+    return (w.detach().to(torch.bfloat16).permute(2, 3, 0, 1)
+            .reshape(9, cout, cin // CHANNEL_MULTIPLE, CHANNEL_MULTIPLE)
+            .permute(2, 0, 1, 3).contiguous())
+
+
+def unpack_weight(wp):
+    """`pack_weight`'s inverse: (Cin / 32, 9, Cout, 32) -> (Cout, Cin, 3, 3)
+    in wp's dtype."""
+    chunks, _, cout, _ = wp.shape
+    return wp.permute(1, 2, 0, 3).reshape(3, 3, cout, chunks * CHANNEL_MULTIPLE).permute(
+        2, 3, 0, 1)
+
+
+def plan(B, H, W, cin, cout, sms):
+    """(channels a block, tiles, splits) of one launch on a card of `sms`
+    SMs (one block an SM): the widest block of channels that divides Cout;
+    a tile per 8 x 16 pixel patch of an image and block of channels; and,
+    where the tiles fill under half the card, the reduction's (32-channel
+    chunk, tap row) steps split over up to 16 blocks a tile, at least 3
+    steps each, as many as keep the blocks to one wave."""
+    bn = next(n for n in BLOCK_CHANNELS if cout % n == 0)
+    tiles = B * -(-H // BLOCK_ROWS) * -(-W // BLOCK_COLS) * (cout // bn)
+    steps = 3 * (cin // CHANNEL_MULTIPLE)
+    splits = 1
+    if tiles < sms:
+        splits = max(1, min(sms // tiles, steps // 3, MAX_SPLITS))
+    return bn, tiles, splits
 
 
 def _check(x, w, b):
@@ -98,26 +138,58 @@ def _check(x, w, b):
         raise ValueError("x must start at a 16-byte aligned address")
 
 
-def conv3x3_kernel(x, w, b=None):
+def _packed(w, packed):
+    """The kernel's weight: `packed` (checked against w) or w packed here."""
+    if packed is None:
+        return pack_weight(w)
+    cout, cin = w.shape[:2]
+    want = (cin // CHANNEL_MULTIPLE, 9, cout, CHANNEL_MULTIPLE)
+    if (tuple(packed.shape) != want or packed.dtype != torch.bfloat16
+            or packed.device != w.device or not packed.is_contiguous()):
+        raise ValueError(f"packed weight must be contiguous bf16 {want} on {w.device}, got "
+                         f"{packed.dtype} {tuple(packed.shape)} on {packed.device}")
+    return packed
+
+
+def _counters(device):
+    if device not in _COUNTERS:
+        _COUNTERS[device] = torch.zeros(COUNTERS, dtype=torch.int32, device=device)
+    return _COUNTERS[device]
+
+
+def conv3x3_kernel(x, w, b=None, packed=None):
     """x (B, Cin, H, W) fp32 channels_last, w (Cout, Cin, 3, 3) fp32, b
-    (Cout,) fp32 or None -> y (B, Cout, H, W) fp32 channels_last."""
+    (Cout,) fp32 or None -> y (B, Cout, H, W) fp32 channels_last. packed:
+    `pack_weight(w)` when the caller keeps it (the kernel reads it), else
+    packed here."""
     if x.device.type == "cpu":
         return conv3x3_bf16_ref(x, w, b)
     _check(x, w, b)
     B, cin, H, W = x.shape
     cout = w.shape[0]
-    wp = pack_weight(w)
+    wp = _packed(w, packed)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    bn, tiles, splits = plan(B, H, W, cin, cout, sms)
+    ws = counters = None
+    if splits > 1:
+        if tiles > COUNTERS:
+            raise ValueError(f"{tiles} tiles of a split reduction pass the {COUNTERS} counters")
+        ws = torch.empty(tiles * splits * BLOCK_ROWS * BLOCK_COLS * bn, device=x.device,
+                         dtype=torch.float32)
+        counters = _counters(x.device)
     bias = None if b is None else b.contiguous()
     y = torch.empty((B, cout, H, W), device=x.device, dtype=torch.float32,
                     memory_format=torch.channels_last)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _kernel()(x.data_ptr(), wp.data_ptr(),
-                        None if bias is None else bias.data_ptr(), y.data_ptr(),
-                        B, H, W, cin, cout, stream)
+        err = _kernel()(x.data_ptr(), wp.data_ptr(), None if bias is None else bias.data_ptr(),
+                        y.data_ptr(), None if ws is None else ws.data_ptr(),
+                        None if counters is None else counters.data_ptr(),
+                        B, H, W, cin, cout, bn, splits, stream)
     if err != 0:
-        raise RuntimeError(f"conv3x3 kernel launch failed: CUDA error {err} "
-                           f"(x {tuple(x.shape)}, Cout {cout})")
+        raise RuntimeError(f"conv3x3 kernel launch failed: error {err} (x {tuple(x.shape)}, "
+                           f"Cout {cout}, {bn} channels a block, {splits} splits; above 1000: "
+                           f"1000 + the CUresult of encoding a tensor map)")
     conv3x3_kernel.launches += 1
     return y
 
@@ -125,14 +197,15 @@ def conv3x3_kernel(x, w, b=None):
 conv3x3_kernel.launches = 0
 
 
-def conv3x3(x, w, b=None, impl=None):
+def conv3x3(x, w, b=None, impl=None, packed=None):
     """The DPT heads' 3x3 conv. impl: None (auto: the kernel for CUDA
     tensors, else 'ref'), 'ref' or 'kernel' ('kernel' on CPU tensors runs
-    the kernel's plain version, as its wrapper does)."""
+    the kernel's plain version, as its wrapper does). packed: the kernel's
+    `pack_weight(w)`, kept by the caller."""
     if impl is None:
         impl = "kernel" if x.is_cuda else "ref"
     if impl == "kernel":
-        return conv3x3_kernel(x, w, b)
+        return conv3x3_kernel(x, w, b, packed)
     if impl == "ref":
         return conv3x3_ref(x, w, b)
     raise ValueError(f"conv3x3 impl {impl!r} not in {IMPLS} or None")

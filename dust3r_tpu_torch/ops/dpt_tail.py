@@ -37,8 +37,6 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .conv3x3 import pack_weight
-
 IMPLS = ("ref", "kernel")
 CIN, HIDDEN, NOUT = 128, 32, 4  # y's channels, conv2's outputs, conv3's outputs
 
@@ -80,6 +78,14 @@ def dpt_tail_bf16_ref(y, w2, b2, w3, b3, conf_vmin):
 
 
 _LIB = None
+
+
+def pack_igemm_weight(w):
+    """(Cout, Cin, 3, 3) -> the mma.sync k-loop's bf16 (9 * Cin, Cout) of
+    csrc/conv3x3_igemm.cuh: row (dy * 3 + dx) * Cin + ci holds the tap's
+    weights of every output channel."""
+    cout, cin = w.shape[:2]
+    return w.permute(2, 3, 1, 0).reshape(9 * cin, cout).to(torch.bfloat16).contiguous()
 
 
 def _kernel():
@@ -124,7 +130,7 @@ def dpt_tail_kernel(y, w2, b2, w3, b3, conf_vmin):
         return dpt_tail_bf16_ref(y, w2, b2, w3, b3, conf_vmin)
     _check(y, w2, b2, w3, b3)
     B, _, H, W = y.shape
-    w2p = pack_weight(w2)
+    w2p = pack_igemm_weight(w2)
     w3c, b2c, b3c = w3.reshape(NOUT, HIDDEN).contiguous(), b2.contiguous(), b3.contiguous()
     pts = torch.empty((B, H, W, 3), device=y.device, dtype=torch.float32)
     conf = torch.empty((B, H, W), device=y.device, dtype=torch.float32)

@@ -1,12 +1,23 @@
-"""Fused 2D-RoPE attention: the CUDA kernel's wrapper and its plain version.
+"""Fused 2D-RoPE attention: the CUDA kernels' wrapper and its plain version.
 
-Replaces `dust3r_tpu/ops/pallas_attention.py::fused_attention`. The kernel
-is `csrc/fused_attention.cu` on the core of `csrc/attention_core.cuh`
-(hand-written for sm_90a: mma.sync bf16 tensor cores, K/V streamed through
-shared memory, online softmax in fp32; the header says what bounds it on
-the card and how the design answers that). Its addressing is strided, so
-q, k and v may be head views of the projections (`(B, N, 3C)` or
-`(B, N, C)` seen as `(B, H, N, d)`) and the output lands head-packed.
+Replaces `dust3r_tpu/ops/pallas_attention.py::fused_attention`. Two
+hand-written sm_90a kernels serve it, each named by its `core`:
+
+* "sm90", `csrc/fused_attention_sm90.cu`: TMA rings of K and V tiles, K
+  rotated by a producer warpgroup, the products on wgmma, online softmax in
+  fp32. It takes bf16 with head dim 64 and one head a block: every call of
+  the model's path.
+* "mma", `csrc/fused_attention.cu` on the core of `csrc/attention_core.cuh`:
+  mma.sync bf16 tensor cores, K/V streamed through shared memory, online
+  softmax in fp32. It takes everything else (fp32, head dims 16, 24, 32,
+  `heads_per_program` > 1) and, with `core="mma"`, the bf16 G = 1 calls
+  too: it is the baseline of the attention variants and floors, whose
+  kernels share its core.
+
+Both compute the same function (the headers say what bounds each on the
+card and how its design answers that). Their addressing is strided, so q,
+k and v may be head views of the projections (`(B, N, 3C)` or `(B, N, C)`
+seen as `(B, H, N, d)`) and the output lands head-packed.
 
 * `attention_ref` is the plain PyTorch version, the counterpart of the JAX
   `attention_ref`: RoPE in the token dtype, logits from the fp32 upcasts
@@ -15,10 +26,12 @@ q, k and v may be head views of the projections (`(B, N, 3C)` or
   value dtype, P.v with fp32 sums (the JAX einsum's too) rounded to the
   value dtype. The CPU tests and the card-side comparison use it.
 * `fused_attention` is the wrapper. For a CPU tensor it returns the plain
-  version (the kernel cannot run there); for a CUDA tensor it launches the
-  kernel or raises. `fused_attention.launches` counts kernel launches,
-  `fused_attention.grouped_launches` those of the bf16 kernel with more
-  than one head a block (the fp32 kernel runs one head a block for any G).
+  version (the kernels cannot run there); for a CUDA tensor it launches the
+  kernel of its core (`route`) or raises. `fused_attention.launches`
+  counts launches of the sm90 kernel, `fused_attention.core_launches` those
+  of the mma.sync core, and `fused_attention.grouped_launches` those of
+  the core's bf16 kernel with more than one head a block (the fp32 kernel
+  runs one head a block for any G).
 """
 from __future__ import annotations
 
@@ -33,6 +46,16 @@ SUPPORTED_DTYPES = (torch.bfloat16, torch.float32)
 # heads a block of the bf16 kernel: 128 threads each; 8 (1024 threads at
 # most 64 registers each) does not fit the kernel's registers
 HEADS_PER_PROGRAM = (1, 2, 4)
+CORES = ("sm90", "mma")
+SM90_HEAD_DIM = 64
+
+
+def route(dtype, head_dim, heads_per_program=1):
+    """The core that serves a call on the card: "sm90" for bf16 with head
+    dim 64 and one head a block (the model's calls), "mma" for the rest."""
+    if dtype == torch.bfloat16 and head_dim == SM90_HEAD_DIM and heads_per_program == 1:
+        return "sm90"
+    return "mma"
 
 
 def attention_ref(q, k, v, positions_q=None, positions_k=None, rope_base=100.0):
@@ -54,6 +77,22 @@ def attention_ref(q, k, v, positions_q=None, positions_k=None, rope_base=100.0):
 
 
 _LIB = None
+_SM90 = None
+
+
+def _sm90_kernel():
+    """`csrc/fused_attention_sm90.cu`'s C entry, built at first use: q, k,
+    v, four tables, o, the 12 strides; batch, heads, nq, nk, use_rope;
+    scale, stream."""
+    global _SM90
+    if _SM90 is None:
+        from ._build import load_library
+
+        fn = load_library("fused_attention_sm90").dust3r_fused_attention_sm90
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _SM90 = fn
+    return _SM90
 
 
 def _kernel():
@@ -142,30 +181,42 @@ def _kernel_tables(positions, tables, head_dim, base):
     return cos, sin
 
 
-def launch(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k,
-           heads_per_program=1, softmax=0, entry=None):
-    """Launch the kernel on checked CUDA q, k, v with `heads_per_program`
-    heads a block and the softmax code `softmax` (0: exact; the variants'
-    codes are in `attention_variants`); returns the (B, H, Nq, d) view of a
-    new head-packed (B, Nq, H, d) output, or raises. entry: another C entry
-    of the same arguments (`attention_floors`' kernels), else this one."""
+def _operands(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k):
+    """A launch's four fp32 tables (cos_q, sin_q, cos_k, sin_k; None
+    without RoPE), its new head-packed output seen as (B, H, Nq, d), and the
+    12 (batch, head, row) strides of q, k, v and the output."""
     B, H, Nq, d = q.shape
-    Nk = k.shape[2]
-    use_rope = positions_q is not None
-    if use_rope:
-        cos_q, sin_q = _kernel_tables(positions_q, tables_q, d, rope_base)
-        cos_k, sin_k = _kernel_tables(positions_k, tables_k, d, rope_base)
-        tables = [t.data_ptr() for t in (cos_q, sin_q, cos_k, sin_k)]
-    else:
-        tables = [None] * 4
+    tables = None
+    if positions_q is not None:
+        tables = (*_kernel_tables(positions_q, tables_q, d, rope_base),
+                  *_kernel_tables(positions_k, tables_k, d, rope_base))
     out = torch.empty(B, Nq, H, d, dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
+    return tables, out, strides
+
+
+def _pointers(tables):
+    return [None] * 4 if tables is None else [t.data_ptr() for t in tables]
+
+
+def launch(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k,
+           heads_per_program=1, softmax=0, entry=None):
+    """Launch the mma.sync core on checked CUDA q, k, v with
+    `heads_per_program` heads a block and the softmax code `softmax` (0:
+    exact; the variants' codes are in `attention_variants`); returns the
+    (B, H, Nq, d) view of a new head-packed (B, Nq, H, d) output, or raises.
+    entry: another C entry of the same arguments (`attention_floors'`
+    kernels), else `fused_attention.cu`'s."""
+    B, H, Nq, d = q.shape
+    Nk = k.shape[2]
+    tables, out, strides = _operands(q, k, v, positions_q, positions_k, rope_base, tables_q,
+                                     tables_k)
     fn = _kernel() if entry is None else entry
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *tables, out.data_ptr(),
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *_pointers(tables), out.data_ptr(),
                  ctypes.addressof(strides), B, H, Nq, Nk, d, heads_per_program, softmax,
-                 int(q.dtype == torch.bfloat16), int(use_rope), d ** -0.5, stream)
+                 int(q.dtype == torch.bfloat16), int(positions_q is not None), d ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err} "
                            f"(q {tuple(q.shape)} {q.dtype}, Nk={Nk}, G={heads_per_program}, "
@@ -173,8 +224,27 @@ def launch(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k,
     return out
 
 
+def launch_sm90(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k):
+    """Launch the sm90 kernel on checked bf16 CUDA q, k, v of head dim 64;
+    returns as `launch` does, or raises."""
+    B, H, Nq, d = q.shape
+    Nk = k.shape[2]
+    tables, out, strides = _operands(q, k, v, positions_q, positions_k, rope_base, tables_q,
+                                     tables_k)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _sm90_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), *_pointers(tables),
+                             out.data_ptr(), ctypes.addressof(strides), B, H, Nq, Nk,
+                             int(positions_q is not None), d ** -0.5, stream)
+    if err != 0:
+        raise RuntimeError(f"sm90 attention kernel launch failed: error {err} (q "
+                           f"{tuple(q.shape)}, Nk={Nk}; above 1000: 1000 + the CUresult of "
+                           f"encoding a tensor map)")
+    return out
+
+
 def fused_attention(q, k, v, positions_q=None, positions_k=None, rope_base=100.0,
-                    tables_q=None, tables_k=None, heads_per_program=1):
+                    tables_q=None, tables_k=None, heads_per_program=1, core=None):
     """q, k, v: (B, H, N, d), Nq may differ from Nk, any strides with unit
     stride in d; positions (B, N, 2) integer (y, x) or None for no RoPE.
     Returns (B, H, Nq, d) in q's dtype; on the card it is a view of a
@@ -184,21 +254,34 @@ def fused_attention(q, k, v, positions_q=None, positions_k=None, rope_base=100.0
     tables_q / tables_k: optional fp32 (cos, sin) of the positions from
     `rope_tables(positions, d, rope_base)`, for a caller that shares them
     across layers; building them takes some twenty small launches. The
-    kernel reads them; the plain version builds its own in the token dtype,
+    kernels read them; the plain version builds its own in the token dtype,
     as the JAX reference does. heads_per_program: the heads a block of the
-    bf16 kernel serves (1, 2 or 4, dividing H), as the JAX argument of the
-    same name; every value gives the same bits."""
+    mma.sync core's bf16 kernel (1, 2 or 4, dividing H), as the JAX
+    argument of the same name; every value gives the same bits. core: None
+    (`route` picks), "sm90" or "mma" (see the module docstring); a core
+    that cannot serve the call raises."""
     check_heads_per_program(heads_per_program, q.shape[1])
+    if core is not None and core not in CORES:
+        raise ValueError(f"core {core!r} not in {CORES} or None")
     if q.device.type == "cpu":
         return attention_ref(q, k, v, positions_q, positions_k, rope_base)
     check(q, k, v, positions_q, positions_k, heads_per_program)
+    routed = route(q.dtype, q.shape[-1], heads_per_program)
+    if core == "sm90" and routed != "sm90":
+        raise ValueError(f"the sm90 kernel takes bf16 with head dim {SM90_HEAD_DIM} and one "
+                         f"head a block, got {q.dtype}, d={q.shape[-1]}, G={heads_per_program}")
+    if (core or routed) == "sm90":
+        out = launch_sm90(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k)
+        fused_attention.launches += 1
+        return out
     out = launch(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k,
                  heads_per_program)
-    fused_attention.launches += 1
+    fused_attention.core_launches += 1
     if heads_per_program > 1 and q.dtype == torch.bfloat16:  # fp32: one head a block
         fused_attention.grouped_launches += 1
     return out
 
 
 fused_attention.launches = 0
+fused_attention.core_launches = 0
 fused_attention.grouped_launches = 0

@@ -20,8 +20,10 @@ draws them):
   8  fused_attention G = 1 on random positions, (16,16,768,64)
   9  attention_variant "nomax", (16,16,768,64)
 
-For each: the row's kernel, the row-1 baseline (G = 1 on contiguous q, k,
-v), the plain version, the library yardstick (`F.scaled_dot_product_attention`
+The rows' fused_attention calls run on the mma.sync core (`core="mma"`),
+whose G, softmax and layout the experiments vary. For each: the row's
+kernel, the row-1 baseline (that core, G = 1 on contiguous q, k, v), the
+plain version, the library yardstick (`F.scaled_dot_product_attention`
 on q and k rotated beforehand, in the row's layout; for a floor, the one
 call that does its work where there is one: `q + v` for copynr, the
 logits' matmul on q and k rotated beforehand for qkonly) and the bound
@@ -148,7 +150,8 @@ def measure(q, k, v, pq, pk, heads_per_program=1, softmax=None, iters=20, warm=F
         return measure_floor(q, k, v, pq, pk, tq, tk, heads_per_program, softmax, iters, warm)
     if softmax is None:
         def kernel():
-            return fused_attention(q, k, v, pq, pk, 100.0, tq, tk, heads_per_program)
+            return fused_attention(q, k, v, pq, pk, 100.0, tq, tk, heads_per_program,
+                                   core="mma")
 
         def plain():
             return attention_ref(q, k, v, pq, pk)
@@ -162,7 +165,7 @@ def measure(q, k, v, pq, pk, heads_per_program=1, softmax=None, iters=20, warm=F
     qc, kc, vc = (t.contiguous() for t in (q, k, v))
 
     def baseline():
-        return fused_attention(qc, kc, vc, pq, pk, 100.0, tq, tk)
+        return fused_attention(qc, kc, vc, pq, pk, 100.0, tq, tk, core="mma")
 
     out = kernel()
     torch.cuda.synchronize()
@@ -200,7 +203,7 @@ def measure_floor(q, k, v, pq, pk, tq, tk, heads_per_program, mode, iters=20, wa
         return attention_floor_ref(q, k, v, pq, pk, 100.0, mode)
 
     def baseline():
-        return fused_attention(q, k, v, pq, pk, 100.0, tq, tk)
+        return fused_attention(q, k, v, pq, pk, 100.0, tq, tk, core="mma")
 
     out = kernel()
     torch.cuda.synchronize()

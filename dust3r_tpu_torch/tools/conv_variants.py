@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import _build
-from ..ops.conv3x3 import conv3x3_kernel
+from ..ops.conv3x3 import conv3x3_kernel, pack_weight
 from ..ops.conv3x3_taps import (VARIANTS, conv3x3_taps_kernel, conv3x3_taps_ref, pack_tap_weight,
                                 tap_inputs, tap_sums)
 from ..ops.dpt_post import dpt_post_kernel, dpt_post_ref
@@ -110,6 +110,19 @@ def measure_conv(x, w, variant, iters=20, row2=True):
                 library_ms=time_ms(lambda: F.conv2d(xb, wb, padding=1), iters),
                 bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err, rel=rel,
                 tflops=2 * B * H * W * 9 * cin * cout)
+
+
+def graph_times(x, w, iters=20):
+    """Device times by CUDA-graph replay at x's shape: row 2's kernel on w
+    packed once, and each variant's kernel alone."""
+    wp = pack_weight(w)
+    out = dict(row2=graph_ms(lambda: conv3x3_kernel(x, w, packed=wp), iters))
+    xb = x.permute(0, 2, 3, 1).to(torch.bfloat16)
+    wt = pack_tap_weight(w)
+    for variant in VARIANTS:
+        taps = tap_inputs(xb, variant)
+        out[variant] = graph_ms(lambda: tap_sums(taps, wt, variant), iters)
+    return out
 
 
 def post_inputs(B, H, W, gen):
@@ -197,6 +210,9 @@ def run(iters=20, log=print):
             if not r["rel"] <= CONV_RTOL:
                 raise AssertionError(f"{variant} {label}: the kernel disagrees ({r})")
             results.append(dict(label=label, variant=variant, **r))
+        g = graph_times(x, w, iters)
+        log(f"[graph] {label} x{(B, cin, H, W)}: row-2 conv3x3 {g['row2']:.4f} ms, kernel alone "
+            + ", ".join(f"{v} {g[v]:.4f} ms" for v in VARIANTS))
         del x, w
     B, H, W, C = POST_SHAPE
     h, w3, b3 = post_inputs(B, H, W, gen)

@@ -94,7 +94,7 @@ def _kernel_class(name):
     n = name.lower()
     if "attn_" in n:
         return "attention kernel"
-    if "conv3x3_igemm" in n:
+    if "conv3x3_sm90" in n or "conv3x3_igemm" in n:
         return "conv3x3 kernel"
     if "up2x_align_corners" in n:
         return "up2x kernel"

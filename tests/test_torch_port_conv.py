@@ -28,7 +28,7 @@ from dust3r_tpu.ops.conv3x3 import conv3x3_ref as jax_conv3x3_ref  # noqa: E402
 from dust3r_tpu_torch.checkpoint import state_dict_from_jax  # noqa: E402
 from dust3r_tpu_torch.models import heads  # noqa: E402
 from dust3r_tpu_torch.ops.conv3x3 import (conv3x3, conv3x3_bf16_ref, conv3x3_kernel,  # noqa: E402
-                                          conv3x3_ref, pack_weight)
+                                          conv3x3_ref, pack_weight, plan, unpack_weight)
 from dust3r_tpu_torch.ops.dpt_tail import dpt_tail_kernel  # noqa: E402
 from dust3r_tpu_torch.ops.upsample import up2x_kernel  # noqa: E402
 
@@ -118,13 +118,83 @@ def test_ref_matches_jax_ref(case, bias):
 
 
 def test_pack_weight_is_the_kernels_layout():
-    """Row (dy * 3 + dx) * Cin + ci, column co of the packed matrix is
-    w[co, ci, dy, dx], rounded to bf16."""
-    w = torch.randn(8, 16, 3, 3, generator=torch.Generator().manual_seed(0))
+    """Entry [c, dy * 3 + dx, co, i] of the packed (Cin / 32, 9, Cout, 32)
+    weight is w[co, c * 32 + i, dy, dx], rounded to bf16; unpack_weight
+    inverts it."""
+    w = torch.randn(8, 64, 3, 3, generator=torch.Generator().manual_seed(0))
     p = pack_weight(w)
-    assert p.shape == (9 * 16, 8) and p.dtype == torch.bfloat16 and p.is_contiguous()
-    for dy, dx, ci, co in ((0, 0, 0, 0), (1, 2, 5, 3), (2, 1, 15, 7)):
-        assert p[(dy * 3 + dx) * 16 + ci, co] == w[co, ci, dy, dx].to(torch.bfloat16)
+    assert p.shape == (2, 9, 8, 32) and p.dtype == torch.bfloat16 and p.is_contiguous()
+    for dy, dx, ci, co in ((0, 0, 0, 0), (1, 2, 37, 3), (2, 1, 63, 7)):
+        assert p[ci // 32, dy * 3 + dx, co, ci % 32] == w[co, ci, dy, dx].to(torch.bfloat16)
+    assert torch.equal(unpack_weight(p), w.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("case", ["cin96_cout8", "cin96_cout32"])
+def test_packed_weight_unpacked_matches_f_conv2d_and_jax(case):
+    """The kernel's packed weight, unpacked, is the bf16-rounded weight:
+    F.conv2d with it equals the JAX conv3x3_ref on the same rounded
+    operands."""
+    x, w, b = _inputs(case, bias=True, seed=3)
+    xt, wt, bt = _port(x, w, b)
+    unpacked = unpack_weight(pack_weight(wt)).float()
+    assert unpacked.shape == wt.shape and torch.equal(unpacked, wt.to(torch.bfloat16).float())
+    got = _nhwc(torch.nn.functional.conv2d(xt.to(torch.bfloat16).float(), unpacked, bt,
+                                           padding=1))
+    want = np.asarray(jax_conv3x3_ref(jnp.asarray(_bf16(x)), jnp.asarray(_bf16(w)),
+                                      jnp.asarray(b)))
+    assert _rel(got, want) <= 1e-5
+    assert _rel(got, _nhwc(conv3x3_bf16_ref(xt, wt, bt))) <= 1e-5
+
+
+PLANS = {  # (B, H, W, Cin, Cout): (channels a block, tiles, splits) on 132 SMs
+    (8, 96, 128, 96, 256): (128, 1536, 1),   # layer1_rn
+    (8, 48, 64, 192, 256): (128, 384, 1),    # layer2_rn
+    (8, 24, 32, 384, 256): (128, 96, 1),     # layer3_rn: 2 splits would pass one wave
+    (8, 12, 16, 768, 256): (128, 32, 4),     # layer4_rn
+    (8, 12, 16, 256, 256): (128, 32, 4),     # refinenet4
+    (8, 11, 16, 256, 256): (128, 32, 4),     # its 512x336 grid
+    (8, 21, 32, 256, 256): (128, 96, 1),     # refinenet3 at 512x336
+    (8, 192, 256, 256, 128): (128, 3072, 1),  # head.0
+    (2, 384, 512, 128, 32): (32, 3072, 1),   # head.2's shape
+    (1, 5, 5, 32, 96): (32, 3, 1),           # 3 steps: no split
+    (1, 5, 5, 64, 64): (64, 1, 2),
+    (1, 4, 4, 256, 128): (128, 1, 8),        # 24 steps, 3 a split
+    (1, 24, 32, 256, 128): (128, 6, 8),      # 22 blocks a tile would pass 24 steps / 3
+    (2, 24, 32, 256, 128): (128, 12, 8),
+    (4, 24, 32, 768, 128): (128, 24, 5),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(PLANS))
+def test_plan_fills_the_card(shape):
+    """The kernel's launch: the widest block of channels dividing Cout, a
+    tile per 8 x 16 pixel patch and channel block, and on grids of under
+    half as many tiles as SMs the reduction split over up to 16 blocks a
+    tile, at least 3 (chunk, tap row) steps each, the blocks in one wave."""
+    bn, tiles, splits = plan(*shape, sms=132)
+    assert (bn, tiles, splits) == PLANS[shape]
+    steps = 3 * shape[3] // 32
+    assert 1 <= splits <= min(16, steps) and (splits == 1 or steps // splits >= 3)
+    assert splits == 1 or tiles * splits <= 132
+
+
+def test_conv3x3_module_repacks_its_weight_when_it_changes():
+    """A Conv3x3 packs its weight once per version: the same tensor while
+    the weight is unchanged, a new packing after an in-place update or a
+    load."""
+    m = heads.Conv3x3(64, 32)
+    first = m.packed_weight()
+    assert m.packed_weight() is first
+    assert torch.equal(first, pack_weight(m.weight))
+    with torch.no_grad():
+        m.weight.mul_(2.0)
+    second = m.packed_weight()
+    assert second is not first and torch.equal(second, pack_weight(m.weight))
+    assert not torch.equal(second, first)
+    m.load_state_dict({"weight": torch.ones(32, 64, 3, 3), "bias": torch.zeros(32)})
+    third = m.packed_weight()
+    assert torch.equal(third, torch.ones(2, 9, 32, 32, dtype=torch.bfloat16))
+    assert m.packed_weight() is third
 
 
 def test_dispatcher_rejects_unknown_impl():

@@ -8,14 +8,17 @@ installed; there, skip the JAX-side conftest:
 
 Tolerances, against the plain version computed in fp32 from the same
 inputs and scaled by its max |x|: attention 1e-2 for bf16 inputs (8-bit
-mantissa, P rounded to bf16 before P.v), 1e-5 for fp32 inputs; strided
-views and 2 or 4 heads a block give the bits of the contiguous call with
-one head a block (each head's arithmetic is the same); the softmax
+mantissa, P rounded to bf16 before P.v; the sm90 kernel and the mma.sync
+core alike), 1e-5 for fp32 inputs; strided views give the bits of the
+contiguous call of the same core, and 2 or 4 heads a block those of the
+mma.sync core's one head a block (each head's arithmetic is the same); the
+softmax
 variants 1e-2 against their own plain version on the same bf16 inputs
 (the bf16 ones round (s - max) at the running max and in log2 units, so a
 P may sit one bf16 unit from the plain version's); conv3x3
 1e-3 against `conv3x3_bf16_ref` (the same bf16-rounded operands, products
-exact in fp32, only the order of the fp32 sums differs); up2x 1e-5 against
+exact in fp32, only the order of the fp32 sums differs), a split
+reduction's calls bit-identical to each other; up2x 1e-5 against
 `up2x_ref` (two fp32 lerps either way, FMA contraction aside); dpt_tail
 1e-3 against `dpt_tail_bf16_ref` on each output (conv3x3's sums, then fp32
 through the 1x1 and the exp). The TPU experiments' kernels: the tap-sum
@@ -30,17 +33,19 @@ import pytest
 import torch
 
 from dust3r_tpu_torch.models.blocks import token_positions
+from dust3r_tpu_torch.models.heads import Conv3x3
 from dust3r_tpu_torch.ops.attention_floors import MODES, attention_floor, attention_floor_ref
 from dust3r_tpu_torch.ops.conv3x3_taps import (VARIANTS, conv3x3_taps_kernel, conv3x3_taps_ref,
                                                tap_sums)
 from dust3r_tpu_torch.ops.dpt_post import dpt_post_kernel, dpt_post_ref
-from dust3r_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_bf16_ref, conv3x3_kernel
+from dust3r_tpu_torch.ops.conv3x3 import (conv3x3, conv3x3_bf16_ref, conv3x3_kernel, pack_weight,
+                                          plan)
 from dust3r_tpu_torch.ops.dpt_tail import dpt_tail, dpt_tail_bf16_ref, dpt_tail_kernel
 from dust3r_tpu_torch.ops.upsample import up2x, up2x_kernel, up2x_ref
 from dust3r_tpu_torch.ops.attention_variants import (SOFTMAXES, attention_variant,
                                                      attention_variant_ref)
 from dust3r_tpu_torch.ops.fused_attention import (SUPPORTED_HEAD_DIMS, attention_ref,
-                                                  fused_attention)
+                                                  fused_attention, route)
 
 pytestmark = pytest.mark.cuda
 
@@ -59,6 +64,11 @@ def card():
     return torch.device("cuda")
 
 
+def _launches():
+    return (fused_attention.launches, fused_attention.core_launches,
+            fused_attention.grouped_launches)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 @pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -72,10 +82,11 @@ def test_kernel_matches_plain_version(card, case, d, dtype):
     q, k, v = rnd(gq), rnd(gk), rnd(gk)
     pq = token_positions(B, *gq, card) if rope else None
     pk = token_positions(B, *gk, card) if rope else None
-    before = fused_attention.launches
+    before = _launches()
     out = fused_attention(q, k, v, pq, pk)
     torch.cuda.synchronize()
-    assert fused_attention.launches == before + 1
+    sm90 = route(dtype, d) == "sm90"
+    assert _launches() == (before[0] + sm90, before[1] + (not sm90), before[2])
     ref = attention_ref(q.float(), k.float(), v.float(), pq, pk)
     assert out.shape == ref.shape and out.dtype == dtype
     err = (out.float() - ref).abs().max().item() / ref.abs().max().item()
@@ -165,24 +176,91 @@ def test_heads_per_program_gives_the_bits_of_one_head_a_block(card, case, d, G):
     q, k, v = rnd(gq), rnd(gk), rnd(gk)
     pq = token_positions(B, *gq, card) if rope else None
     pk = token_positions(B, *gk, card) if rope else None
-    before = (fused_attention.launches, fused_attention.grouped_launches)
+    before = _launches()
     out = fused_attention(q, k, v, pq, pk, heads_per_program=G)
     torch.cuda.synchronize()
-    assert (fused_attention.launches, fused_attention.grouped_launches) == (
-        before[0] + 1, before[1] + 1)
-    assert torch.equal(out, fused_attention(q, k, v, pq, pk, heads_per_program=1))
+    assert _launches() == (before[0], before[1] + 1, before[2] + 1)
+    assert torch.equal(out, fused_attention(q, k, v, pq, pk, heads_per_program=1, core="mma"))
 
 
 @pytest.mark.parametrize("G", [2, 4])
 def test_fp32_runs_one_head_a_block_for_any_heads_per_program(card, G):
     gen = torch.Generator(device=card).manual_seed(G)
     q, k, v = (torch.randn(2, 4, 130, 64, device=card, generator=gen) for _ in range(3))
-    before = (fused_attention.launches, fused_attention.grouped_launches)
+    before = _launches()
     out = fused_attention(q, k, v, heads_per_program=G)
     torch.cuda.synchronize()
-    assert (fused_attention.launches, fused_attention.grouped_launches) == (
-        before[0] + 1, before[1])
+    assert _launches() == (before[0], before[1] + 1, before[2])
     assert torch.equal(out, fused_attention(q, k, v))
+
+
+SM90_CASES = {  # name: (B, H, (hq, wq) token grid of q, (hk, wk) of k, rope, layout)
+    "encoder_self_768_qkv": (2, 16, (24, 32), (24, 32), True, "qkv"),
+    "decoder_cross_768x672_packed": (2, 12, (24, 32), (21, 32), True, "packed"),
+    "cross_672x768_packed": (2, 12, (21, 32), (24, 32), True, "packed"),
+    "no_rope_196_packed": (2, 12, (14, 14), (14, 14), False, "packed"),
+    "cross_130x77": (2, 3, (10, 13), (7, 11), True, "packed"),
+    "cross_196x15_no_rope": (1, 2, (14, 14), (3, 5), False, "packed"),
+    "one_query_one_key": (1, 1, (1, 1), (1, 1), True, "packed"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SM90_CASES))
+def test_sm90_kernel_matches_plain_version_and_the_mma_core(card, case):
+    """The main path's calls (bf16, d = 64, one head a block) go to the sm90
+    kernel: within 1e-2 of the plain version, as the mma.sync core is, at
+    the model's shapes and layouts and at ragged ones (672 keys, 196 tokens
+    without RoPE, Nq != Nk, a single key)."""
+    B, H, gq, gk, rope, layout = SM90_CASES[case]
+    q, k, v = _views(card, B, H, gq[0] * gq[1], gk[0] * gk[1], 64, layout, torch.bfloat16,
+                     seed=len(case))
+    pq = token_positions(B, *gq, card) if rope else None
+    pk = token_positions(B, *gk, card) if rope else None
+    before = _launches()
+    out = fused_attention(q, k, v, pq, pk)
+    torch.cuda.synchronize()
+    assert _launches() == (before[0] + 1, before[1], before[2])
+    core = fused_attention(q, k, v, pq, pk, core="mma")
+    assert _launches() == (before[0] + 1, before[1] + 1, before[2])
+    ref = attention_ref(q.float(), k.float(), v.float(), pq, pk)
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    for name, got in (("sm90", out), ("mma", core)):
+        err = (got.float() - ref).abs().max().item() / ref.abs().max().item()
+        assert err <= RTOL[torch.bfloat16], f"{case} {name}: rel err {err:.3e}"
+    assert torch.equal(out, fused_attention(q, k, v, pq, pk))  # deterministic
+
+
+def test_attention_routes_each_call_to_its_core(card):
+    """bf16 at d = 64 with one head a block goes to the sm90 kernel, the rest
+    to the mma.sync core; asking the sm90 kernel for what it does not take
+    raises, and so do strides TMA cannot address, before any launch."""
+    q = torch.randn(1, 4, 64, 64, device=card).to(torch.bfloat16)
+    before = _launches()
+    fused_attention(q, q, q)
+    fused_attention(q[..., :32].contiguous(), q[..., :32].contiguous(),
+                    q[..., :32].contiguous())
+    fused_attention(q.float(), q.float(), q.float())
+    fused_attention(q, q, q, heads_per_program=2)
+    fused_attention(q, q, q, core="mma")
+    torch.cuda.synchronize()
+    assert _launches() == (before[0] + 1, before[1] + 4, before[2] + 1)
+    before = _launches()
+    with pytest.raises(ValueError, match="sm90 kernel takes"):
+        fused_attention(q[..., :32].contiguous(), q[..., :32].contiguous(),
+                        q[..., :32].contiguous(), core="sm90")
+    with pytest.raises(ValueError, match="sm90 kernel takes"):
+        fused_attention(q, q, q, heads_per_program=2, core="sm90")
+    with pytest.raises(ValueError, match="sm90 kernel takes"):
+        fused_attention(q.float(), q.float(), q.float(), core="sm90")
+    with pytest.raises(ValueError, match="core"):
+        fused_attention(q, q, q, core="wgmma")
+    wide = torch.zeros(1, 4, 64, 68, device=card, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="multiples of 8 elements"):
+        fused_attention(wide, q, q)  # rows 136 bytes apart
+    flat = torch.zeros(4 * 64 * 64 + 1, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        fused_attention(q, flat[1:].view(1, 4, 64, 64), q)
+    assert _launches() == before
 
 
 VARIANT_CASES = {  # name: (B, H, Nq grid, Nk grid, layout)
@@ -262,6 +340,52 @@ def test_conv3x3_kernel_matches_plain_version(card, case):
     assert out.is_contiguous(memory_format=torch.channels_last)
     err = (out - ref).abs().max().item() / ref.abs().max().item()
     assert err <= CONV_RTOL, f"{case}: rel err {err:.3e}"
+
+
+@pytest.mark.parametrize("case,batch", [("layer4_rn", 8), ("refinenet4", 8),
+                                        ("ragged_11_rows", 8), ("ragged_21_rows", 2)])
+def test_conv3x3_split_reduction_is_deterministic(card, case, batch):
+    """The small grids split their reduction over several blocks a tile: the
+    result stays within 1e-3 of the plain version and the same bits call
+    after call (the partials are summed in split order), at batch 8 as on
+    the model's path (batch 2 for the 21x32 grid, which splits only there)."""
+    cin, cout, h, w, bias = CONV_CASES[case]
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert plan(batch, h, w, cin, cout, sms)[2] > 1
+    gen = torch.Generator(device=card).manual_seed(cin + h)
+    x = torch.randn(batch, cin, h, w, device=card, generator=gen).contiguous(
+        memory_format=torch.channels_last)
+    wt = torch.randn(cout, cin, 3, 3, device=card, generator=gen) * (9 * cin) ** -0.5
+    b = torch.randn(cout, device=card, generator=gen) if bias else None
+    outs = [conv3x3_kernel(x, wt, b) for _ in range(3)]
+    torch.cuda.synchronize()
+    ref = conv3x3_bf16_ref(x, wt, b)
+    err = (outs[0] - ref).abs().max().item() / ref.abs().max().item()
+    assert err <= CONV_RTOL, f"{case}: rel err {err:.3e}"
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+def test_conv3x3_module_packs_once_and_matches_the_wrapper(card):
+    """A Conv3x3 on the card hands the kernel its kept packing; the result
+    is the wrapper's on the unpacked weight, and after an in-place update
+    of the weight the module packs again and follows it."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    m = Conv3x3(64, 96).to(card)
+    x = torch.randn(2, 64, 9, 20, device=card, generator=gen).contiguous(
+        memory_format=torch.channels_last)
+    with torch.no_grad():
+        got = m(x)
+        packed = m._packed[1]
+        assert torch.equal(got, conv3x3_kernel(x, m.weight, m.bias))
+        assert torch.equal(packed, pack_weight(m.weight))
+        m.weight.mul_(-0.5)
+        got2 = m(x)
+        assert m._packed[1] is not packed
+        assert torch.equal(got2, conv3x3_kernel(x, m.weight, m.bias))
+    before = conv3x3_kernel.launches
+    with pytest.raises(ValueError, match="packed weight"):
+        conv3x3_kernel(x, m.weight, m.bias, packed=packed[:, :8].contiguous())
+    assert conv3x3_kernel.launches == before
 
 
 def test_conv3x3_kernel_refuses_what_it_cannot_serve(card):

@@ -19,8 +19,8 @@ from dust3r_tpu.ops.attention import attention_ref as jax_attention_ref
 from dust3r_tpu.ops.pallas_attention import _rope_tables as jax_rope_tables
 from dust3r_tpu.ops.rope import apply_rope2d as jax_apply_rope2d
 from dust3r_tpu_torch.ops.attention import attention
-from dust3r_tpu_torch.ops.fused_attention import (_kernel_tables, attention_ref,
-                                                 fused_attention)
+from dust3r_tpu_torch.ops.fused_attention import (CORES, _kernel_tables, attention_ref,
+                                                 fused_attention, route)
 from dust3r_tpu_torch.ops.rope import apply_rope2d, rope_tables
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -150,3 +150,59 @@ def test_wrapper_builds_rope_tables_once_per_positions_tensor(monkeypatch):
     with torch.no_grad():
         model(img, img)
     assert built == [((2, 6, 2), 16), ((1, 6, 2), 24), ((1, 6, 2), 24)]
+
+
+ROUTES = {  # (dtype, head dim, heads a block): the core that serves the call on the card
+    ("bf16", 64, 1): "sm90",
+    ("bf16", 64, 2): "mma",
+    ("bf16", 64, 4): "mma",
+    ("bf16", 32, 1): "mma",
+    ("bf16", 24, 1): "mma",
+    ("bf16", 16, 1): "mma",
+    ("fp32", 64, 1): "mma",
+    ("fp32", 16, 2): "mma",
+}
+DTYPES = dict(bf16=torch.bfloat16, fp32=torch.float32)
+
+
+@pytest.mark.parametrize("key", sorted(ROUTES), ids=lambda k: "-".join(map(str, k)))
+def test_route_sends_bf16_head_dim_64_single_heads_to_the_sm90_kernel(key):
+    dtype, d, G = key
+    assert route(DTYPES[dtype], d, G) == ROUTES[key]
+
+
+def test_the_published_models_attend_through_the_sm90_kernel():
+    """Every attention call of the published models (bf16 body, head dim
+    1024 / 16 and 768 / 12, one head a block) routes to the sm90 kernel."""
+    from dust3r_tpu_torch.models.model import NAMED_MODELS
+
+    for name, make in NAMED_MODELS.items():
+        m = make(device="meta")
+        for blk in list(m.enc_blocks) + list(m.dec_blocks) + list(m.dec_blocks2):
+            for attn in [blk.attn] + ([blk.cross_attn] if hasattr(blk, "cross_attn") else []):
+                dim = (attn.qkv.in_features if hasattr(attn, "qkv") else
+                       attn.projq.in_features)
+                assert route(torch.bfloat16, dim // attn.num_heads) == "sm90", name
+
+
+@pytest.mark.parametrize("core", (None,) + CORES)
+def test_every_core_takes_the_plain_version_on_the_cpu(core):
+    """On CPU tensors a call asks no core to run: bf16 at d = 64 (the sm90
+    kernel's calls) gives the plain version's bits, which hold to the JAX
+    reference in fp32, and no launch is counted."""
+    q, k, v, pq, pk = _inputs(11, 2, 3, 20, 28, 64, rope=True)
+    args = [_t(x) for x in (q, k, v)]
+    before = (fused_attention.launches, fused_attention.core_launches)
+    bf16 = [a.to(torch.bfloat16) for a in args]
+    got = fused_attention(*bf16, _t(pq), _t(pk), core=core)
+    assert torch.equal(got, attention_ref(*bf16, _t(pq), _t(pk)))
+    got32 = fused_attention(*args, _t(pq), _t(pk), core=core)
+    want = np.asarray(jax_attention_ref(_j(q), _j(k), _j(v), _j(pq), _j(pk)))
+    np.testing.assert_allclose(got32.numpy(), want, **TOL)
+    assert (fused_attention.launches, fused_attention.core_launches) == before
+
+
+def test_wrapper_refuses_an_unknown_core():
+    q = torch.zeros(1, 2, 8, 64)
+    with pytest.raises(ValueError, match="core"):
+        fused_attention(q, q, q, core="wgmma")
