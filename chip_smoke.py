@@ -14,7 +14,8 @@ Phases (each prints its lines; a failed phase raises and the exit code is 1):
      layouts: heads read as strided views of the projections, each call's
      bits held to the same kernel on contiguous copies, and its distance
      from the mma.sync core's, the baseline; conv3x3 on the weight packed
-     once, as the model's modules keep it), with the times of the kernel,
+     once, as the model's modules keep it; dpt_tail on W2 packed once, as
+     the model's adapter keeps it), with the times of the kernel,
      the plain version and the one PyTorch call that computes the same
      function (where there is one), each by CUDA events over a loop of calls
      and, for the kernels, the baseline and the library calls, also as
@@ -478,12 +479,14 @@ def up2x_kernel_phase(torch):
     """up2x against up2x_ref (its plain version) at each upsample of a DPT
     head, batch 8, at 512x384 and at the 512x336 bucket's ragged grids; the
     library call is `F.interpolate(..., "bilinear", align_corners=True)` on
-    the same fp32 channels_last x. Returns the rows and their sums over one
-    head's 5 calls at 512x384."""
+    the same fp32 channels_last x. Times by CUDA-graph replay (the smaller
+    calls last well under 0.1 ms, where a loop of wrapper calls reads the
+    launch rate) and, in brackets, by CUDA events over a loop of calls.
+    Returns the rows and their sums over one head's 5 calls at 512x384."""
     import torch.nn.functional as F
 
     from dust3r_tpu_torch.ops.upsample import up2x_kernel, up2x_ref
-    from dust3r_tpu_torch.tools.card import bound, time_ms
+    from dust3r_tpu_torch.tools.card import bound, graph_ms, time_ms
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
@@ -497,40 +500,53 @@ def up2x_kernel_phase(torch):
                 and out.is_contiguous(memory_format=torch.channels_last)):
             raise AssertionError(f"up2x {name}: bad kernel output {tuple(out.shape)}")
         err, rel = _rel_err(out, ref)
-        del ref
-        t = dict(ms=time_ms(lambda: up2x_kernel(x)),
-                 plain_ms=time_ms(lambda: up2x_ref(x)),
-                 library_ms=time_ms(lambda: F.interpolate(
-                     x, scale_factor=2, mode="bilinear", align_corners=True)))
+        del ref, out
+
+        def library():
+            return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=True)
+
+        t = dict(ms=graph_ms(lambda: up2x_kernel(x)), time_ms=time_ms(lambda: up2x_kernel(x)),
+                 plain_ms=graph_ms(lambda: up2x_ref(x)),
+                 plain_time_ms=time_ms(lambda: up2x_ref(x)),
+                 library_ms=graph_ms(library), library_time_ms=time_ms(library))
         # x read once, 4x its bytes written; 4 multiplies and 2 adds a value
         bound_ms, bound_by = bound(5 * 4 * x.numel(), dict(fp32=6 * 4 * x.numel()))
         log(f"[kernel] up2x {name} x{(BATCH_SIZE, c, h, w)} x{count}/head: max_abs_err "
-            f"{err:.3e} rel {rel:.3e} (limit {UP2X_RTOL:g}); kernel {t['ms']:.4f} ms "
-            f"({5 * 4 * x.numel() / t['ms'] / 1e6:.1f} GB/s), plain {t['plain_ms']:.4f} ms, "
-            f"F.interpolate {t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            f"{err:.3e} rel {rel:.3e} (limit {UP2X_RTOL:g}); kernel graph {t['ms']:.4f} ms "
+            f"({t['time_ms']:.4f}; {5 * 4 * x.numel() / t['ms'] / 1e6:.1f} GB/s, "
+            f"{100 * bound_ms / t['ms']:.1f} % of the bound), plain {t['plain_ms']:.4f} ms "
+            f"({t['plain_time_ms']:.4f}), F.interpolate {t['library_ms']:.4f} ms "
+            f"({t['library_time_ms']:.4f}), bound {bound_ms:.4f} ms ({bound_by})")
         if not rel <= UP2X_RTOL:
             raise AssertionError(f"up2x {name}: kernel disagrees with its plain version, "
                                  f"rel err {rel:.3e} > {UP2X_RTOL:g}")
         rows.append(dict(name=name, count=count, max_abs_err=err, bound_ms=bound_ms,
                          bound_by=bound_by, **t))
     total = summed(rows)
-    log(f"[kernel] up2x, one DPT head's 5 calls at batch 8: kernel {total['ms']:.4f} ms, "
-        f"plain {total['plain_ms']:.4f} ms, F.interpolate {total['library_ms']:.4f} ms, "
-        f"bound {total['bound_ms']:.4f} ms ({total['bound_by']})")
+    extra = {k: sum(r["count"] * r[k] for r in rows)
+             for k in ("time_ms", "plain_time_ms", "library_time_ms")}
+    log(f"[kernel] up2x, one DPT head's 5 calls at batch 8: kernel graph {total['ms']:.4f} ms "
+        f"({extra['time_ms']:.4f}; {100 * total['bound_ms'] / total['ms']:.1f} % of the "
+        f"bound), plain {total['plain_ms']:.4f} ms ({extra['plain_time_ms']:.4f}), "
+        f"F.interpolate {total['library_ms']:.4f} ms ({extra['library_time_ms']:.4f}), bound "
+        f"{total['bound_ms']:.4f} ms ({total['bound_by']})")
     return rows, total
 
 
 def tail_kernel_phase(torch):
     """dpt_tail against dpt_tail_bf16_ref (its plain version) at the head's
-    tail, batch 8, 512x384 and 512x336. No one PyTorch call computes the
+    tail, batch 8, 512x384 and 512x336, the kernel reading W2 packed once
+    (as the model's adapter keeps it). No one PyTorch call computes the
     tail; beside it is timed the chain it replaces on the path (conv3x3
-    kernel at 128 -> 32, ReLU, fp32 cuDNN 1x1, postprocess)."""
+    kernel at 128 -> 32, ReLU, fp32 cuDNN 1x1, postprocess). Times by
+    CUDA-graph replay and, in brackets, by CUDA events over a loop of
+    calls."""
     import torch.nn.functional as F
 
     from dust3r_tpu_torch.models.heads import postprocess
     from dust3r_tpu_torch.ops.conv3x3 import conv3x3_kernel
-    from dust3r_tpu_torch.ops.dpt_tail import dpt_tail_bf16_ref, dpt_tail_kernel
-    from dust3r_tpu_torch.tools.card import bound, time_ms
+    from dust3r_tpu_torch.ops.dpt_tail import dpt_tail_bf16_ref, dpt_tail_kernel, pack_w2
+    from dust3r_tpu_torch.tools.card import bound, graph_ms, time_ms
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     modes = (("exp", -float("inf"), float("inf")), ("exp", 1.0, float("inf")))
@@ -543,7 +559,8 @@ def tail_kernel_phase(torch):
         w3 = 0.2 * torch.randn(4, 32, 1, 1, device="cuda", generator=gen)
         b3 = 0.1 * torch.randn(4, device="cuda", generator=gen)
         args = (y, w2, b2, w3, b3, modes[1][1])
-        pts, conf = dpt_tail_kernel(*args)
+        w2p = pack_w2(w2)
+        pts, conf = dpt_tail_kernel(*args, packed=w2p)
         torch.cuda.synchronize()
         want = dpt_tail_bf16_ref(*args)
         errs = []
@@ -552,26 +569,34 @@ def tail_kernel_phase(torch):
                     and torch.isfinite(got).all()):
                 raise AssertionError(f"dpt_tail {name}: bad {key} {tuple(got.shape)}")
             errs.append((key, *_rel_err(got, ref)))
-        del want
+        del want, pts, conf
+
+        def kernel():
+            return dpt_tail_kernel(*args, packed=w2p)
+
+        def plain():
+            return dpt_tail_bf16_ref(*args)
 
         def unfused():
             h32 = F.relu(conv3x3_kernel(y, w2, b2))
             return postprocess(F.conv2d(h32, w3, b3).permute(0, 2, 3, 1), *modes)
 
-        t = dict(ms=time_ms(lambda: dpt_tail_kernel(*args)),
-                 plain_ms=time_ms(lambda: dpt_tail_bf16_ref(*args)),
-                 unfused_ms=time_ms(unfused))
+        t = dict(ms=graph_ms(kernel), time_ms=time_ms(kernel), plain_ms=graph_ms(plain),
+                 plain_time_ms=time_ms(plain), unfused_ms=graph_ms(unfused),
+                 unfused_time_ms=time_ms(unfused))
+        # y read once, pts and conf written once; conv2 on bf16 tensor cores,
+        # conv3 and ~20 operations a pixel of postprocess in fp32
         M = BATCH_SIZE * h * w
         nbytes = 4 * (M * 128 + 32 * 128 * 9 + 32 + 4 * 32 + 4 + M * 3 + M)
-        # conv2 on bf16 tensor cores; conv3 and ~20 operations a pixel of
-        # postprocess in fp32
         bound_ms, bound_by = bound(nbytes, dict(bf16=2 * M * 32 * 9 * 128,
                                                 fp32=M * (2 * 32 * 4 + 20)))
         log(f"[kernel] dpt_tail {name} y{(BATCH_SIZE, 128, h, w)} x{count}/head: "
             + ", ".join(f"{k} max_abs_err {e:.3e} rel {r:.3e}" for k, e, r in errs)
-            + f" (limit {TAIL_RTOL:g}); kernel {t['ms']:.4f} ms ({nbytes / t['ms'] / 1e6:.1f} "
-            f"GB/s), bf16 plain {t['plain_ms']:.4f} ms, the unfused chain (conv3x3 kernel, "
-            f"ReLU, cuDNN 1x1, postprocess) {t['unfused_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+            + f" (limit {TAIL_RTOL:g}); kernel graph {t['ms']:.4f} ms ({t['time_ms']:.4f}; "
+            f"{nbytes / t['ms'] / 1e6:.1f} GB/s, {100 * bound_ms / t['ms']:.1f} % of the "
+            f"bound), bf16 plain {t['plain_ms']:.4f} ms ({t['plain_time_ms']:.4f}), the "
+            f"unfused chain (conv3x3 kernel, ReLU, cuDNN 1x1, postprocess) "
+            f"{t['unfused_ms']:.4f} ms ({t['unfused_time_ms']:.4f}), bound {bound_ms:.4f} ms "
             f"({bound_by})")
         if not all(r <= TAIL_RTOL for _, _, r in errs):
             raise AssertionError(f"dpt_tail {name}: kernel disagrees with its plain "
@@ -851,10 +876,11 @@ def main(argv):
     # variants' calls, summed; conv3x3 and up2x: one DPT head's calls at
     # batch 8, summed; dpt_tail: the head's one call. Device times: the
     # kernels' and library calls' CUDA-graph replays where the phase took
-    # them (the attention kernels and conv3x3), else CUDA events over a loop
-    # of calls. Launches: the slice's run (requests (a)-(c)); the variants
-    # phase's for the variants; the conv variants, the epilogue and the
-    # floors: the experiments phase's calls, summed, and its launches
+    # them (the attention kernels, conv3x3, up2x, dpt_tail), else CUDA
+    # events over a loop of calls. Launches: the slice's run (requests
+    # (a)-(c)); the variants phase's for the variants; the conv variants,
+    # the epilogue and the floors: the experiments phase's calls, summed,
+    # and its launches
     launches.update({k: variant_launches[k]
                      for k in ("fused_attention_grouped", "attention_variant")})
     launches.update({k: experiment_launches[k] for k in experiment_rows})

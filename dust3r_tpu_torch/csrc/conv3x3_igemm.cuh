@@ -1,22 +1,16 @@
-// The implicit GEMM shared by conv3x3.cu, dpt_tail.cu and conv3x3_taps.cu
-// (sm_90a): the mma.sync / ldmatrix helpers, the double-buffered tiles and
-// the k-loop that accumulates one block's (128 output pixels x BN output
+// The mma.sync implicit GEMM of conv3x3_taps.cu (sm_90a): the mma.sync /
+// ldmatrix helpers (dpt_tail.cu uses these too), the double-buffered tiles
+// and the k-loop that accumulates one block's (128 output pixels x BN output
 // columns) tile, generic over the loader of its A tile.
 //
-// The 3x3 stride-1 same-pad conv (`mainloop`, with `Fp32TapLoader`): for
-// output pixel m (flat over batch, H, W of an NHWC fp32 x) and output
-// channel n the tile holds
-//   acc[m, n] = sum_{dy, dx, c} bf16(x[b, h+dy-1, w+dx-1, c]) * W[dy, dx, c, n]
-// in fp32, zero outside the image. W comes packed as bf16 (9 * cin, cout),
-// row (dy * 3 + dx) * cin + c. Each k-step takes one tap and 32 input
-// channels: a 128 x 32 slice of x (16-byte fp32 loads, the tap's shift
-// applied to the flat pixel index, the zero halo applied in the load) and the
-// matching 32 x BN slice of W go through registers, x rounded to bf16 on its
-// way to a double-buffered shared-memory tile, so the global loads of step
-// k+1 are in flight while the tensor cores work on step k. Four warps, 2
-// (pixels) x 2 (channels), each 64 x BN/2 of m16n8k16 tiles; A fragments by
-// ldmatrix, B fragments by ldmatrix.trans, rows padded by 8 elements so the
-// fragment loads hit distinct banks.
+// Each k-step takes 32 rows of K: a 128 x 32 A slice (from the caller's
+// loader: conv3x3_taps.cu's loaders read bf16 x with the tap's shift and
+// the zero halo applied in the load) and the matching 32 x BN slice of the
+// packed bf16 B go through registers into a double-buffered shared-memory
+// tile, so the global loads of step k+1 are in flight while the tensor cores
+// work on step k. Four warps, 2 (pixels) x 2 (channels), each 64 x BN/2 of
+// m16n8k16 tiles; A fragments by ldmatrix, B fragments by ldmatrix.trans,
+// rows padded by 8 elements so the fragment loads hit distinct banks.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -166,71 +160,6 @@ __device__ __forceinline__ void gemm_loop(ALoader& al, const __nv_bfloat16* __re
     if (kc + 1 < nk) store(cur ^ 1);
     __syncthreads();
   }
-}
-
-// The nine-tap A loader of a 3x3 conv on NHWC fp32 x: k-step kc takes tap
-// kc / (cin / 32) and 32 input channels. A thread stages kARows pixels,
-// 4 channels each, by 16-byte fp32 loads with the tap's shift applied to
-// the flat pixel index and the zero halo applied in the load; store rounds
-// them to bf16.
-struct Fp32TapLoader {
-  static constexpr int kVec = 4;                            // fp32 channels a load
-  static constexpr int kRowsPerPass = kThreads / (kBK / kVec);
-  static constexpr int kARows = kBM / kRowsPerPass;         // pixels a thread stages
-  const float* __restrict__ x;
-  int H, W, cin, chunks, quad, r0;
-  int pix[kARows], ph[kARows], pw[kARows];
-  float4 areg[kARows];
-
-  __device__ __forceinline__ Fp32TapLoader(const float* __restrict__ x_, int H_, int W_,
-                                           int cin_, int npix, int m0)
-      : x(x_), H(H_), W(W_), cin(cin_), chunks(cin_ / kBK), quad(threadIdx.x % (kBK / kVec)),
-        r0(threadIdx.x / (kBK / kVec)) {
-#pragma unroll
-    for (int i = 0; i < kARows; ++i) {
-      const int m = m0 + r0 + kRowsPerPass * i;
-      pix[i] = m;
-      ph[i] = m < npix ? (m / W) % H : -2;  // -2: every tap falls outside
-      pw[i] = m % W;
-    }
-  }
-
-  __device__ __forceinline__ void load(int kc) {
-    const int tap = kc / chunks;
-    const int c0 = (kc - tap * chunks) * kBK + quad * kVec;
-    const int dy = tap / 3 - 1;
-    const int dx = tap % 3 - 1;
-    const int shift = dy * W + dx;
-#pragma unroll
-    for (int i = 0; i < kARows; ++i) {
-      const int hh = ph[i] + dy;
-      const int ww = pw[i] + dx;
-      if (hh >= 0 && hh < H && ww >= 0 && ww < W) {
-        areg[i] = *reinterpret_cast<const float4*>(x + (size_t)(pix[i] + shift) * cin + c0);
-      } else {
-        areg[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(__nv_bfloat16 (*a)[kAStride]) {
-#pragma unroll
-    for (int i = 0; i < kARows; ++i) {
-      *reinterpret_cast<uint2*>(&a[r0 + kRowsPerPass * i][quad * kVec]) = to_bf16x4(areg[i]);
-    }
-  }
-};
-
-// Accumulates the 3x3 conv's tile of output pixels [m0, m0 + 128) and
-// output channels [n0, n0 + BN) into acc: the nine taps x cin / 32 channel
-// chunks of x against W packed as bf16 (9 * cin, cout).
-template <int BN>
-__device__ __forceinline__ void mainloop(const float* __restrict__ x,
-                                         const __nv_bfloat16* __restrict__ wp, int H, int W,
-                                         int cin, int cout, int npix, int n0, int m0,
-                                         Tiles<BN>& sm, Acc<BN>& acc) {
-  Fp32TapLoader al(x, H, W, cin, npix, m0);
-  gemm_loop<BN>(al, wp, cout, 9 * (cin / kBK), n0, sm, acc);
 }
 
 }  // namespace conv3x3_igemm

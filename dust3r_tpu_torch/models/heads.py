@@ -25,7 +25,7 @@ from torch import nn
 from ..ops.conv3x3 import conv3x3 as conv3x3_op
 from ..ops.conv3x3 import pack_weight
 from ..ops.dpt_tail import dpt_tail as dpt_tail_op
-from ..ops.dpt_tail import kernel_conf_vmin
+from ..ops.dpt_tail import kernel_conf_vmin, pack_w2
 from ..ops.upsample import up2x as up2x_op
 
 Mode = Tuple[str, float, float]
@@ -101,6 +101,18 @@ class Upsample2x(nn.Module):
         return up2x_op(x, self.impl)
 
 
+def _kept_packing(module, attr, w, pack):
+    """`pack(w)`, kept on `module` as `attr` = (key, packing) and made again
+    when the weight changes: another version (as an in-place update or a
+    load makes), another tensor or another device."""
+    key = (w._version, w.data_ptr(), w.device)
+    kept = getattr(module, attr)
+    if kept is None or kept[0] != key:
+        kept = (key, pack(w))
+        setattr(module, attr, kept)
+    return kept[1]
+
+
 class Conv3x3(nn.Conv2d):
     """3x3 stride-1 same-pad conv through the conv3x3 dispatcher, with
     `nn.Conv2d`'s parameters (`weight` (Cout, Cin, 3, 3), `bias`), as the
@@ -116,11 +128,7 @@ class Conv3x3(nn.Conv2d):
 
     def packed_weight(self):
         """`pack_weight(self.weight)`, packed once per version of the weight."""
-        w = self.weight
-        key = (w._version, w.data_ptr(), w.device)
-        if self._packed is None or self._packed[0] != key:
-            self._packed = (key, pack_weight(w))
-        return self._packed[1]
+        return _kept_packing(self, "_packed", self.weight, pack_weight)
 
     def forward(self, x):
         if x.is_cuda and self.impl in (None, "kernel"):
@@ -176,7 +184,8 @@ class DPTOutputAdapter(nn.Module):
     """DPT fusion trunk over 4 hooked decoder layers (entry 0 of the hook
     list is the encoder output) and the regression head, up to the
     postprocessed pointmap and confidence. `conv_impl` goes to its
-    `Conv3x3`s, its `Upsample2x`s and its tail."""
+    `Conv3x3`s, its `Upsample2x`s and its tail. The tail kernel's packing of
+    head[2]'s weight is kept between calls, as `Conv3x3` keeps its own."""
 
     def __init__(self, dim_tokens, hooks, nch, depth_mode, conf_mode,
                  layer_dims=(96, 192, 384, 768), feature_dim=256, conv_impl=None):
@@ -186,6 +195,7 @@ class DPTOutputAdapter(nn.Module):
         self.conv_impl = conv_impl
         # the tail kernel's conf offset; None: modes it does not take
         self.conf_vmin = kernel_conf_vmin(depth_mode, conf_mode)
+        self._packed_w2 = None  # (weight version, data_ptr, device), pack_w2(head[2].weight)
         l0, l1, l2, l3 = layer_dims
         self.act_postprocess = nn.ModuleList([
             nn.Sequential(nn.Conv2d(dim_tokens[0], l0, 1),
@@ -218,6 +228,11 @@ class DPTOutputAdapter(nn.Module):
         path = s.refinenet1(path, layers[0])
         return self.tail(self.head[1](self.head[0](path)))
 
+    def packed_w2(self):
+        """`pack_w2(self.head[2].weight)`, packed once per version of the
+        weight."""
+        return _kept_packing(self, "_packed_w2", self.head[2].weight, pack_w2)
+
     def tail(self, y):
         """head[2:] and the postprocess on y (B, 128, H, W): one dpt_tail
         call with the weights of head[2] (3x3, 128 -> 32) and head[4] (1x1,
@@ -225,8 +240,12 @@ class DPTOutputAdapter(nn.Module):
         themselves, and raise where the kernel was asked for."""
         if self.conf_vmin is not None:
             conv2, conv3 = self.head[2], self.head[4]
-            pts3d, conf = dpt_tail_op(y, conv2.weight, conv2.bias, conv3.weight, conv3.bias,
-                                      self.conf_vmin, self.conv_impl)
+            args = (y, conv2.weight, conv2.bias, conv3.weight, conv3.bias, self.conf_vmin,
+                    self.conv_impl)
+            if y.is_cuda and self.conv_impl in (None, "kernel"):
+                pts3d, conf = dpt_tail_op(*args, packed=self.packed_w2())
+            else:
+                pts3d, conf = dpt_tail_op(*args)
             return dict(pts3d=pts3d, conf=conf)
         if self.conv_impl == "kernel" or (self.conv_impl is None and y.is_cuda):
             raise ValueError(f"the dpt_tail kernel takes depth mode ('exp', -inf, inf) and "

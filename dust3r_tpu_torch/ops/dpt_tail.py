@@ -5,10 +5,12 @@ and the dispatcher.
 Replaces `scripts/exp_tailk_r2.py::tail_pallas` and
 `scripts/exp_tailk2_r2.py::tail3_pallas` (two TPU blockings of one
 function: the last four lines of `dust3r_tpu/models/heads.py::DPTHead`).
-The kernel is `csrc/dpt_tail.cu` (hand-written for sm_90a: the conv3x3
-implicit GEMM at 32 output channels, then an epilogue that applies the
-ReLU, the 1x1 and the postprocess to each pixel in shared memory; its
-header says what bounds it on the card and how the design answers that).
+The kernel is `csrc/dpt_tail.cu` (hand-written for sm_90a: persistent
+blocks over 16 x 16 output tiles; each tile's halo box of y is loaded once
+by TMA and rounded to bf16 once by one warpgroup, the other reads the nine
+taps from that one patch by ldmatrix into mma.sync, then applies the ReLU,
+the 1x1 and the postprocess to each pixel in shared memory; its header
+says what bounds it on the card and how the design answers that).
 Like conv3x3 it rounds y and w2 to bf16 and sums in fp32; the rest is fp32.
 
 It serves the depth mode ('exp', -inf, inf) and a conf mode ('exp',
@@ -23,9 +25,11 @@ memory (the upsample's output), w2 (32, 128, 3, 3), b2 (32,), w3
   head's last lines.
 * `dpt_tail_bf16_ref` is the kernel's function in plain PyTorch: y and w2
   rounded to bf16, everything else fp32.
+* `pack_w2` is the kernel's packing of w2 (`unpack_w2` inverts it); the
+  model's `DPTOutputAdapter` keeps it once per version of the weight.
 * `dpt_tail_kernel` is the wrapper. For CPU tensors it returns
-  `dpt_tail_bf16_ref`; for CUDA tensors it launches the kernel or raises.
-  `dpt_tail_kernel.launches` counts kernel launches.
+  `dpt_tail_bf16_ref`; for CUDA tensors it launches the kernel (once a
+  call) or raises. `dpt_tail_kernel.launches` counts kernel launches.
 * `dpt_tail(..., impl)` dispatches: impl None (auto: the kernel for CUDA
   tensors, 'ref' for CPU tensors), 'ref' or 'kernel'. Nothing falls back.
 """
@@ -80,12 +84,19 @@ def dpt_tail_bf16_ref(y, w2, b2, w3, b3, conf_vmin):
 _LIB = None
 
 
-def pack_igemm_weight(w):
-    """(Cout, Cin, 3, 3) -> the mma.sync k-loop's bf16 (9 * Cin, Cout) of
-    csrc/conv3x3_igemm.cuh: row (dy * 3 + dx) * Cin + ci holds the tap's
-    weights of every output channel."""
-    cout, cin = w.shape[:2]
-    return w.permute(2, 3, 1, 0).reshape(9 * cin, cout).to(torch.bfloat16).contiguous()
+def pack_w2(w2):
+    """(32, 128, 3, 3) -> the kernel's bf16 (9 * 128, 32): row
+    (dy * 3 + dx) * 128 + c holds the tap's weights of every output
+    channel."""
+    cout, cin = w2.shape[:2]
+    return w2.detach().to(torch.bfloat16).permute(2, 3, 1, 0).reshape(9 * cin, cout).contiguous()
+
+
+def unpack_w2(w2p):
+    """`pack_w2`'s inverse: (9 * Cin, Cout) -> (Cout, Cin, 3, 3) in w2p's
+    dtype."""
+    cout = w2p.shape[1]
+    return w2p.reshape(3, 3, -1, cout).permute(3, 2, 0, 1)
 
 
 def _kernel():
@@ -115,7 +126,7 @@ def _check(y, w2, b2, w3, b3):
                          f"{want[3]}, b3 {want[4]}; got y {tuple(y.shape)}, "
                          f"{[tuple(t.shape) for t in tensors[1:]]}")
     B, _, H, W = y.shape
-    if B * H * W == 0 or B * H * W * CIN >= 2 ** 31 - 1:
+    if B * H * W == 0:
         raise ValueError(f"unsupported size {tuple(y.shape)}")
     if not y.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("y must be channels_last (NHWC memory)")
@@ -123,14 +134,30 @@ def _check(y, w2, b2, w3, b3):
         raise ValueError("y must start at a 16-byte aligned address")
 
 
-def dpt_tail_kernel(y, w2, b2, w3, b3, conf_vmin):
+def _packed(w2, packed):
+    """The kernel's W2: `packed` (checked against w2) or w2 packed here."""
+    if packed is None:
+        return pack_w2(w2)
+    want = (9 * CIN, HIDDEN)
+    if (tuple(packed.shape) != want or packed.dtype != torch.bfloat16
+            or packed.device != w2.device or not packed.is_contiguous()
+            or packed.data_ptr() % 16):
+        raise ValueError(f"packed w2 must be contiguous, 16-byte aligned bf16 {want} on "
+                         f"{w2.device}, got {packed.dtype} {tuple(packed.shape)} on "
+                         f"{packed.device}")
+    return packed
+
+
+def dpt_tail_kernel(y, w2, b2, w3, b3, conf_vmin, packed=None):
     """y (B, 128, H, W) fp32 channels_last -> pts3d (B, H, W, 3), conf
-    (B, H, W), both contiguous fp32."""
+    (B, H, W), both contiguous fp32. packed: `pack_w2(w2)` when the caller
+    keeps it (the kernel reads it), else packed here; w3, b2 and b3 reach
+    the kernel as views of the caller's tensors."""
     if y.device.type == "cpu":
         return dpt_tail_bf16_ref(y, w2, b2, w3, b3, conf_vmin)
     _check(y, w2, b2, w3, b3)
     B, _, H, W = y.shape
-    w2p = pack_igemm_weight(w2)
+    w2p = _packed(w2, packed)
     w3c, b2c, b3c = w3.reshape(NOUT, HIDDEN).contiguous(), b2.contiguous(), b3.contiguous()
     pts = torch.empty((B, H, W, 3), device=y.device, dtype=torch.float32)
     conf = torch.empty((B, H, W), device=y.device, dtype=torch.float32)
@@ -140,8 +167,9 @@ def dpt_tail_kernel(y, w2, b2, w3, b3, conf_vmin):
                         b3c.data_ptr(), float(conf_vmin), pts.data_ptr(), conf.data_ptr(),
                         B, H, W, stream)
     if err != 0:
-        raise RuntimeError(f"dpt_tail kernel launch failed: CUDA error {err} "
-                           f"(y {tuple(y.shape)})")
+        raise RuntimeError(f"dpt_tail kernel launch failed: error {err} (y {tuple(y.shape)}; "
+                           f"-1: a size it does not take; above 1000: 1000 + the CUresult "
+                           f"of encoding y's tensor map)")
     dpt_tail_kernel.launches += 1
     return pts, conf
 
@@ -149,14 +177,15 @@ def dpt_tail_kernel(y, w2, b2, w3, b3, conf_vmin):
 dpt_tail_kernel.launches = 0
 
 
-def dpt_tail(y, w2, b2, w3, b3, conf_vmin, impl=None):
+def dpt_tail(y, w2, b2, w3, b3, conf_vmin, impl=None, packed=None):
     """The DPT head's tail. impl: None (auto: the kernel for CUDA tensors,
     else 'ref'), 'ref' or 'kernel' ('kernel' on CPU tensors runs the
-    kernel's plain version, as its wrapper does)."""
+    kernel's plain version, as its wrapper does). packed: the kernel's
+    `pack_w2(w2)`, kept by the caller."""
     if impl is None:
         impl = "kernel" if y.is_cuda else "ref"
     if impl == "kernel":
-        return dpt_tail_kernel(y, w2, b2, w3, b3, conf_vmin)
+        return dpt_tail_kernel(y, w2, b2, w3, b3, conf_vmin, packed)
     if impl == "ref":
         return dpt_tail_ref(y, w2, b2, w3, b3, conf_vmin)
     raise ValueError(f"dpt_tail impl {impl!r} not in {IMPLS} or None")

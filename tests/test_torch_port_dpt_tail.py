@@ -40,7 +40,8 @@ from dust3r_tpu.models import heads as jheads  # noqa: E402
 from dust3r_tpu_torch.checkpoint import state_dict_from_jax  # noqa: E402
 from dust3r_tpu_torch.models import heads  # noqa: E402
 from dust3r_tpu_torch.ops.dpt_tail import (dpt_tail, dpt_tail_bf16_ref,  # noqa: E402
-                                           dpt_tail_kernel, dpt_tail_ref, kernel_conf_vmin)
+                                           dpt_tail_kernel, dpt_tail_ref, kernel_conf_vmin,
+                                           pack_w2, unpack_w2)
 from dust3r_tpu_torch.ops.upsample import up2x, up2x_kernel, up2x_ref  # noqa: E402
 
 SCRIPTS = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))), "scripts")
@@ -176,7 +177,8 @@ def test_dpt_tail_bf16_ref_matches_tpu_kernels_on_rounded_operands(tpu, row):
     _check_tail(dpt_tail_bf16_ref(*_port_tail(y, w2, b2, w3, b3), 1.0), want)
 
 
-@pytest.mark.parametrize("shape", [(1, 13, 7), (2, 5, 9), (1, 1, 1)])
+@pytest.mark.parametrize("shape", [(1, 13, 7), (2, 5, 9), (1, 1, 1), (2, 21, 37), (1, 17, 16),
+                                   (1, 1, 5), (1, 5, 1)])
 def test_dpt_tail_at_ragged_sizes_matches_tail_xla(tpu, shape):
     args = _tail_inputs(*shape, seed=2)
     want = tpu["tail"].tail_xla(*args)
@@ -212,6 +214,42 @@ def test_dpt_tail_wrapper_and_dispatcher_on_cpu():
     assert dpt_tail_kernel.launches == before  # the plain version launches nothing
     with pytest.raises(ValueError, match="impl"):
         dpt_tail(*args, 1.0, impl="pallas")
+
+
+def test_pack_w2_is_the_kernels_layout():
+    """Row (dy * 3 + dx) * 128 + c, column n of the packed (9 * 128, 32)
+    W2 is w2[n, c, dy, dx] rounded to bf16; unpack_w2 inverts it."""
+    w2 = torch.randn(32, 128, 3, 3, generator=torch.Generator().manual_seed(0))
+    p = pack_w2(w2)
+    assert p.shape == (9 * 128, 32) and p.dtype == torch.bfloat16 and p.is_contiguous()
+    for dy, dx, c, n in ((0, 0, 0, 0), (1, 2, 37, 3), (2, 1, 127, 31), (2, 2, 64, 17)):
+        assert p[(dy * 3 + dx) * 128 + c, n] == w2[n, c, dy, dx].to(torch.bfloat16)
+    assert torch.equal(unpack_w2(p), w2.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("tap", range(9))
+def test_pack_w2_tap_block_is_the_taps_weight(tap):
+    """Rows tap * 128 ... tap * 128 + 127 of the packed W2 are the tap's
+    (Cin, Cout) weight w2[:, :, dy, dx].T rounded to bf16, whole."""
+    dy, dx = divmod(tap, 3)
+    w2 = torch.randn(32, 128, 3, 3, generator=torch.Generator().manual_seed(tap))
+    block = pack_w2(w2)[tap * 128:(tap + 1) * 128]
+    assert torch.equal(block, w2[:, :, dy, dx].t().to(torch.bfloat16))
+
+
+def test_packed_w2_unpacked_gives_the_tail_of_tail_xla(tpu):
+    """The kernel's packed W2, unpacked, is w2 rounded to bf16: the fp32
+    tail with it on bf16-rounded y equals the script's tail_xla on the same
+    rounded operands, and the kernel's plain version."""
+    y, w2, b2, w3, b3 = _tail_inputs(2, 7, 9, seed=7)
+    args = _port_tail(y, w2, b2, w3, b3)
+    unpacked = unpack_w2(pack_w2(args[1])).float()
+    assert torch.equal(unpacked, args[1].to(torch.bfloat16).float())
+    yr = args[0].to(torch.bfloat16).float()
+    got = dpt_tail_ref(yr, unpacked, *args[2:], 1.0)
+    _check_tail(got, tpu["tail"].tail_xla(_bf16(y), _bf16(w2), b2, w3, b3))
+    for a, b in zip(got, dpt_tail_bf16_ref(*args, 1.0)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 # ---------------------------------------------------------------------- #
@@ -261,6 +299,42 @@ def test_dpt_head_calls_each_dispatcher(monkeypatch, conv_impl):
     assert [len(calls[k]) for k in ("conv3x3", "up2x", "dpt_tail")] == [19, 5, 1]
     assert all(impl == conv_impl for k in calls for impl in calls[k])
     assert len(seen_w2) == 1 and seen_w2[0] is w2
+
+
+def test_dpt_adapter_packs_w2_once_per_weight_version():
+    """The adapter keeps pack_w2(head.2's weight) between calls and packs
+    again after an in-place update, as a Conv3x3 keeps its packing."""
+    adapter = _small_head().dpt
+    w2 = adapter.head[2].weight
+    packed = adapter.packed_w2()
+    assert adapter.packed_w2() is packed
+    assert torch.equal(packed, pack_w2(w2))
+    with torch.no_grad():
+        w2.mul_(-0.5)
+    again = adapter.packed_w2()
+    assert again is not packed and torch.equal(again, pack_w2(w2))
+    assert adapter.packed_w2() is again
+
+
+@pytest.mark.parametrize("change", ["load_state_dict", "new_storage", "in_place_slice"])
+def test_dpt_adapter_repacks_w2_after_each_kind_of_weight_change(change):
+    """Whatever changes head.2's weight (a checkpoint loaded into it, its
+    data replaced by another tensor, an in-place update of a part), the
+    adapter's next packing follows it."""
+    adapter = _small_head().dpt
+    conv2 = adapter.head[2]
+    packed = adapter.packed_w2()
+    new = torch.randn(conv2.weight.shape, generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        if change == "load_state_dict":
+            conv2.load_state_dict({"weight": new, "bias": conv2.bias.clone()})
+        elif change == "new_storage":
+            conv2.weight.data = new
+        else:
+            conv2.weight[:, :7].zero_()
+    again = adapter.packed_w2()
+    assert again is not packed and torch.equal(again, pack_w2(conv2.weight))
+    assert not torch.equal(again, packed)
 
 
 def test_dpt_head_other_modes_run_the_modules_under_ref():

@@ -20,8 +20,10 @@ P may sit one bf16 unit from the plain version's); conv3x3
 exact in fp32, only the order of the fp32 sums differs), a split
 reduction's calls bit-identical to each other; up2x 1e-5 against
 `up2x_ref` (two fp32 lerps either way, FMA contraction aside); dpt_tail
-1e-3 against `dpt_tail_bf16_ref` on each output (conv3x3's sums, then fp32
-through the 1x1 and the exp). The TPU experiments' kernels: the tap-sum
+1e-3 against `dpt_tail_bf16_ref` on each output (the same bf16-rounded
+operands, then fp32 through the 1x1 and the exp; only the order of the fp32
+sums differs), its calls bit-identical to each other and to the adapter's
+call on its kept W2 packing. The TPU experiments' kernels: the tap-sum
 conv (rows 10, 11) 1e-2 against `conv3x3_taps_ref` (both round Z to bf16
 after fp32 sums in another order, then two bf16 adds), its two variants
 bit-identical (the same sums in the same order); dpt_post (row 13) 1e-5
@@ -33,14 +35,15 @@ import pytest
 import torch
 
 from dust3r_tpu_torch.models.blocks import token_positions
-from dust3r_tpu_torch.models.heads import Conv3x3
+from dust3r_tpu_torch.models.heads import Conv3x3, DPTOutputAdapter
 from dust3r_tpu_torch.ops.attention_floors import MODES, attention_floor, attention_floor_ref
 from dust3r_tpu_torch.ops.conv3x3_taps import (VARIANTS, conv3x3_taps_kernel, conv3x3_taps_ref,
                                                tap_sums)
 from dust3r_tpu_torch.ops.dpt_post import dpt_post_kernel, dpt_post_ref
 from dust3r_tpu_torch.ops.conv3x3 import (conv3x3, conv3x3_bf16_ref, conv3x3_kernel, pack_weight,
                                           plan)
-from dust3r_tpu_torch.ops.dpt_tail import dpt_tail, dpt_tail_bf16_ref, dpt_tail_kernel
+from dust3r_tpu_torch.ops.dpt_tail import (dpt_tail, dpt_tail_bf16_ref, dpt_tail_kernel,
+                                           pack_w2)
 from dust3r_tpu_torch.ops.upsample import up2x, up2x_kernel, up2x_ref
 from dust3r_tpu_torch.ops.attention_variants import (SOFTMAXES, attention_variant,
                                                      attention_variant_ref)
@@ -448,10 +451,14 @@ def test_up2x_kernel_refuses_what_it_cannot_serve(card):
 
 
 TAIL_RTOL = 1e-3
-TAIL_CASES = {  # name: (B, H, W); the head's tail at 512x384 and 512x336, and ragged
+TAIL_CASES = {  # name: (B, H, W); the head's tail at 512x384 and 512x336, a portrait
+    # image, and 16 x 16 tiles ragged at both image edges
     "384x512": (2, 384, 512),
     "336x512": (2, 336, 512),
+    "portrait_512x384": (1, 512, 384),
     "ragged_13x7": (3, 13, 7),
+    "ragged_21x37": (2, 21, 37),
+    "ragged_17x16": (1, 17, 16),
     "single_pixel": (1, 1, 1),
 }
 
@@ -482,6 +489,54 @@ def test_dpt_tail_kernel_matches_plain_version(card, case):
         assert torch.isfinite(got).all()
         err = (got - ref).abs().max().item() / ref.abs().max().item()
         assert err <= TAIL_RTOL, f"{case} {name}: rel err {err:.3e}"
+
+
+@pytest.mark.parametrize("case", ["384x512", "ragged_21x37"])
+def test_dpt_tail_kernel_gives_the_same_bits_call_to_call(card, case):
+    B, H, W = TAIL_CASES[case]
+    args = _tail_args(card, B, H, W, seed=3)
+    outs = [dpt_tail_kernel(*args, 1.0) for _ in range(3)]
+    torch.cuda.synchronize()
+    for pts, conf in outs[1:]:
+        assert torch.equal(pts, outs[0][0]) and torch.equal(conf, outs[0][1])
+
+
+def test_dpt_tail_adapter_packs_once_and_matches_the_wrapper(card):
+    """The DPT adapter hands the kernel its kept W2 packing; the result is
+    the wrapper's on the unpacked weights, and after an in-place update of
+    head.2's weight the adapter packs again and follows it."""
+    inf = float("inf")
+    adapter = DPTOutputAdapter((32,) * 4, (0, 1, 2, 3), 4, ("exp", -inf, inf),
+                               ("exp", 1.0, inf)).to(card)
+    y, *_ = _tail_args(card, 2, 19, 40, seed=4)
+    conv2, conv3 = adapter.head[2], adapter.head[4]
+
+    def wrapper():
+        return dpt_tail_kernel(y, conv2.weight, conv2.bias, conv3.weight, conv3.bias, 1.0)
+
+    with torch.no_grad():
+        before = dpt_tail_kernel.launches
+        got = adapter.tail(y)
+        assert dpt_tail_kernel.launches == before + 1
+        packed = adapter._packed_w2[1]
+        assert torch.equal(packed, pack_w2(conv2.weight))
+        want = wrapper()
+        assert torch.equal(got["pts3d"], want[0]) and torch.equal(got["conf"], want[1])
+        adapter.tail(y)
+        assert adapter._packed_w2[1] is packed
+        conv2.weight.mul_(-0.5)
+        got2 = adapter.tail(y)
+        assert adapter._packed_w2[1] is not packed
+        want2 = wrapper()
+        assert torch.equal(got2["pts3d"], want2[0]) and torch.equal(got2["conf"], want2[1])
+    before = dpt_tail_kernel.launches
+    with pytest.raises(ValueError, match="packed w2"):
+        dpt_tail_kernel(y, conv2.weight, conv2.bias, conv3.weight, conv3.bias, 1.0,
+                        packed=packed[:, :16].contiguous())
+    with pytest.raises(ValueError, match="packed w2"):
+        dpt_tail_kernel(y, conv2.weight, conv2.bias, conv3.weight, conv3.bias, 1.0,
+                        packed=packed.float())
+    assert dpt_tail_kernel.launches == before
 
 
 def test_dpt_tail_kernel_refuses_what_it_cannot_serve(card):
