@@ -23,18 +23,22 @@ Phases (each prints its lines; a failed phase raises and the exit code is 1):
      launches), and the least time the card could take (bytes at 3.35 TB/s
      or operations at 989 TFLOP/s bf16 / 67 TFLOP/s fp32, whichever is
      larger);
-  3b. variants: the attention-variants entry point (fused_attention with 2
-     and 4 heads a block, attention_variant's three softmax variants) driven
-     once at the encoder shape with its launch counts from 0, then each
-     against its plain version (and G > 1 against G = 1, bit for bit);
+  3b. variants: the attention-variants entry point (fused_attention with 2,
+     4 and 8 heads a block on the sm90 kernel and with 2 and 4 on the
+     mma.sync core, attention_variant's three softmax variants) driven once
+     at the encoder shape with its launch counts from 0, then each against
+     its plain version (and G > 1 against G = 1 of the same kernel, bit for
+     bit);
   3c. experiments: the other TPU experiments' entry points, each driven
      once with its launch counts from 0: the tap-sum conv (rows 10 and 11,
      `conv3x3_taps_kernel` "slices" and "copies") at two DPT shapes, the
      DPT tail's epilogue (row 13, `dpt_post_kernel`) at 512x384, and row
-     3's floor modes (`attention_floor`: nosmax, qkonly, copy, copynr,
-     copymm) at the encoder shape with 1 and 4 heads a block; then each
-     against its plain version with its times, bound and library call (G =
-     4 bit for bit against G = 1), and qkonly's time at 64 keys beside 768;
+     3's floor modes (`attention_floor`) at the encoder shape with 1 and 4
+     heads a block: nosmax and qkonly on the sm90 kernel, and all five
+     (nosmax, qkonly, copy, copynr, copymm) on `csrc/attention_floor.cu`;
+     then each against its plain version with its times, bound and library
+     call (G = 4 bit for bit against G = 1), and qkonly's time at 64 keys
+     beside 768 on both kernels;
   4. slice: `DUSt3R_ViTLarge_BaseDecoder_512_dpt` at full width (seeded random
      weights, bf16 body, fp32 heads) serves three requests through
      make_pairs -> InferenceEngine -> inference; checks outputs, the four
@@ -126,8 +130,11 @@ TAIL_CASES = (("384x512", H384, W, 1), ("336x512", H336, W, 0))
 TAP_CASES = (("layer1_rn 96x128 96->256", 96, 256, 96, 128),
              ("head_conv2 384x512 128->32", 128, 32, H384, W))
 POST_CASE = (BATCH_SIZE, H384, W, 32)
-FLOOR_CASES = tuple((m, G) for m in ("nosmax", "qkonly", "copy", "copynr", "copymm")
-                    for G in (1, 4))
+# (mode, G, core): the product floors on the sm90 kernel, every floor on
+# attention_floor.cu (core "mma")
+FLOOR_CASES = (tuple((m, G, None) for m in ("nosmax", "qkonly") for G in (1, 4))
+               + tuple((m, G, "mma") for m in ("nosmax", "qkonly", "copy", "copynr", "copymm")
+                       for G in (1, 4)))
 
 
 def log(msg):
@@ -273,12 +280,14 @@ def attention_kernel_phase(torch):
 
 def variants_phase(torch):
     """The attention-variants entry point at the encoder shape (8,16,768,64),
-    q, k, v as views of a (B, N, 3C) qkv: fused_attention with 2 and 4 heads
-    a block and attention_variant's three softmax variants, each called once
-    with the launch counts from 0 (the counts of this path), then each
-    against its plain version (tools/attn_variants.measure: G > 1 bit for
-    bit against G = 1, with times, library call and bound). Returns the
-    measured rows and the launch counts."""
+    q, k, v as views of a (B, N, 3C) qkv: fused_attention with 2, 4 and 8
+    heads a block on the sm90 kernel and with 2 and 4 on the mma.sync core
+    (`core="mma"`, the baseline), and attention_variant's three softmax
+    variants, each called once with the launch counts from 0 (the counts of
+    this path), then each against its plain version (tools/attn_variants.
+    measure: G > 1 bit for bit against G = 1 of the same kernel, with times,
+    library call and bound). Returns the measured rows and the launch
+    counts."""
     from dust3r_tpu_torch.ops.attention_variants import SOFTMAXES, attention_variant
     from dust3r_tpu_torch.ops.fused_attention import fused_attention
     from dust3r_tpu_torch.ops.rope import rope_tables
@@ -289,32 +298,39 @@ def variants_phase(torch):
     q, k, v = make_qkv(B, Hh, N, N, d, "qkv", gen)
     pos = positions(B, (H384 // 16, W // 16), "grid", gen)
     tables = rope_tables(pos, d)
-    configs = [(f"G={G}", G, None) for G in (2, 4)] + [(s, 1, s) for s in SOFTMAXES]
+    configs = ([(f"G={G}", G, None, None) for G in (2, 4, 8)]
+               + [(f"G={G} mma", G, None, "mma") for G in (2, 4)]
+               + [(s, 1, s, None) for s in SOFTMAXES])
 
     reset_launches()
-    for _, G, softmax in configs:
+    for _, G, softmax, core in configs:
         if softmax is None:
-            fused_attention(q, k, v, pos, pos, 100.0, tables, tables, G)
+            fused_attention(q, k, v, pos, pos, 100.0, tables, tables, G, core=core)
         else:
             attention_variant(q, k, v, pos, pos, 100.0, softmax=softmax, tables_q=tables,
                               tables_k=tables)
     torch.cuda.synchronize()
     launches = read_launches()
     expected = dict.fromkeys(launches, 0)
-    expected.update(fused_attention_core=2, fused_attention_grouped=2, attention_variant=3)
+    expected.update(fused_attention=3, fused_attention_grouped=3, fused_attention_core=2,
+                    fused_attention_grouped_mma=2, attention_variant=3)
     log(f"[variants] entry point at {(B, Hh, N, d)}: launches {launches} (expected {expected})")
     if launches != expected:
         raise AssertionError(f"variants launches {launches} != {expected}")
 
     rows = {}
-    for label, G, softmax in configs:
-        r = measure(q, k, v, pos, pos, G, softmax)
-        log(f"[variants] {label} {(B, Hh, N, d)} qkv views: kernel {r['ms']:.4f} ms, G=1 "
-            f"contiguous {r['baseline_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa (q, k "
-            f"rotated beforehand) {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+    for label, G, softmax, core in configs:
+        r = measure(q, k, v, pos, pos, G, softmax, core=core)
+        log(f"[variants] {label} {(B, Hh, N, d)} qkv views: kernel graph {r['ms']:.4f} ms "
+            f"({r['wrapper_ms']:.4f}), the mma.sync core G=1 contiguous (row-1 baseline) "
+            f"{r['baseline_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa (q, k rotated "
+            f"beforehand) {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}); max_abs_err {r['max_abs_err']:.3e} rel {r['rel']:.3e} "
             f"(limit {RTOL:g})"
-            + ("" if r["identical"] is None else f"; bits equal G=1's: {r['identical']}"))
+            + ("" if r["from_baseline"] is None else
+               f"; max |out - row-1 baseline| {r['from_baseline']:.3e}")
+            + ("" if r["identical"] is None else
+               f"; bits equal its kernel's G=1: {r['identical']}"))
         if not r["rel"] <= RTOL or r["identical"] is False:
             raise AssertionError(f"variants {label}: the kernel disagrees ({r})")
         rows[label] = dict(r, count=1)
@@ -324,13 +340,15 @@ def variants_phase(torch):
 def experiments_phase(torch):
     """The other TPU experiments' entry points: the tap-sum conv (rows 10,
     11) at TAP_CASES, the DPT tail's epilogue (row 13) at POST_CASE and row
-    3's floors at the encoder shape (8,16,768,64) at FLOOR_CASES, each
+    3's floors at the encoder shape (8,16,768,64) at FLOOR_CASES (nosmax and
+    qkonly on the sm90 kernel, every floor on attention_floor.cu), each
     called once with the launch counts from 0 (the counts of this path),
     then each against its plain version with times, bound and library call
     (tools/conv_variants.measure_conv and measure_post; tools/attn_variants.
-    measure: G = 4 bit for bit against G = 1), and qkonly at 64 keys beside
-    768 (its time must grow with the keys). Returns the measured rows by
-    kernel and the launch counts."""
+    measure: G = 4 bit for bit against G = 1, beside the exact kernel of
+    the same core), and qkonly at 64 keys beside 768 on both kernels (its
+    time must grow with the keys). Returns the measured rows by kernel and
+    the launch counts."""
     from dust3r_tpu_torch.ops.attention_floors import attention_floor
     from dust3r_tpu_torch.ops.conv3x3_taps import VARIANTS, conv3x3_taps_kernel
     from dust3r_tpu_torch.ops.dpt_post import dpt_post_kernel
@@ -352,20 +370,22 @@ def experiments_phase(torch):
         for variant in VARIANTS:
             conv3x3_taps_kernel(x, wt, variant)
     dpt_post_kernel(*post, 1.0)
-    for mode, G in FLOOR_CASES:
+    for mode, G, core in FLOOR_CASES:
         attention_floor(q, k, v, pos, pos, 100.0, mode=mode, heads_per_program=G,
-                        tables_q=tables, tables_k=tables)
+                        tables_q=tables, tables_k=tables, core=core)
     torch.cuda.synchronize()
     launches = read_launches()
     expected = dict.fromkeys(launches, 0)
+    sm90_floors = sum(core is None for _, _, core in FLOOR_CASES)
     expected.update(conv3x3_taps_slices=len(TAP_CASES), conv3x3_taps_copies=len(TAP_CASES),
-                    dpt_post=1, attention_floor=len(FLOOR_CASES))
+                    dpt_post=1, attention_floor=sm90_floors,
+                    attention_floor_mma=len(FLOOR_CASES) - sm90_floors)
     log(f"[experiments] entry points: launches {launches} (expected {expected})")
     if launches != expected:
         raise AssertionError(f"experiments launches {launches} != {expected}")
 
     rows = dict(conv3x3_taps_slices=[], conv3x3_taps_copies=[], dpt_post=[],
-                attention_floor=[])
+                attention_floor=[], attention_floor_mma=[])
     for name, cin, cout, h, w in TAP_CASES:
         x, wt = convs.pop(name)
         for variant in VARIANTS:
@@ -383,22 +403,27 @@ def experiments_phase(torch):
                              f"{r['errs']}")
     rows["dpt_post"].append(dict(r, count=1))
     del post
-    for mode, G in FLOOR_CASES:
-        r = av.measure(q, k, v, pos, pos, G, mode)
-        log(f"[experiments] floor {mode} G={G} {(B, Hh, N, d)}: kernel {r['ms']:.4f} ms "
-            f"({r['wrapper_ms']:.4f} ms a call through the wrapper's launches), row-1 "
-            f"baseline {r['baseline_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+    for mode, G, core in FLOOR_CASES:
+        r = av.measure(q, k, v, pos, pos, G, mode, core=core)
+        kernel = core or "sm90"
+        log(f"[experiments] floor {mode} {kernel} G={G} {(B, Hh, N, d)}: kernel "
+            f"{r['ms']:.4f} ms ({r['wrapper_ms']:.4f} ms a call through the wrapper's "
+            f"launches), the {kernel} exact kernel G=1 {r['baseline_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, "
             f"{av.library_label(mode, r['library_ms'])}, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}); max_abs_err {r['max_abs_err']:.3e} rel {r['rel']:.3e} "
             f"(limit {av.RTOL:g})"
             + ("" if r["identical"] is None else f"; bits equal G=1's: {r['identical']}"))
         if not r["rel"] <= av.RTOL or r["identical"] is False:
-            raise AssertionError(f"floor {mode} G={G}: the kernel disagrees ({r})")
-        rows["attention_floor"].append(dict(r, count=1))
-    growth = av.qkonly_growth(log=lambda m: log("[experiments] " + m))
-    if not growth[768] > 2 * growth[64]:
-        raise AssertionError(f"qkonly takes {growth[768]:.4f} ms at 768 keys and "
-                             f"{growth[64]:.4f} at 64: its later key tiles' work is gone")
+            raise AssertionError(f"floor {mode} {kernel} G={G}: the kernel disagrees ({r})")
+        rows["attention_floor" if core is None else "attention_floor_mma"].append(
+            dict(r, count=1))
+    for core in (None, "mma"):
+        growth = av.qkonly_growth(log=lambda m: log("[experiments] " + m), core=core)
+        if not growth[768] > 2 * growth[64]:
+            raise AssertionError(f"qkonly ({core or 'sm90'}) takes {growth[768]:.4f} ms at "
+                                 f"768 keys and {growth[64]:.4f} at 64: its later key tiles' "
+                                 f"work is gone")
     return rows, launches
 
 
@@ -608,8 +633,10 @@ def tail_kernel_phase(torch):
 
 def kernel_counters():
     """Each kernel's wrapper and the attribute that counts its launches:
-    fused_attention's sm90 kernel, its mma.sync core (`core_launches`) and,
-    of those, the core's launches with more than one head a block."""
+    fused_attention's sm90 kernel and, of those, its launches with more than
+    one head a block; its mma.sync core (`core_launches`) and the core's
+    launches with more than one head a block; attention_floor's sm90 floors
+    and those of `csrc/attention_floor.cu` (`core_launches`)."""
     from dust3r_tpu_torch.ops.attention_floors import attention_floor
     from dust3r_tpu_torch.ops.attention_variants import attention_variant
     from dust3r_tpu_torch.ops.conv3x3 import conv3x3_kernel
@@ -622,13 +649,15 @@ def kernel_counters():
     return dict(fused_attention=(fused_attention, "launches"),
                 fused_attention_core=(fused_attention, "core_launches"),
                 fused_attention_grouped=(fused_attention, "grouped_launches"),
+                fused_attention_grouped_mma=(fused_attention, "core_grouped_launches"),
                 attention_variant=(attention_variant, "launches"),
                 conv3x3=(conv3x3_kernel, "launches"), up2x=(up2x_kernel, "launches"),
                 dpt_tail=(dpt_tail_kernel, "launches"),
                 conv3x3_taps_slices=(tap_sums, "slices_launches"),
                 conv3x3_taps_copies=(tap_sums, "copies_launches"),
                 dpt_post=(dpt_post_kernel, "launches"),
-                attention_floor=(attention_floor, "launches"))
+                attention_floor=(attention_floor, "launches"),
+                attention_floor_mma=(attention_floor, "core_launches"))
 
 
 def reset_launches():
@@ -871,18 +900,20 @@ def main(argv):
     scene_phase(torch, engine, pairs)
     # attention: the encoder's self-attention shape, read from the qkv
     # projection, on the sm90 kernel; its mma.sync core (the baseline) at
-    # the same call; its grouped form: the G = 2 and G = 4 calls of the
-    # variants phase, summed; attention_variant: its three softmax
-    # variants' calls, summed; conv3x3 and up2x: one DPT head's calls at
-    # batch 8, summed; dpt_tail: the head's one call. Device times: the
-    # kernels' and library calls' CUDA-graph replays where the phase took
-    # them (the attention kernels, conv3x3, up2x, dpt_tail), else CUDA
+    # the same call; its grouped form: the variants phase's G = 2, 4 and 8
+    # calls on the sm90 kernel, summed, and its G = 2 and 4 calls on the
+    # core, summed; attention_variant: its three softmax variants' calls,
+    # summed; conv3x3 and up2x: one DPT head's calls at batch 8, summed;
+    # dpt_tail: the head's one call; the floors: the sm90 kernel's and
+    # attention_floor.cu's calls of the experiments phase, each summed.
+    # Device times: CUDA-graph replays where the phase took them (the
+    # attention kernels, the floors, conv3x3, up2x, dpt_tail), else CUDA
     # events over a loop of calls. Launches: the slice's run (requests
     # (a)-(c)); the variants phase's for the variants; the conv variants,
-    # the epilogue and the floors: the experiments phase's calls, summed,
-    # and its launches
+    # the epilogue and the floors: the experiments phase's
     launches.update({k: variant_launches[k]
-                     for k in ("fused_attention_grouped", "attention_variant")})
+                     for k in ("fused_attention_grouped", "fused_attention_grouped_mma",
+                               "attention_variant")})
     launches.update({k: experiment_launches[k] for k in experiment_rows})
     enc = attn_rows[0]
     rows = dict(
@@ -891,21 +922,25 @@ def main(argv):
         fused_attention_mma=dict(enc, ms=enc["baseline_graph_ms"],
                                  library_ms=enc["library_graph_ms"],
                                  max_abs_err=max(r["baseline_err"] for r in attn_rows)),
-        fused_attention_grouped=summed([variant_rows[k] for k in ("G=2", "G=4")]),
+        fused_attention_grouped=summed([variant_rows[k] for k in ("G=2", "G=4", "G=8")]),
+        fused_attention_grouped_mma=summed([variant_rows[k] for k in ("G=2 mma", "G=4 mma")]),
         attention_variant=summed([variant_rows[k] for k in
                                   ("nomax", "bf16_logits", "bf16_exp")]),
         conv3x3=dict(conv_total, ms=conv_total["graph_ms"],
                      library_ms=conv_total["library_graph_ms"]),
         up2x=up_total, dpt_tail=tail_total,
         **{k: summed(v) for k, v in experiment_rows.items()})
-    rows["attention_floor"]["library_ms"] = None  # no one call computes every floor
+    for name in ("attention_floor", "attention_floor_mma"):
+        rows[name]["library_ms"] = None  # no one call computes every floor
     where = dict(
         fused_attention=("fused_attention_sm90.cu", "dust3r_tpu/ops/pallas_attention.py:142, "
                          "scripts/exp_attn_dma_r2.py:103, scripts/exp_attn_layout_r2.py:89"),
         fused_attention_mma=("fused_attention.cu", "dust3r_tpu/ops/pallas_attention.py:142, "
                              "scripts/bench_attn3.py:19"),
-        fused_attention_grouped=("fused_attention.cu", "scripts/exp_attn_r2.py:144, "
+        fused_attention_grouped=("fused_attention_sm90.cu", "scripts/exp_attn_r2.py:144, "
                                  "scripts/exp_attn_vmem_r2.py:104"),
+        fused_attention_grouped_mma=("fused_attention.cu", "scripts/exp_attn_r2.py:144, "
+                                     "scripts/exp_attn_vmem_r2.py:104"),
         attention_variant=("fused_attention.cu", "scripts/exp_attn_variants.py:83, "
                            "scripts/exp_softmax_r2.py:65"),
         conv3x3=("conv3x3.cu", "dust3r_tpu/ops/conv3x3.py:74"),
@@ -914,7 +949,8 @@ def main(argv):
         conv3x3_taps_slices=("conv3x3_taps.cu", "scripts/exp_convk_r3.py:67"),
         conv3x3_taps_copies=("conv3x3_taps.cu", "scripts/exp_convk2_r3.py:67"),
         dpt_post=("dpt_post.cu", "scripts/exp_tailk2_r2.py:52"),
-        attention_floor=("attention_floor.cu", "scripts/exp_attn_r2.py:144"))
+        attention_floor=("fused_attention_sm90.cu", "scripts/exp_attn_r2.py:144"),
+        attention_floor_mma=("attention_floor.cu", "scripts/exp_attn_r2.py:144"))
     launches["fused_attention_mma"] = launches.pop("fused_attention_core")
     kernels = [dict(name=name, route="cuda", source=f"dust3r_tpu_torch/csrc/{src}",
                     replaces=replaces, launches=launches[name],

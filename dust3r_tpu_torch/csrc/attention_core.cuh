@@ -1,7 +1,15 @@
 // The fused 2D-RoPE attention core for Hopper (sm_90a): tile loaders,
 // mma.sync helpers, the bf16 tensor-core kernel and the fp32 FMA kernel.
 // `fused_attention.cu` instantiates it with the exact softmax and the
-// softmax variants, `attention_floor.cu` with the floors' codes.
+// softmax variants, `attention_floor.cu` with the floors' codes. What each
+// kernel serves: this core, G = 1, 2 or 4 heads a block (the wrapper runs a
+// call's G at the largest of those dividing it), takes fp32, d < 64, the
+// softmax variants, and with core="mma" the bf16 d = 64 calls and row 3's
+// floors nosmax and qkonly (the baseline of the sm90 kernel); the copy
+// floors are attention_floor.cu's alone. fused_attention_sm90.cu (TMA +
+// wgmma) takes bf16 d = 64 at any G dividing the heads, exact or as the
+// floors nosmax and qkonly, and shares this header's Args, make_args and
+// bf16 packing helpers.
 //
 // Per (batch, head):  O = softmax((R_q q)(R_k k)^T * d^-1/2) v
 // RoPE in fp32 (head dim halves [y | x], rotate-half within each half), q
@@ -15,7 +23,8 @@
 // ~295 FLOP/byte ridge: the bf16 tensor-core rate is the bound, and the
 // (N, N) logits must never reach device memory. The design:
 //   * one block per (batch entry, group of G heads, 64-row query tile),
-//     four warps of 16 query rows for each of the G heads;
+//     four warps of 16 query rows for each of the G heads (G = 1, 2, 4: 128
+//     threads a head, so G = 8 would take 1024 threads at 64 registers);
 //   * K and V streamed through shared memory in 64-key tiles with 16-byte
 //     loads, RoPE applied to Q and to each K tile as it is loaded (the
 //     tables are precomputed in fp32 by the wrapper, as the JAX version

@@ -5,9 +5,11 @@
 // its strides, the head-packed TPU experiments that read q, k and v out of
 // the (B, N, 3C) qkv projection or (B, N, C) projections and write
 // (B, N, C): scripts/exp_attn_dma_r2.py::attn_dma (row 6) and
-// scripts/exp_attn_layout_r2.py::attn_qkv_layout (row 7). With G > 1 heads
-// a block it is also the counterpart of the heads-per-program experiments
-// scripts/exp_attn_r2.py::attn_g (row 3) and exp_attn_vmem_r2.py (row 5).
+// scripts/exp_attn_layout_r2.py::attn_qkv_layout (row 7). With G = 2 or 4
+// heads a block it is the baseline (core="mma") of the heads-per-program
+// experiments scripts/exp_attn_r2.py::attn_g (row 3) and
+// exp_attn_vmem_r2.py (row 5), which fused_attention_sm90.cu serves at any
+// G; the wrapper runs a G here at the largest of 1, 2, 4 dividing it.
 //
 // With a softmax other than the exact one it serves the TPU experiments
 // that vary row 1's softmax (one head a block, bf16):

@@ -1,19 +1,29 @@
 // Fused 2D-RoPE attention for Hopper (sm_90a) built on TMA and wgmma, with a
 // plain C interface: the main path's attention (bf16, head dim 64, exact
-// softmax, one head a block).
+// softmax), its grouped form (G heads a block) and two of its floors.
 //
 // Replaces dust3r_tpu/ops/pallas_attention.py::fused_attention (the Pallas
 // TPU kernel _attn_kernel with _apply_rope_tile, row 1 of the repo's TPU
 // kernels) and, through its strides, the head-packed TPU experiments that
 // read q, k and v out of the (B, N, 3C) qkv projection or (B, N, C)
-// projections and write (B, N, C) (rows 6 and 7). It computes what the
-// mma.sync core of attention_core.cuh computes (its header, lines 6-11):
-// RoPE in fp32 from the wrapper's fp32 tables, q scaled and then rounded to
-// bf16, k rotated and rounded to bf16, logits and the online softmax in
-// fp32, P rounded to bf16 before P.v, the output divided by the fp32 row
-// sum. Only the order of the fp32 sums inside the products differs. That
-// core stays the kernel of every other case (fp32, d < 64, G > 1, the
-// softmax variants, the floors) and the baseline they are held to.
+// projections and write (B, N, C) (rows 6 and 7); with G heads a block,
+// the TPU experiments that group heads (scripts/exp_attn_r2.py::attn_g and
+// exp_attn_vmem_r2.py, rows 3 and 5), at any G that divides the heads; and
+// row 3's two product floors, as modes of the same consumer loop:
+//   nosmax  P = bf16(S): both products, no max, exp, row sum or divide;
+//   qkonly  no P.v: the output is key tile 0's logits (the script's
+//           s[:, :d]); every tile's logits and a value of each V tile are
+//           folded into a sink that is stored only when Args::store_sink is
+//           set, which the wrappers never do, so no product is compiled
+//           away (as csrc/attention_floor.cu keeps its discarded work).
+// It computes what the mma.sync core of attention_core.cuh computes (its
+// header's "Per (batch, head)" lines): RoPE in fp32 from the wrapper's fp32 tables, q
+// scaled and then rounded to bf16, k rotated and rounded to bf16, logits
+// and the online softmax in fp32, P rounded to bf16 before P.v, the output
+// divided by the fp32 row sum. Only the order of the fp32 sums inside the
+// products differs. That core stays the kernel of fp32, of d < 64, of the
+// softmax variants and of the copy floors, and the baseline (core="mma")
+// the grouped calls and the floors are held to.
 //
 // What bounds it on an H100: at DUSt3R's sizes (N = 672-768, d = 64) the
 // two products are 4*N*N*d FLOPs against 4*N*d bf16 values in and out, some
@@ -21,8 +31,8 @@
 // and at d = 64 so does the exp (one a logit: 16 a cycle an SM against
 // 256 tensor-core FLOPs a logit). The logits never reach device memory.
 // The design:
-//   * a block holds 192 query rows of one (batch, head) in three consumer
-//     warpgroups of 64 rows, and a producer warpgroup;
+//   * a block holds 192 query rows of one (batch, head) at a time in three
+//     consumer warpgroups of 64 rows, and a producer warpgroup;
 //   * the producer's warp 0 keeps a 4-stage ring of 64-key K and V tiles
 //     in flight with TMA, straight from the strided (B, H, N, d) views (a
 //     4-D tensor map each, 128-byte swizzle; keys past Nk arrive as zeros);
@@ -31,10 +41,11 @@
 //     rotated stage in the same swizzled layout, then fence it for the async
 //     proxy; the tables repeat with period d/4 within each half, so a
 //     rotated pair (c, c + d/4) shares one cos and one sin;
-//   * each consumer warpgroup rotates and scales its 64 query rows once, in
-//     fp32, into a bf16 tile of that layout (held in registers instead, as
-//     the A operand of the register form of wgmma across the key loop, Q
-//     gave wrong logits from the second key tile on, under ptxas -O3 only);
+//   * each consumer warpgroup rotates and scales its 64 query rows once a
+//     head, in fp32, into a bf16 tile of that layout (held in registers
+//     instead, as the A operand of the register form of wgmma across the key
+//     loop, Q gave wrong logits from the second key tile on, under ptxas -O3
+//     only);
 //   * S = Q K^T by four wgmma m64n64k16 (Q and the rotated K from shared
 //     memory, both K-major); the online softmax runs on the accumulator in
 //     registers, keys past Nk masked to -inf; P, rounded to bf16, is
@@ -43,11 +54,20 @@
 //     stage goes back to the producer;
 //   * the three consumer warpgroups run out of step, so one's softmax
 //     overlaps the others' products; a K tile's rotation serves 192 rows;
-//   * one block an SM walks the (query tile, head) items in turn, the ring
-//     running on from one item to the next, so an item's first tiles load
-//     while the one before finishes.
+//   * one block an SM walks the work items in turn, an item being a 192-row
+//     query tile of a group of G heads of one batch entry, and the group's
+//     heads one after another within it; the ring runs on from head to head
+//     and from item to item, so the next head's first tiles load while the
+//     one before finishes. Threads, registers and shared memory do not
+//     depend on G (taken at run time): every G that divides the heads fits,
+//     and each head's arithmetic is the G = 1 kernel's, so every G gives
+//     the same bits; G only orders the work.
 // Not carried over from the TPU design: the whole (N, N) logits tile in
-// VMEM and the ones-column row-sum fold. Without RoPE the rotating warps
+// VMEM, the ones-column row-sum fold, and what grouping bought there: G
+// heads of a program shared one VMEM fetch of the RoPE tables. Here the
+// tables come from L2 (fp32, 6.3 MB at B = 16, N = 768), and a K tile's
+// rotation already serves 192 query rows; the rotating warps read 16 KB of
+// tables a 64-key tile against 8 KB of K. Without RoPE the rotating warps
 // idle and the products read the TMA stage of K itself.
 //
 // The kernel launches on the caller's stream, allocates nothing and does
@@ -153,8 +173,9 @@ __device__ __forceinline__ void stage_q(unsigned char* tile, const __nv_bfloat16
   }
 }
 
-// The rotating warps: the K tiles of one work item, once their TMA landed,
-// rotated into k_rot; `it` counts the ring's tiles across items. A
+// The rotating warps: the K tiles of one unit (a head of a work item), once
+// their TMA landed, rotated into k_rot; `it` counts the ring's tiles across
+// units. A
 // thread's units rt + 96 i, with the tables of tile j + 1 loaded while tile
 // j is rotated.
 __device__ __forceinline__ void rotate_keys(Smem& sm, int rt, int lane, const float* cos_k,
@@ -199,21 +220,200 @@ __device__ __forceinline__ void rotate_keys(Smem& sm, int rt, int lane, const fl
   }
 }
 
+// A consumer warpgroup's share of one head: its 64 query rows of the
+// 192-row query tile q0 of head h of batch entry b, against every key tile;
+// `it` counts the ring's tiles across units. S makes of the
+// logits: attn::kExact P by the online softmax; attn::kNoSoftmax P =
+// bf16(S); attn::kQkOnly no P.v, the output key tile 0's logits and every
+// tile's folded into `sink` (see the header).
+template <bool kRope, int S>
+__device__ __forceinline__ void consume(Smem& sm, const Args& args, int b, int h, int q0,
+                                        int ntiles, int& it, uint32_t& sink) {
+  const int nq = args.nq;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int cw = warp / 4;
+  const int g = lane / 4, t = lane % 4;  // this thread holds rows row and row + 8 of S and O
+  // the previous head's products have read this warpgroup's Q; then its 64
+  // query rows go into shared memory
+  sm90::named_barrier_sync(1 + cw, 128);
+  stage_q<kRope>(reinterpret_cast<unsigned char*>(sm.q[cw]),
+                 static_cast<const __nv_bfloat16*>(args.q) + b * args.sq.b + h * args.sq.h,
+                 args.sq.n, kRope ? args.cos_q + (size_t)b * nq * kD : nullptr,
+                 kRope ? args.sin_q + (size_t)b * nq * kD : nullptr, q0 + cw * 64, nq,
+                 threadIdx.x % 128, args.scale);
+  sm90::fence_proxy_async();
+  sm90::named_barrier_sync(1 + cw, 128);
+  const uint64_t qdesc = sm90::smem_desc(sm.q[cw], 16, 1024, sm90::kSwizzle128B);
+  const int row = q0 + warp * 16 + g;
+
+  float o[32], sc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = sc[i] = 0.f;
+  [[maybe_unused]] float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g and g + 8
+  float l0 = 0.f, l1 = 0.f;  // this thread's share of their row sums
+
+  for (int j = 0; j < ntiles; ++j, ++it) {
+    const int s = it % kStages;
+    const uint32_t parity = (it / kStages) & 1;
+    sm90::mbar_wait(&sm.full[s], parity);
+    if (kRope) sm90::mbar_wait(&sm.rotated[s], parity);
+
+    // S = Q K^T: Q rows are the queries, K rows the 64 keys, both K-major
+    // with the 128-byte swizzle
+    const uint64_t kdesc = sm90::smem_desc(kRope ? sm.k_rot[s] : sm.k_raw[s], 16, 1024,
+                                           sm90::kSwizzle128B);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      sm90::wgmma_ss<0, 0>(sc, sm90::desc_advance(qdesc, 32 * kc),
+                           sm90::desc_advance(kdesc, 32 * kc), kc > 0);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_operand(sc);
+
+    if constexpr (S == attn::kQkOnly) {
+      // the accumulators of S and O share one (row, column) layout
+      if (j == 0) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[i] = sc[i];
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sink ^= __float_as_uint(sc[i]);
+      sink ^= reinterpret_cast<const uint32_t*>(sm.v[s])[threadIdx.x % 128];
+    } else {
+      // P in bf16 pairs: the accumulator's (row, key) layout is the A layout
+      // of P.v, 16 keys (two 8-column blocks) a k-chunk
+      uint32_t pa[4][4];
+      if constexpr (S == attn::kNoSoftmax) {
+        // the zero K rows past Nk give logits of 0, so P = 0 there
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          pa[n / 2][2 * (n % 2)] = attn::pack_bf16(sc[4 * n], sc[4 * n + 1]);
+          pa[n / 2][2 * (n % 2) + 1] = attn::pack_bf16(sc[4 * n + 2], sc[4 * n + 3]);
+        }
+      } else {
+        const int valid = args.nk - j * kKeys;
+        if (valid < kKeys) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            if ((i / 4) * 8 + 2 * t + (i & 1) >= valid) sc[i] = -INFINITY;
+          }
+        }
+        // the online softmax of attention_core.cuh's kExact: the four
+        // threads of a group share rows g and g + 8
+        float mx0 = m0, mx1 = m1;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          mx0 = fmaxf(mx0, fmaxf(sc[4 * n], sc[4 * n + 1]));
+          mx1 = fmaxf(mx1, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
+        }
+#pragma unroll
+        for (int sh = 1; sh <= 2; sh *= 2) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
+        }
+        const float corr0 = __expf(m0 - mx0);
+        const float corr1 = __expf(m1 - mx1);
+        m0 = mx0;
+        m1 = mx1;
+        l0 *= corr0;
+        l1 *= corr1;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          o[4 * n] *= corr0;
+          o[4 * n + 1] *= corr0;
+          o[4 * n + 2] *= corr1;
+          o[4 * n + 3] *= corr1;
+        }
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float p0 = __expf(sc[4 * n] - m0), p1 = __expf(sc[4 * n + 1] - m0);
+          const float p2 = __expf(sc[4 * n + 2] - m1), p3 = __expf(sc[4 * n + 3] - m1);
+          l0 += p0 + p1;
+          l1 += p2 + p3;
+          pa[n / 2][2 * (n % 2)] = attn::pack_bf16(p0, p1);
+          pa[n / 2][2 * (n % 2) + 1] = attn::pack_bf16(p2, p3);
+        }
+      }
+
+      // O += P V: V rows are the keys, its 64 columns contiguous (MN-major)
+      const uint64_t vdesc = sm90::smem_desc(sm.v[s], kTileBytes, 1024, sm90::kSwizzle128B);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        sm90::wgmma_rs<1>(o, pa[kc], sm90::desc_advance(vdesc, 2048 * kc), 1);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_operand(o);
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) sm90::fence_operand(pa[kc]);
+    }
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&sm.empty[s]);
+  }
+
+  if constexpr (S == attn::kExact) {
+#pragma unroll
+    for (int sh = 1; sh <= 2; sh *= 2) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, sh);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, sh);
+    }
+  } else {  // the floors: no row sum to divide by
+    l0 = l1 = 1.f;
+  }
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(args.o) + b * args.so.b + h * args.so.h;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int col = n * 8 + 2 * t;
+    if (row < nq) {
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row * args.so.n + col) =
+          __floats2bfloat162_rn(o[4 * n] / l0, o[4 * n + 1] / l0);
+    }
+    if (row + 8 < nq) {
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)(row + 8) * args.so.n + col) =
+          __floats2bfloat162_rn(o[4 * n + 2] / l1, o[4 * n + 3] / l1);
+    }
+  }
+}
+
 // One block an SM walks the work items blockIdx.x, blockIdx.x + gridDim.x,
-// ...: item i is query tile i % qtiles (192 rows) of head (i / qtiles) %
-// heads of batch entry i / (qtiles * heads). The ring runs on across items,
-// so the next item's K and V tiles load while this item's last ones are
-// consumed.
-template <bool kRope>
+// ...: item i is query tile i % qtiles (192 rows) of the group of `group`
+// heads (i / qtiles) % groups of batch entry i / (qtiles * groups), and
+// within it the group's heads in turn. A unit is one head of an item, u =
+// item * group + its place in the group; one counter walks them, so the
+// key loop keeps no more state live than at G = 1.
+struct Unit {
+  int b, h, q0;  // batch entry, head, first query row
+};
+
+__device__ __forceinline__ Unit unit_of(int u, int group, int groups, int qtiles) {
+  const int item = u / group, bg = item / qtiles;
+  return Unit{bg / groups, bg % groups * group + u % group, item % qtiles * kBlockRows};
+}
+
+// the unit after u in this block's walk
+__device__ __forceinline__ int next_unit(int u, int group) {
+  return (u + 1) % group ? u + 1 : u + 1 + (static_cast<int>(gridDim.x) - 1) * group;
+}
+
+// Every role of the block walks the same units; the ring runs on across
+// them, so the next head's K and V tiles load while this head's last ones
+// are consumed.
+template <bool kRope, int S>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_sm90_kernel(const __grid_constant__ CUtensorMap kmap,
-                 const __grid_constant__ CUtensorMap vmap, const Args args, int items) {
+                 const __grid_constant__ CUtensorMap vmap, const Args args, int group,
+                 int units) {
   extern __shared__ unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                       ~static_cast<uintptr_t>(1023));
   const int nq = args.nq, nk = args.nk;
   const int ntiles = (nk + kKeys - 1) / kKeys;
   const int qtiles = (nq + kBlockRows - 1) / kBlockRows;
+  const int groups = args.heads / group;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
@@ -230,153 +430,33 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap kmap,
   int it = 0;  // the ring's tiles so far: stage it % kStages, phase (it / kStages) & 1
   if (warp >= 4 * kConsumers) {  // the producer warpgroup
     const int pw = warp - 4 * kConsumers;
-    for (int item = blockIdx.x; item < items; item += gridDim.x) {
-      const int b = item / qtiles / args.heads, h = (item / qtiles) % args.heads;
+    for (int u = blockIdx.x * group; u < units; u = next_unit(u, group)) {
+      const Unit w = unit_of(u, group, groups, qtiles);
       if (pw == 0) {
         if (lane == 0) {
           for (int j = 0; j < ntiles; ++j, ++it) {
             const int s = it % kStages;
             if (it >= kStages) sm90::mbar_wait(&sm.empty[s], ((it / kStages) & 1) ^ 1);
             sm90::mbar_arrive_expect_tx(&sm.full[s], 2 * kTileBytes);
-            sm90::tma_load_4d(sm.k_raw[s], &kmap, &sm.full[s], 0, j * kKeys, h, b);
-            sm90::tma_load_4d(sm.v[s], &vmap, &sm.full[s], 0, j * kKeys, h, b);
+            sm90::tma_load_4d(sm.k_raw[s], &kmap, &sm.full[s], 0, j * kKeys, w.h, w.b);
+            sm90::tma_load_4d(sm.v[s], &vmap, &sm.full[s], 0, j * kKeys, w.h, w.b);
           }
         }
       } else if (kRope) {
         rotate_keys(sm, threadIdx.x - 128 * kConsumers - 32, lane,
-                    args.cos_k + (size_t)b * nk * kD, args.sin_k + (size_t)b * nk * kD, nk,
+                    args.cos_k + (size_t)w.b * nk * kD, args.sin_k + (size_t)w.b * nk * kD, nk,
                     ntiles, it);
       }
     }
     return;
   }
 
-  // a consumer warpgroup: this thread holds rows row and row + 8 of S and O
-  const int cw = warp / 4;
-  const int g = lane / 4, t = lane % 4;
-  const uint64_t qdesc = sm90::smem_desc(sm.q[cw], 16, 1024, sm90::kSwizzle128B);
-  for (int item = blockIdx.x; item < items; item += gridDim.x) {
-    const int q0 = (item % qtiles) * kBlockRows;
-    const int b = item / qtiles / args.heads, h = (item / qtiles) % args.heads;
-    // the previous item's products have read this warpgroup's Q; then its 64
-    // query rows go into shared memory
-    sm90::named_barrier_sync(1 + cw, 128);
-    stage_q<kRope>(reinterpret_cast<unsigned char*>(sm.q[cw]),
-                   static_cast<const __nv_bfloat16*>(args.q) + b * args.sq.b + h * args.sq.h,
-                   args.sq.n, kRope ? args.cos_q + (size_t)b * nq * kD : nullptr,
-                   kRope ? args.sin_q + (size_t)b * nq * kD : nullptr, q0 + cw * 64, nq,
-                   threadIdx.x % 128, args.scale);
-    sm90::fence_proxy_async();
-    sm90::named_barrier_sync(1 + cw, 128);
-    const int row = q0 + warp * 16 + g;
-
-    float o[32], sc[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] = sc[i] = 0.f;
-    float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g and g + 8
-    float l0 = 0.f, l1 = 0.f;              // this thread's share of their row sums
-
-    for (int j = 0; j < ntiles; ++j, ++it) {
-      const int s = it % kStages;
-      const uint32_t parity = (it / kStages) & 1;
-      sm90::mbar_wait(&sm.full[s], parity);
-      if (kRope) sm90::mbar_wait(&sm.rotated[s], parity);
-
-      // S = Q K^T: Q rows are the queries, K rows the 64 keys, both K-major
-      // with the 128-byte swizzle
-      const uint64_t kdesc = sm90::smem_desc(kRope ? sm.k_rot[s] : sm.k_raw[s], 16, 1024,
-                                             sm90::kSwizzle128B);
-      sm90::wgmma_fence();
-#pragma unroll
-      for (int kc = 0; kc < 4; ++kc) {
-        sm90::wgmma_ss<0, 0>(sc, sm90::desc_advance(qdesc, 32 * kc),
-                             sm90::desc_advance(kdesc, 32 * kc), kc > 0);
-      }
-      sm90::wgmma_commit();
-      sm90::wgmma_wait<0>();
-      sm90::fence_operand(sc);
-
-      const int valid = nk - j * kKeys;
-      if (valid < kKeys) {
-#pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          if ((i / 4) * 8 + 2 * t + (i & 1) >= valid) sc[i] = -INFINITY;
-        }
-      }
-      // the online softmax of attention_core.cuh's kExact: the four threads
-      // of a group share rows g and g + 8
-      float mx0 = m0, mx1 = m1;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        mx0 = fmaxf(mx0, fmaxf(sc[4 * n], sc[4 * n + 1]));
-        mx1 = fmaxf(mx1, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
-      }
-#pragma unroll
-      for (int sh = 1; sh <= 2; sh *= 2) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
-      }
-      const float corr0 = __expf(m0 - mx0);
-      const float corr1 = __expf(m1 - mx1);
-      m0 = mx0;
-      m1 = mx1;
-      l0 *= corr0;
-      l1 *= corr1;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        o[4 * n] *= corr0;
-        o[4 * n + 1] *= corr0;
-        o[4 * n + 2] *= corr1;
-        o[4 * n + 3] *= corr1;
-      }
-      // P in bf16 pairs: the accumulator's (row, key) layout is the A layout
-      // of P.v, 16 keys (two 8-column blocks) a k-chunk
-      uint32_t pa[4][4];
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const float p0 = __expf(sc[4 * n] - m0), p1 = __expf(sc[4 * n + 1] - m0);
-        const float p2 = __expf(sc[4 * n + 2] - m1), p3 = __expf(sc[4 * n + 3] - m1);
-        l0 += p0 + p1;
-        l1 += p2 + p3;
-        pa[n / 2][2 * (n % 2)] = attn::pack_bf16(p0, p1);
-        pa[n / 2][2 * (n % 2) + 1] = attn::pack_bf16(p2, p3);
-      }
-
-      // O += P V: V rows are the keys, its 64 columns contiguous (MN-major)
-      const uint64_t vdesc = sm90::smem_desc(sm.v[s], kTileBytes, 1024, sm90::kSwizzle128B);
-      sm90::wgmma_fence();
-#pragma unroll
-      for (int kc = 0; kc < 4; ++kc) {
-        sm90::wgmma_rs<1>(o, pa[kc], sm90::desc_advance(vdesc, 2048 * kc), 1);
-      }
-      sm90::wgmma_commit();
-      sm90::wgmma_wait<0>();
-      sm90::fence_operand(o);
-#pragma unroll
-      for (int kc = 0; kc < 4; ++kc) sm90::fence_operand(pa[kc]);
-      __syncwarp();
-      if (lane == 0) sm90::mbar_arrive(&sm.empty[s]);
-    }
-
-#pragma unroll
-    for (int sh = 1; sh <= 2; sh *= 2) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, sh);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, sh);
-    }
-    __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(args.o) + b * args.so.b + h * args.so.h;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int col = n * 8 + 2 * t;
-      if (row < nq) {
-        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row * args.so.n + col) =
-            __floats2bfloat162_rn(o[4 * n] / l0, o[4 * n + 1] / l0);
-      }
-      if (row + 8 < nq) {
-        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)(row + 8) * args.so.n + col) =
-            __floats2bfloat162_rn(o[4 * n + 2] / l1, o[4 * n + 3] / l1);
-      }
-    }
+  [[maybe_unused]] uint32_t sink = 0;  // kQkOnly's fold of the work it discards
+  for (int u = blockIdx.x * group; u < units; u = next_unit(u, group)) {
+    const Unit w = unit_of(u, group, groups, qtiles);
+    consume<kRope, S>(sm, args, w.b, w.h, w.q0, ntiles, it, sink);
   }
+  if (S == attn::kQkOnly && args.store_sink) *static_cast<uint32_t*>(args.o) = sink;
 }
 
 // The 4-D tensor map (d, n, head, batch) of a bf16 (B, H, N, 64) view with
@@ -391,12 +471,12 @@ int kv_map(CUtensorMap* map, const void* base, const attn::Strides& st, int batc
                                  box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-template <bool kRope>
-int launch(const CUtensorMap& kmap, const CUtensorMap& vmap, const Args& a, int batch,
+template <bool kRope, int S>
+int launch(const CUtensorMap& kmap, const CUtensorMap& vmap, const Args& a, int batch, int group,
            cudaStream_t stream) {
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(attn_sm90_kernel<kRope>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(kSmemBytes));
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      attn_sm90_kernel<kRope, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemBytes));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -404,29 +484,38 @@ int launch(const CUtensorMap& kmap, const CUtensorMap& vmap, const Args& a, int 
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int items = (a.nq + kBlockRows - 1) / kBlockRows * batch * a.heads;
-  attn_sm90_kernel<kRope><<<items < sms ? items : sms, kThreads, kSmemBytes, stream>>>(
-      kmap, vmap, a, items);
+  const int items = (a.nq + kBlockRows - 1) / kBlockRows * batch * (a.heads / group);
+  attn_sm90_kernel<kRope, S><<<items < sms ? items : sms, kThreads, kSmemBytes, stream>>>(
+      kmap, vmap, a, group, items * group);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Arguments as dust3r_fused_attention's (fused_attention.cu) for bf16, d =
-// 64, one head a block and the exact softmax: q (batch, heads, nq, 64), k
-// and v (batch, heads, nk, 64) and o like q, bf16 views with unit stride in
-// d and the (batch, head, row) strides of q, k, v and o in `strides` (12
-// values, elements; each a multiple of 8 where its dim exceeds 1, every base
-// 16-byte aligned: TMA's rules); cos/sin tables (batch, n, 64) fp32
-// contiguous as rope_tables builds them, ignored (may be null) without
-// RoPE. Returns the CUDA error code of the launch, or of encoding a tensor
-// map offset by 1000 (1000 + CUresult; sm90::kNoEncoder when the runtime
-// gives no encoder).
+// Arguments as dust3r_fused_attention's (fused_attention.cu) for bf16 and d
+// = 64: q (batch, heads, nq, 64), k and v (batch, heads, nk, 64) and o like
+// q, bf16 views with unit stride in d and the (batch, head, row) strides of
+// q, k, v and o in `strides` (12 values, elements; each a multiple of 8
+// where its dim exceeds 1, every base 16-byte aligned: TMA's rules); cos/sin
+// tables (batch, n, 64) fp32 contiguous as rope_tables builds them, ignored
+// (may be null) without RoPE; heads_per_block G, any divisor of heads;
+// `mode` an attn::Softmax code: kExact, or with RoPE the floors kNoSoftmax
+// (nosmax) and kQkOnly (qkonly, nk >= 64). Returns the CUDA error code of
+// the launch, or of encoding a tensor map offset by 1000 (1000 + CUresult;
+// sm90::kNoEncoder when the runtime gives no encoder); -1 for what it does
+// not take.
 extern "C" int dust3r_fused_attention_sm90(const void* q, const void* k, const void* v,
                                            const float* cos_q, const float* sin_q,
                                            const float* cos_k, const float* sin_k, void* o,
                                            const long long* strides, int batch, int heads, int nq,
-                                           int nk, int use_rope, float scale, void* stream) {
+                                           int nk, int heads_per_block, int mode, int use_rope,
+                                           float scale, void* stream) {
+  if (heads_per_block < 1 || heads % heads_per_block) return -1;
+  const bool floor = mode == attn::kNoSoftmax || mode == attn::kQkOnly;
+  if ((mode != attn::kExact && !floor) || (floor && !use_rope) ||
+      (mode == attn::kQkOnly && nk < kD)) {
+    return -1;
+  }
   const Args a = attn::make_args(q, k, v, cos_q, sin_q, cos_k, sin_k, o, strides, heads, nq, nk,
                                  use_rope, scale);
   CUtensorMap kmap, vmap;
@@ -434,5 +523,14 @@ extern "C" int dust3r_fused_attention_sm90(const void* q, const void* k, const v
   if (err == 0) err = kv_map(&vmap, v, a.sv, batch, heads, nk);
   if (err != 0) return err == sm90::kNoEncoder ? err : 1000 + err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return use_rope ? launch<true>(kmap, vmap, a, batch, s) : launch<false>(kmap, vmap, a, batch, s);
+  const int g = heads_per_block;
+  switch (mode) {
+    case attn::kNoSoftmax:
+      return launch<true, attn::kNoSoftmax>(kmap, vmap, a, batch, g, s);
+    case attn::kQkOnly:
+      return launch<true, attn::kQkOnly>(kmap, vmap, a, batch, g, s);
+    default:
+      return use_rope ? launch<true, attn::kExact>(kmap, vmap, a, batch, g, s)
+                      : launch<false, attn::kExact>(kmap, vmap, a, batch, g, s);
+  }
 }

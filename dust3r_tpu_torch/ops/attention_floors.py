@@ -15,11 +15,14 @@ kernel's work, so that its time on the card splits into parts:
   `attention_variants`' "nomax", which keeps the exp and the row sum and
   drops only the max.
 
-The kernels are `csrc/attention_floor.cu` (hand-written for sm_90a:
-"nosmax" and "qkonly" are the attention core of `csrc/attention_core.cuh`
-with two more softmax codes, the copy modes one small kernel on the core's
-tile loaders; its header says what bounds each and how work that a floor
-discards is kept from being compiled away). They answer a question of
+The kernels are hand-written for sm_90a. "nosmax" and "qkonly" are modes
+of the sm90 attention kernel's consumer loop (`csrc/fused_attention_sm90.cu`,
+TMA + wgmma), so they split that kernel's time; with `core="mma"` they run
+on the mma.sync attention core of `csrc/attention_core.cuh` instead
+(`csrc/attention_floor.cu`, two more softmax codes), their baseline. The
+copy modes are one small kernel of `csrc/attention_floor.cu` on the core's
+tile loaders. The headers say what bounds each and how work that a floor
+discards is kept from being compiled away. They answer a question of
 speed, served by this entry point and `tools/attn_variants.py`, not by the
 model.
 
@@ -31,19 +34,23 @@ model.
 * `attention_floor` is the wrapper: it refuses what the kernels cannot
   take, returns the plain version for CPU tensors and launches a kernel
   for CUDA tensors (bf16, d = 64), or raises. `attention_floor.launches`
-  counts launches.
+  counts launches of the sm90 kernel's floors, `attention_floor.core_launches`
+  those of `csrc/attention_floor.cu`.
 """
 from __future__ import annotations
 
 import ctypes
+import numbers
 
 import torch
 
-from .fused_attention import check, check_heads_per_program, launch
+from .fused_attention import CORES, check, kernel_heads_per_program, launch, launch_sm90
 from .rope import apply_rope2d, rope_tables
 
-MODES = ("nosmax", "qkonly", "copy", "copynr", "copymm")  # C entry codes 0-4
+MODES = ("nosmax", "qkonly", "copy", "copynr", "copymm")  # attention_floor.cu's codes 0-4
 COPY_MODES = ("copy", "copynr", "copymm")
+# the product floors, modes of the sm90 kernel: their attn::Softmax codes
+SM90_CODES = dict(nosmax=4, qkonly=5)
 HEAD_DIM = 64  # the kernels' head dim, the script's
 
 
@@ -62,6 +69,15 @@ def rot_matrix(d, device=None):
 def _check_mode(mode):
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
+
+
+def check_heads_per_program(G, heads):
+    """The script's rule: G heads a program must divide the heads
+    (`exp_attn_r2.py:151-156` grids over H // G groups and leaves the rest
+    of the output unwritten)."""
+    if isinstance(G, bool) or not isinstance(G, numbers.Integral) or G < 1 or heads % G:
+        raise ValueError(f"heads_per_program {G!r} not in the divisors of the {heads} heads: "
+                         f"the script's grid of H // G groups would leave heads unwritten")
 
 
 def attention_floor_ref(q, k, v, positions_q, positions_k, rope_base=100.0, mode="nosmax"):
@@ -105,13 +121,21 @@ def _kernel():
 
 
 def attention_floor(q, k, v, positions_q, positions_k, rope_base=100.0, *, mode,
-                    heads_per_program=1, tables_q=None, tables_k=None):
+                    heads_per_program=1, tables_q=None, tables_k=None, core=None):
     """The floor `mode` of the fused attention (see the module docstring).
     Arguments as `fused_attention`'s; positions are required (the script's
-    attention always rotates). heads_per_program: 1, 2 or 4 heads a block,
-    every value giving the same bits. Output as `fused_attention`'s."""
+    attention always rotates). heads_per_program: any divisor of the heads,
+    every value giving the same bits. core: None or "sm90" (the sm90
+    kernel for the product floors, `csrc/attention_floor.cu` for the copy
+    floors), or "mma" (`csrc/attention_floor.cu` for every mode, at the
+    largest of 4, 2, 1 heads a block dividing G). Output as
+    `fused_attention`'s."""
     _check_mode(mode)
     check_heads_per_program(heads_per_program, q.shape[1])
+    if core is not None and core not in CORES:
+        raise ValueError(f"core {core!r} not in {CORES} or None")
+    if core == "sm90" and mode not in SM90_CODES:
+        raise ValueError(f"the sm90 kernel serves the floors {tuple(SM90_CODES)}, not {mode!r}")
     if positions_q is None or positions_k is None:
         raise ValueError("the floors run the script's RoPE attention: give positions for "
                          "q and k")
@@ -123,15 +147,23 @@ def attention_floor(q, k, v, positions_q, positions_k, rope_base=100.0, *, mode,
         raise ValueError(f"{mode} adds v to q: Nq = {Nq} and Nk = {Nk} must agree")
     if q.device.type == "cpu":
         return attention_floor_ref(q, k, v, positions_q, positions_k, rope_base, mode)
-    check(q, k, v, positions_q, positions_k, heads_per_program)
+    core = core or ("sm90" if mode in SM90_CODES else "mma")
+    G = kernel_heads_per_program(core, heads_per_program)
+    check(q, k, v, positions_q, positions_k, G)
     if q.dtype != torch.bfloat16:
         raise TypeError(f"the floors are bf16 kernels, got {q.dtype}")
     if d != HEAD_DIM:
         raise ValueError(f"the floor kernels take head dim {HEAD_DIM} (the script's), got {d}")
-    out = launch(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k,
-                 heads_per_program, softmax=MODES.index(mode), entry=_kernel())
-    attention_floor.launches += 1
+    if core == "sm90":
+        out = launch_sm90(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k, G,
+                          softmax=SM90_CODES[mode])
+        attention_floor.launches += 1
+        return out
+    out = launch(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k, G,
+                 softmax=MODES.index(mode), entry=_kernel())
+    attention_floor.core_launches += 1
     return out
 
 
 attention_floor.launches = 0
+attention_floor.core_launches = 0

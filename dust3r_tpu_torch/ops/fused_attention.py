@@ -5,19 +5,25 @@ hand-written sm_90a kernels serve it, each named by its `core`:
 
 * "sm90", `csrc/fused_attention_sm90.cu`: TMA rings of K and V tiles, K
   rotated by a producer warpgroup, the products on wgmma, online softmax in
-  fp32. It takes bf16 with head dim 64 and one head a block: every call of
-  the model's path.
+  fp32. It takes bf16 with head dim 64 and any number of heads a block that
+  divides the heads: every call of the model's path, and the grouped calls
+  of the TPU experiments (rows 3 and 5).
 * "mma", `csrc/fused_attention.cu` on the core of `csrc/attention_core.cuh`:
   mma.sync bf16 tensor cores, K/V streamed through shared memory, online
-  softmax in fp32. It takes everything else (fp32, head dims 16, 24, 32,
-  `heads_per_program` > 1) and, with `core="mma"`, the bf16 G = 1 calls
-  too: it is the baseline of the attention variants and floors, whose
-  kernels share its core.
+  softmax in fp32. It takes everything else (fp32, head dims 16, 24, 32)
+  and, with `core="mma"`, the bf16 d = 64 calls too: it is the baseline of
+  the sm90 kernel, of the grouped calls and of the floors, and the kernel
+  of the softmax variants. Its bf16 kernel runs 1, 2 or 4 heads a block
+  (128 threads a head); a call's G is served there at the largest of those
+  that divides it (`kernel_heads_per_program`), its fp32 kernel runs one
+  head a block.
 
 Both compute the same function (the headers say what bounds each on the
-card and how its design answers that). Their addressing is strided, so q,
-k and v may be head views of the projections (`(B, N, 3C)` or `(B, N, C)`
-seen as `(B, H, N, d)`) and the output lands head-packed.
+card and how its design answers that), and in either a head's arithmetic
+does not depend on the heads beside it, so every G gives the bits of G = 1.
+Their addressing is strided, so q, k and v may be head views of the
+projections (`(B, N, 3C)` or `(B, N, C)` seen as `(B, H, N, d)`) and the
+output lands head-packed.
 
 * `attention_ref` is the plain PyTorch version, the counterpart of the JAX
   `attention_ref`: RoPE in the token dtype, logits from the fp32 upcasts
@@ -25,17 +31,20 @@ seen as `(B, H, N, d)`) and the output lands head-packed.
   with `preferred_element_type=float32`), softmax in fp32, P cast to the
   value dtype, P.v with fp32 sums (the JAX einsum's too) rounded to the
   value dtype. The CPU tests and the card-side comparison use it.
-* `fused_attention` is the wrapper. For a CPU tensor it returns the plain
-  version (the kernels cannot run there); for a CUDA tensor it launches the
-  kernel of its core (`route`) or raises. `fused_attention.launches`
-  counts launches of the sm90 kernel, `fused_attention.core_launches` those
-  of the mma.sync core, and `fused_attention.grouped_launches` those of
-  the core's bf16 kernel with more than one head a block (the fp32 kernel
-  runs one head a block for any G).
+* `fused_attention` is the wrapper. It resolves `heads_per_program` as the
+  JAX kernel does (`resolve_heads_per_program`). For a CPU tensor it
+  returns the plain version (the kernels cannot run there); for a CUDA
+  tensor it launches the kernel of its core (`route`) or raises.
+  `fused_attention.launches` counts launches of the sm90 kernel and
+  `fused_attention.grouped_launches` those of them with more than one head
+  a block; `fused_attention.core_launches` counts launches of the mma.sync
+  core and `fused_attention.core_grouped_launches` those of its bf16 kernel
+  with more than one head a block.
 """
 from __future__ import annotations
 
 import ctypes
+import numbers
 
 import torch
 
@@ -43,19 +52,55 @@ from .rope import apply_rope2d, rope_tables
 
 SUPPORTED_HEAD_DIMS = (16, 24, 32, 64)
 SUPPORTED_DTYPES = (torch.bfloat16, torch.float32)
-# heads a block of the bf16 kernel: 128 threads each; 8 (1024 threads at
-# most 64 registers each) does not fit the kernel's registers
-HEADS_PER_PROGRAM = (1, 2, 4)
+# heads a block of the mma.sync core's bf16 kernel, 128 threads each,
+# largest first; 8 (1024 threads at most 64 registers each) does not fit
+CORE_HEADS_PER_PROGRAM = (4, 2, 1)
 CORES = ("sm90", "mma")
 SM90_HEAD_DIM = 64
+# the JAX kernel's VMEM budget for its softmax tiles, from which it picks
+# the heads a program when given none (a copy of
+# dust3r_tpu/ops/pallas_attention.py's _LOGITS_VMEM_BUDGET)
+_LOGITS_VMEM_BUDGET = 6 * 1024 * 1024
 
 
-def route(dtype, head_dim, heads_per_program=1):
+def _auto_heads_per_program(H, Nq, Nk):
+    """The JAX kernel's choice for heads_per_program=None: the largest of
+    8, 4, 2 dividing H whose live set (G bf16 probability tiles and one
+    fp32 logits tile) fits the budget, else 1."""
+    for G in (8, 4, 2, 1):
+        if H % G == 0 and (G * 2 + 4) * Nq * Nk <= _LOGITS_VMEM_BUDGET:
+            return G
+    return 1
+
+
+def resolve_heads_per_program(H, Nq, Nk, G):
+    """The heads a program the JAX `fused_attention` runs for
+    `heads_per_program=G` with H heads: `_auto_heads_per_program` for None,
+    then halved until it divides H. G must be None or a positive integer."""
+    if G is None:
+        G = _auto_heads_per_program(H, Nq, Nk)
+    elif isinstance(G, bool) or not isinstance(G, numbers.Integral) or G < 1:
+        raise ValueError(f"heads_per_program must be None or a positive integer, got {G!r}")
+    G = int(G)
+    while H % G:
+        G //= 2
+    return G
+
+
+def route(dtype, head_dim):
     """The core that serves a call on the card: "sm90" for bf16 with head
-    dim 64 and one head a block (the model's calls), "mma" for the rest."""
-    if dtype == torch.bfloat16 and head_dim == SM90_HEAD_DIM and heads_per_program == 1:
-        return "sm90"
-    return "mma"
+    dim 64, at any heads a block (the model's calls and the grouped ones),
+    "mma" for the rest."""
+    return "sm90" if dtype == torch.bfloat16 and head_dim == SM90_HEAD_DIM else "mma"
+
+
+def kernel_heads_per_program(core, G):
+    """The heads a block `core`'s kernel runs for a resolved G: G itself on
+    the sm90 kernel, the largest of 4, 2, 1 dividing G on the mma.sync
+    core's bf16 kernel. Either gives the bits of G = 1."""
+    if core == "sm90":
+        return G
+    return next(g for g in CORE_HEADS_PER_PROGRAM if G % g == 0)
 
 
 def attention_ref(q, k, v, positions_q=None, positions_k=None, rope_base=100.0):
@@ -82,14 +127,14 @@ _SM90 = None
 
 def _sm90_kernel():
     """`csrc/fused_attention_sm90.cu`'s C entry, built at first use: q, k,
-    v, four tables, o, the 12 strides; batch, heads, nq, nk, use_rope;
-    scale, stream."""
+    v, four tables, o, the 12 strides; batch, heads, nq, nk, heads a
+    block, softmax code, use_rope; scale, stream."""
     global _SM90
     if _SM90 is None:
         from ._build import load_library
 
         fn = load_library("fused_attention_sm90").dust3r_fused_attention_sm90
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _SM90 = fn
     return _SM90
@@ -109,17 +154,6 @@ def _kernel():
         fn.restype = ctypes.c_int
         _LIB = fn
     return _LIB
-
-
-def check_heads_per_program(heads_per_program, heads):
-    """Refuse a heads-a-block count the kernel has no instance for."""
-    if heads_per_program not in HEADS_PER_PROGRAM:
-        raise ValueError(f"heads_per_program {heads_per_program} not in {HEADS_PER_PROGRAM}: "
-                         f"a block holds 128 threads a head, and 8 heads (1024 threads at "
-                         f"most 64 registers each) do not fit the kernel's registers")
-    if heads % heads_per_program:
-        raise ValueError(f"heads_per_program {heads_per_program} does not divide "
-                         f"the {heads} heads")
 
 
 def check(q, k, v, positions_q, positions_k, heads_per_program=1):
@@ -224,9 +258,12 @@ def launch(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k,
     return out
 
 
-def launch_sm90(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k):
-    """Launch the sm90 kernel on checked bf16 CUDA q, k, v of head dim 64;
-    returns as `launch` does, or raises."""
+def launch_sm90(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k,
+                heads_per_program=1, softmax=0):
+    """Launch the sm90 kernel on checked bf16 CUDA q, k, v of head dim 64
+    with `heads_per_program` heads a block (dividing H) and the softmax
+    code `softmax` (0: exact; `attention_floors`' product floors pass
+    theirs); returns as `launch` does, or raises."""
     B, H, Nq, d = q.shape
     Nk = k.shape[2]
     tables, out, strides = _operands(q, k, v, positions_q, positions_k, rope_base, tables_q,
@@ -235,11 +272,13 @@ def launch_sm90(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _sm90_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), *_pointers(tables),
                              out.data_ptr(), ctypes.addressof(strides), B, H, Nq, Nk,
-                             int(positions_q is not None), d ** -0.5, stream)
+                             heads_per_program, softmax, int(positions_q is not None),
+                             d ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"sm90 attention kernel launch failed: error {err} (q "
-                           f"{tuple(q.shape)}, Nk={Nk}; above 1000: 1000 + the CUresult of "
-                           f"encoding a tensor map)")
+                           f"{tuple(q.shape)}, Nk={Nk}, G={heads_per_program}, softmax "
+                           f"{softmax}; above 1000: 1000 + the CUresult of encoding a "
+                           f"tensor map)")
     return out
 
 
@@ -255,33 +294,38 @@ def fused_attention(q, k, v, positions_q=None, positions_k=None, rope_base=100.0
     `rope_tables(positions, d, rope_base)`, for a caller that shares them
     across layers; building them takes some twenty small launches. The
     kernels read them; the plain version builds its own in the token dtype,
-    as the JAX reference does. heads_per_program: the heads a block of the
-    mma.sync core's bf16 kernel (1, 2 or 4, dividing H), as the JAX
-    argument of the same name; every value gives the same bits. core: None
-    (`route` picks), "sm90" or "mma" (see the module docstring); a core
-    that cannot serve the call raises."""
-    check_heads_per_program(heads_per_program, q.shape[1])
+    as the JAX reference does. heads_per_program: the JAX argument of the
+    same name, resolved as the JAX kernel resolves it (None picks by the
+    JAX kernel's VMEM budget; any positive G is halved until it divides H;
+    see `resolve_heads_per_program`); the heads a block of the kernel. With
+    these kernels G only orders the work: every G gives the bits of G = 1,
+    so the default stays 1. core: None (`route` picks), "sm90" or "mma"
+    (see the module docstring); a core that cannot serve the call raises."""
+    G = resolve_heads_per_program(q.shape[1], q.shape[-2], k.shape[-2], heads_per_program)
     if core is not None and core not in CORES:
         raise ValueError(f"core {core!r} not in {CORES} or None")
     if q.device.type == "cpu":
         return attention_ref(q, k, v, positions_q, positions_k, rope_base)
-    check(q, k, v, positions_q, positions_k, heads_per_program)
-    routed = route(q.dtype, q.shape[-1], heads_per_program)
+    routed = route(q.dtype, q.shape[-1])
     if core == "sm90" and routed != "sm90":
-        raise ValueError(f"the sm90 kernel takes bf16 with head dim {SM90_HEAD_DIM} and one "
-                         f"head a block, got {q.dtype}, d={q.shape[-1]}, G={heads_per_program}")
-    if (core or routed) == "sm90":
-        out = launch_sm90(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k)
+        raise ValueError(f"the sm90 kernel takes bf16 with head dim {SM90_HEAD_DIM}, got "
+                         f"{q.dtype}, d={q.shape[-1]}")
+    core = core or routed
+    G = kernel_heads_per_program(core, G)
+    check(q, k, v, positions_q, positions_k, G)
+    if core == "sm90":
+        out = launch_sm90(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k, G)
         fused_attention.launches += 1
+        fused_attention.grouped_launches += int(G > 1)
         return out
-    out = launch(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k,
-                 heads_per_program)
+    out = launch(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k, G)
     fused_attention.core_launches += 1
-    if heads_per_program > 1 and q.dtype == torch.bfloat16:  # fp32: one head a block
-        fused_attention.grouped_launches += 1
+    # the core's fp32 kernel runs one head a block for any G
+    fused_attention.core_grouped_launches += int(G > 1 and q.dtype == torch.bfloat16)
     return out
 
 
 fused_attention.launches = 0
-fused_attention.core_launches = 0
 fused_attention.grouped_launches = 0
+fused_attention.core_launches = 0
+fused_attention.core_grouped_launches = 0

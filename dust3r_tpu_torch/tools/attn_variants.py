@@ -9,33 +9,39 @@ runs at its script's shapes, bf16, q, k and v from a seeded generator, a
 24x32 token grid (row 8: random positions in [0, 48), as `bench_attn3.py`
 draws them):
 
-  3  fused_attention with G = 1, 2, 4 heads a block, (16,16,768,64); and
-     attention_floor's floor modes at the script's G: nosmax and copynr
-     at 1, 2, 4, qkonly, copy and copymm at 1, 4, (16,16,768,64)
+  3  fused_attention with G = 1, 2, 4 heads a block on the sm90 kernel and
+     G = 2, 4 on the mma.sync core (the baseline), (16,16,768,64); and
+     attention_floor's floor modes: nosmax and qkonly on the sm90 kernel at
+     G = 1, 4, 8, and on the mma.sync core at the script's G (nosmax and
+     copynr at 1, 2, 4, qkonly, copy and copymm at 1, 4), (16,16,768,64)
   4  attention_variant "bf16_exp" and "bf16_logits", (16,16,768,64)
-  5  fused_attention G = 4 (G = 8 is refused: 1024 threads), (16,16,768,64)
+  5  fused_attention G = 4 and G = 8 on the sm90 kernel, (16,16,768,64)
   6  fused_attention on (B, H, N, d) views of a (B, N, 3C) qkv projection,
-     (16,16,768,64) and (8,12,768,64)
+     (16,16,768,64) and (8,12,768,64), on either kernel
   7  the same on views of three head-packed (B, N, C) projections
-  8  fused_attention G = 1 on random positions, (16,16,768,64)
+  8  fused_attention G = 1 on random positions, (16,16,768,64), on either
   9  attention_variant "nomax", (16,16,768,64)
 
-The rows' fused_attention calls run on the mma.sync core (`core="mma"`),
-whose G, softmax and layout the experiments vary. For each: the row's
-kernel, the row-1 baseline (that core, G = 1 on contiguous q, k, v), the
-plain version, the library yardstick (`F.scaled_dot_product_attention`
-on q and k rotated beforehand, in the row's layout; for a floor, the one
-call that does its work where there is one: `q + v` for copynr, the
-logits' matmul on q and k rotated beforehand for qkonly) and the bound
-(bytes at 3.35 TB/s or bf16 operations at 989 TFLOP/s; each floor's own
-count, `floor_bound`), in ms by CUDA events through the wrappers, with the
-RoPE tables built once (a floor row's kernel, baseline and library call
-as CUDA-graph replays, `card.graph_ms`: the copy floors run shorter than
-their wrapper's launch); the kernel's error against its plain version,
-and for the exact softmax whether its bits equal the baseline's (for a
-floor with G > 1, its G = 1 call's). qkonly is also timed at Nk = 64
-beside Nk = 768: its time must grow with the keys it reads. Then the
-scripts' chain comparison (`exp_attn_dma_r2.py:149-159`,
+A row names its kernel: the sm90 kernel (`core=None`, the route of every
+bf16 d = 64 call) or the mma.sync core (`core="mma"`, also the kernel of the
+softmax variants). For each: the row's kernel, the row-1 baseline (the
+mma.sync core, G = 1 on contiguous q, k, v; for a floor, the exact kernel
+of its own core, G = 1), the plain version, the library yardstick
+(`F.scaled_dot_product_attention` on q and k rotated beforehand, in the
+row's layout; for a floor, the one call that does its work where there is
+one: `q + v` for copynr, the logits' matmul on q and k rotated beforehand
+for qkonly) and the bound (bytes at 3.35 TB/s or bf16 operations at 989
+TFLOP/s; each floor's own count, `floor_bound`), in ms as replays of a
+CUDA graph of the calls (`card.graph_ms`, the device's time), the plain
+version by CUDA events through its calls (`time_ms`), with the RoPE tables
+built once; the kernel's error against its plain version; for the exact
+softmax whether its bits equal its own kernel's at G = 1 on contiguous q,
+k, v, and its largest distance from the row-1 baseline's output; for a
+floor with G > 1, whether its bits equal its G = 1 call's. qkonly is also
+timed at Nk = 64 beside Nk = 768 on both kernels: its time must grow with
+the keys it reads. The sm90 kernel's K rotation: its time with and without
+RoPE at (16,16,768,64), beside the bytes of fp32 tables its rotating warps
+read. Then the scripts' chain comparison (`exp_attn_dma_r2.py:149-159`,
 `exp_attn_layout_r2.py:148-157`): projection GEMM(s) -> attention ->
 out-projection, with the head-transposing copies of q, k, v and a copy of
 the merged output (the path before the kernel read strides) against the
@@ -59,7 +65,7 @@ from ..models.blocks import token_positions
 from ..ops import _build
 from ..ops.attention_floors import MODES, attention_floor, attention_floor_ref
 from ..ops.attention_variants import attention_variant, attention_variant_ref
-from ..ops.fused_attention import attention_ref, check_heads_per_program, fused_attention
+from ..ops.fused_attention import attention_ref, fused_attention
 from ..ops.rope import apply_rope2d, rope_tables
 from .card import attention_bound, bound, card_name, graph_ms, time_ms, warm_up
 
@@ -74,24 +80,32 @@ GRID = (24, 32)            # 512x384 at patch 16
 # bf16 unit from the plain version's, and the output two
 RTOL = 1e-2
 # row, label, (B, H, N, d), layout, heads a block, softmax (None: exact;
-# a floor mode of attention_floors.MODES), positions
+# a floor mode of attention_floors.MODES), positions, core (None: the
+# route, the sm90 kernel for bf16 d = 64; "mma": the mma.sync core)
 ROWS = (
-    (3, "G=1", ENC16, "contiguous", 1, None, "grid"),
-    (3, "G=2", ENC16, "contiguous", 2, None, "grid"),
-    (3, "G=4", ENC16, "contiguous", 4, None, "grid"),
-    (4, "bf16_exp", ENC16, "contiguous", 1, "bf16_exp", "grid"),
-    (4, "bf16_logits", ENC16, "contiguous", 1, "bf16_logits", "grid"),
-    (5, "G=4", ENC16, "contiguous", 4, None, "grid"),
-    (6, "qkv views", ENC16, "qkv", 1, None, "grid"),
-    (6, "qkv views", DEC12, "qkv", 1, None, "grid"),
-    (7, "head-packed views", ENC16, "packed", 1, None, "grid"),
-    (7, "head-packed views", DEC12, "packed", 1, None, "grid"),
-    (8, "random positions", ENC16, "contiguous", 1, None, "random"),
-    (9, "nomax", ENC16, "contiguous", 1, "nomax", "grid"),
-) + tuple((3, f"{m} G={G}", ENC16, "contiguous", G, m, "grid")
-          for m, Gs in (("nosmax", (1, 2, 4)), ("qkonly", (1, 4)), ("copy", (1, 4)),
-                        ("copynr", (1, 2, 4)), ("copymm", (1, 4)))
-          for G in Gs)
+    (3, "G=1", ENC16, "contiguous", 1, None, "grid", None),
+    (3, "G=2", ENC16, "contiguous", 2, None, "grid", None),
+    (3, "G=4", ENC16, "contiguous", 4, None, "grid", None),
+    (3, "G=2 mma", ENC16, "contiguous", 2, None, "grid", "mma"),
+    (3, "G=4 mma", ENC16, "contiguous", 4, None, "grid", "mma"),
+    (4, "bf16_exp", ENC16, "contiguous", 1, "bf16_exp", "grid", "mma"),
+    (4, "bf16_logits", ENC16, "contiguous", 1, "bf16_logits", "grid", "mma"),
+    (5, "G=4", ENC16, "contiguous", 4, None, "grid", None),
+    (5, "G=8", ENC16, "contiguous", 8, None, "grid", None),
+) + tuple((row, label + suffix, shape, layout, 1, None, kind, core)
+          for row, label, shape, layout, kind in (
+              (6, "qkv views", ENC16, "qkv", "grid"), (6, "qkv views", DEC12, "qkv", "grid"),
+              (7, "head-packed views", ENC16, "packed", "grid"),
+              (7, "head-packed views", DEC12, "packed", "grid"),
+              (8, "random positions", ENC16, "contiguous", "random"))
+          for suffix, core in (("", None), (" mma", "mma"))) + (
+    (9, "nomax", ENC16, "contiguous", 1, "nomax", "grid", "mma"),
+) + tuple((3, f"{m} G={G}", ENC16, "contiguous", G, m, "grid", None)
+          for m in ("nosmax", "qkonly") for G in (1, 4, 8)) + tuple(
+    (3, f"{m} G={G} mma", ENC16, "contiguous", G, m, "grid", "mma")
+    for m, Gs in (("nosmax", (1, 2, 4)), ("qkonly", (1, 4)), ("copy", (1, 4)),
+                  ("copynr", (1, 2, 4)), ("copymm", (1, 4)))
+    for G in Gs)
 
 
 def positions(B, grid, kind, gen):
@@ -139,19 +153,28 @@ def floor_bound(mode, B, H, Nq, Nk, d):
     return bound(2 * B * H * (2 * Nq + 2 * Nk) * d + (0 if mode == "copynr" else tables), {})
 
 
-def measure(q, k, v, pq, pk, heads_per_program=1, softmax=None, iters=20, warm=False):
+def measure(q, k, v, pq, pk, heads_per_program=1, softmax=None, iters=20, warm=False,
+            core=None):
     """One kernel configuration against its baseline, plain version, library
-    yardstick and bound; returns a dict of ms, errors and whether the
-    output's bits equal the baseline's (None for a variant; for a floor
-    with G > 1, its G = 1 call's). warm: run the kernel for half a second
-    first (for the process's first timing)."""
+    yardstick and bound; returns a dict of ms, errors, whether the output's
+    bits equal its own kernel's at G = 1 on contiguous q, k, v (None for a
+    variant; for a floor with G > 1, its G = 1 call's) and, for the exact
+    softmax, `from_baseline`, its max abs distance from the row-1
+    baseline's output. core: the exact softmax's and the floors' kernel
+    (None: the route). warm: run the kernel for half a second first (for
+    the process's first timing)."""
     tq, tk = rope_tables(pq, q.shape[-1]), rope_tables(pk, q.shape[-1])
     if softmax in MODES:
-        return measure_floor(q, k, v, pq, pk, tq, tk, heads_per_program, softmax, iters, warm)
+        return measure_floor(q, k, v, pq, pk, tq, tk, heads_per_program, softmax, iters, warm,
+                             core)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
     if softmax is None:
         def kernel():
             return fused_attention(q, k, v, pq, pk, 100.0, tq, tk, heads_per_program,
-                                   core="mma")
+                                   core=core)
+
+        def one_head():
+            return fused_attention(qc, kc, vc, pq, pk, 100.0, tq, tk, core=core)
 
         def plain():
             return attention_ref(q, k, v, pq, pk)
@@ -162,7 +185,6 @@ def measure(q, k, v, pq, pk, heads_per_program=1, softmax=None, iters=20, warm=F
 
         def plain():
             return attention_variant_ref(q, k, v, pq, pk, 100.0, softmax)
-    qc, kc, vc = (t.contiguous() for t in (q, k, v))
 
     def baseline():
         return fused_attention(qc, kc, vc, pq, pk, 100.0, tq, tk, core="mma")
@@ -175,7 +197,9 @@ def measure(q, k, v, pq, pk, heads_per_program=1, softmax=None, iters=20, warm=F
            else plain().float())
     err = (out.float() - ref).abs().max().item()
     rel = err / ref.abs().max().item()
-    identical = torch.equal(out, baseline()) if softmax is None else None
+    identical = torch.equal(out, one_head()) if softmax is None else None
+    from_baseline = ((out.float() - baseline().float()).abs().max().item()
+                     if softmax is None else None)
     if not (out.shape == q.shape and torch.isfinite(out).all()):
         raise AssertionError(f"bad kernel output {tuple(out.shape)}")
     qr, kr = rotated_like(q, pq), rotated_like(k, pk)
@@ -183,27 +207,27 @@ def measure(q, k, v, pq, pk, heads_per_program=1, softmax=None, iters=20, warm=F
     bound_ms, bound_by = attention_bound(B, H, Nq, k.shape[2], d, rope=True)
     if warm:
         warm_up(kernel)
-    return dict(ms=time_ms(kernel, iters), baseline_ms=time_ms(baseline, iters),
+    return dict(ms=graph_ms(kernel, iters), baseline_ms=graph_ms(baseline, iters),
                 plain_ms=time_ms(plain, iters),
-                library_ms=time_ms(lambda: F.scaled_dot_product_attention(qr, kr, v), iters),
+                library_ms=graph_ms(lambda: F.scaled_dot_product_attention(qr, kr, v), iters),
                 bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err, rel=rel,
-                identical=identical)
+                identical=identical, from_baseline=from_baseline,
+                wrapper_ms=time_ms(kernel, iters))
 
 
-def measure_floor(q, k, v, pq, pk, tq, tk, heads_per_program, mode, iters=20, warm=False):
-    """`measure` for a floor mode (tables built by the caller): the kernel,
-    the baseline and the library call by `graph_ms` (device time), the
-    plain version by `time_ms`; `wrapper_ms` is the kernel by `time_ms`,
-    the rate at which the host launches it through its wrapper."""
+def measure_floor(q, k, v, pq, pk, tq, tk, heads_per_program, mode, iters=20, warm=False,
+                  core=None):
+    """`measure` for a floor mode (tables built by the caller) on `core`'s
+    kernel, against the exact kernel of the same core at G = 1."""
     def kernel(G=heads_per_program):
         return attention_floor(q, k, v, pq, pk, 100.0, mode=mode, heads_per_program=G,
-                               tables_q=tq, tables_k=tk)
+                               tables_q=tq, tables_k=tk, core=core)
 
     def plain():
         return attention_floor_ref(q, k, v, pq, pk, 100.0, mode)
 
     def baseline():
-        return fused_attention(q, k, v, pq, pk, 100.0, tq, tk, core="mma")
+        return fused_attention(q, k, v, pq, pk, 100.0, tq, tk, core=core)
 
     out = kernel()
     torch.cuda.synchronize()
@@ -224,19 +248,17 @@ def measure_floor(q, k, v, pq, pk, tq, tk, heads_per_program, mode, iters=20, wa
     bound_ms, bound_by = floor_bound(mode, B, H, Nq, k.shape[2], d)
     if warm:
         warm_up(kernel)
-    # the copy floors run shorter than their wrapper's launch: the kernel,
-    # the baseline and the library call are timed as replays of CUDA graphs
     return dict(ms=graph_ms(kernel, iters), baseline_ms=graph_ms(baseline, iters),
                 plain_ms=time_ms(plain, iters),
                 library_ms=None if library is None else graph_ms(library, iters),
                 bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err, rel=rel,
-                identical=identical, wrapper_ms=time_ms(kernel, iters))
+                identical=identical, from_baseline=None, wrapper_ms=time_ms(kernel, iters))
 
 
-def qkonly_growth(iters=20, log=print):
-    """qkonly at (16,16,768,64) against 768 and against 64 keys: a floor
-    whose q.k^T over the later key tiles were compiled away would take the
-    same time at both."""
+def qkonly_growth(iters=20, log=print, core=None):
+    """qkonly at (16,16,768,64) against 768 and against 64 keys on `core`'s
+    kernel: a floor whose q.k^T over the later key tiles were compiled away
+    would take the same time at both."""
     B, H, N, d = ENC16
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     q, k, v = make_qkv(B, H, N, N, d, "contiguous", gen)
@@ -246,11 +268,36 @@ def qkonly_growth(iters=20, log=print):
     tk = tuple(t[:, :64].contiguous() for t in tables)
     k64, v64 = k[:, :, :64].contiguous(), v[:, :, :64].contiguous()
     ms = {nk: graph_ms(lambda: attention_floor(q, kk, vv, pos, pp, 100.0, mode="qkonly",
-                                               tables_q=tables, tables_k=tt), iters)
+                                               tables_q=tables, tables_k=tt, core=core), iters)
           for nk, kk, vv, pp, tt in ((768, k, v, pos, tables), (64, k64, v64, pk, tk))}
-    log(f"[row 3] qkonly q{(B, H, N, d)}: {ms[768]:.4f} ms at Nk = 768, {ms[64]:.4f} ms at "
-        f"Nk = 64 ({ms[768] / ms[64]:.2f}x)")
+    log(f"[row 3] qkonly {core or 'sm90'} q{(B, H, N, d)}: {ms[768]:.4f} ms at Nk = 768, "
+        f"{ms[64]:.4f} ms at Nk = 64 ({ms[768] / ms[64]:.2f}x)")
     return ms
+
+
+def rotation(iters=20, log=print):
+    """The sm90 kernel's K rotation at (16,16,768,64): its time with RoPE
+    and without (the rotating warps idle, the products read K's TMA stage),
+    and the fp32 tables the rotating warps read: for every 64-key tile of
+    every (batch, head, 192-row query tile), 256 units of 8 columns, one
+    cos and one sin of 8 values each (a rotated pair shares them), 16 KB
+    against the tile's 8 KB of K. Counts from the kernel's design, times by
+    `graph_ms`; returns them."""
+    B, H, N, d = ENC16
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v = make_qkv(B, H, N, N, d, "contiguous", gen)
+    pos = positions(B, GRID, "grid", gen)
+    tables = rope_tables(pos, d)
+    rope_ms = graph_ms(lambda: fused_attention(q, k, v, pos, pos, 100.0, tables, tables), iters)
+    bare_ms = graph_ms(lambda: fused_attention(q, k, v), iters)
+    tiles = B * H * -(-N // 192) * -(-N // 64)
+    table_bytes, k_bytes = tiles * 256 * 2 * 8 * 4, tiles * 64 * d * 2
+    log(f"[rotation] sm90 {(B, H, N, d)}: {rope_ms:.4f} ms with RoPE, {bare_ms:.4f} ms without "
+        f"({rope_ms - bare_ms:.4f} ms, {100 * (rope_ms - bare_ms) / rope_ms:.1f} %); the "
+        f"rotating warps read {table_bytes} bytes of fp32 tables ({table_bytes / 2**20:.1f} "
+        f"MiB, {table_bytes / rope_ms / 1e6:.1f} GB/s over the kernel) against {k_bytes} bytes "
+        f"of K tiles, for {tiles} key tiles")
+    return dict(rope_ms=rope_ms, bare_ms=bare_ms, table_bytes=table_bytes, k_bytes=k_bytes)
 
 
 def library_label(softmax, ms):
@@ -266,24 +313,23 @@ def library_label(softmax, ms):
 
 def run_rows(iters=20, rows=ROWS, log=print):
     """Every row of `rows` on the card; raises if a kernel disagrees with
-    its plain version or an exact one with its baseline's bits."""
+    its plain version or a grouped or strided one with its G = 1 bits."""
     results = []
-    for n, (row, label, (B, H, N, d), layout, G, softmax, kind) in enumerate(rows):
+    for n, (row, label, (B, H, N, d), layout, G, softmax, kind, core) in enumerate(rows):
         gen = torch.Generator(device="cuda").manual_seed(SEED + n)
         q, k, v = make_qkv(B, H, N, N, d, layout, gen)
         pos = positions(B, GRID, kind, gen)
-        r = measure(q, k, v, pos, pos, G, softmax, iters, warm=n == 0)
-        log(f"[row {row}] {label} {(B, H, N, d)} {layout}: kernel {r['ms']:.4f} ms"
-            + ("" if "wrapper_ms" not in r else
-               f" ({r['wrapper_ms']:.4f} ms a call through the wrapper's launches)")
-            + f", row-1 "
-            f"baseline {r['baseline_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        r = measure(q, k, v, pos, pos, G, softmax, iters, warm=n == 0, core=core)
+        log(f"[row {row}] {label} {(B, H, N, d)} {layout}: kernel {r['ms']:.4f} ms "
+            f"({r['wrapper_ms']:.4f} ms a call through the wrapper's launches), "
+            f"{'exact kernel of its core' if softmax in MODES else 'row-1 baseline'} "
+            f"{r['baseline_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"{library_label(softmax, r['library_ms'])}, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}); max_abs_err {r['max_abs_err']:.3e} rel {r['rel']:.3e} "
             f"(limit {RTOL:g})"
-            + ("" if r["identical"] is None else
-               f"; bits equal {'G=1' if softmax in MODES else 'the baseline'}'s: "
-               f"{r['identical']}"))
+            + ("" if r["from_baseline"] is None else
+               f"; max |out - row-1 baseline| {r['from_baseline']:.3e}")
+            + ("" if r["identical"] is None else f"; bits equal G=1's: {r['identical']}"))
         if not r["rel"] <= RTOL or r["identical"] is False:
             raise AssertionError(f"row {row} {label}: the kernel disagrees ({r})")
         results.append(dict(row=row, label=label, shape=(B, H, N, d), layout=layout, **r))
@@ -352,13 +398,11 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("attn_variants: no CUDA device (torch.cuda.is_available() is False)")
     print(card_name())
-    _build.build(["fused_attention", "attention_floor"])
-    try:
-        check_heads_per_program(8, 16)
-    except ValueError as e:  # row 5's G = 8, refused by the wrapper
-        print(f"[row 5] G=8: refused: {e}")
+    _build.build(["fused_attention_sm90", "fused_attention", "attention_floor"])
     run_rows(args.iters)
-    qkonly_growth(args.iters)
+    for core in (None, "mma"):
+        qkonly_growth(args.iters, core=core)
+    rotation(args.iters)
     for shape in (ENC16, DEC12):
         chains(shape, args.iters)
     print(f"[ptx] fused_attention.cu ex2 instructions: {dict(ptx_exp_instructions())}")

@@ -56,7 +56,8 @@ from dust3r_tpu.ops.pallas_attention import fused_attention as jax_fused_attenti
 from dust3r_tpu_torch.models import blocks
 from dust3r_tpu_torch.ops.attention_variants import (SOFTMAXES, attention_variant,
                                                      attention_variant_ref)
-from dust3r_tpu_torch.ops.fused_attention import attention_ref, fused_attention
+from dust3r_tpu_torch.ops.fused_attention import (attention_ref, fused_attention,
+                                                 resolve_heads_per_program)
 
 SCRIPTS = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))), "scripts")
 B, H, N, D = 2, 4, 48, 64  # a 6x8 token grid
@@ -184,8 +185,8 @@ def test_row4_softmax_precision(tpu, kern, softmax, dtype):
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("variant,G", [("A", 4), ("B", 4), ("C", 8)])
 def test_row5_phase_orders(tpu, variant, G, dtype):
-    """Row 5's kernels under its `run`'s specs, 8 heads so that G = 8 fits.
-    The port refuses G = 8 (1024 threads); its function is served at G = 4."""
+    """Row 5's kernels under its `run`'s specs, 8 heads so that G = 8 fits;
+    the port serves each at the script's G."""
     heads = 8
     (jq, jk, jv), (tq, tk, tv) = _both(_inputs(5, heads), dtype)
     pos = _grid_positions()
@@ -199,7 +200,7 @@ def test_row5_phase_orders(tpu, variant, G, dtype):
                               out_shape=jax.ShapeDtypeStruct((B * heads, N, D), jq.dtype))
         out = call(*(t.reshape(B * heads, N, D) for t in (jq, jk, jv)), cq, sq, cq, sq)
     _held(out.reshape(B, heads, N, D), dtype, tq, tk, tv, torch.from_numpy(pos),
-          heads_per_program=min(G, 4))
+          heads_per_program=G)
 
 
 def _qkv(seed, dtype):
@@ -279,20 +280,27 @@ def test_nomax_overflows_as_row_9_does():
 
 
 def test_wrappers_refuse_what_they_cannot_serve():
+    """Any positive heads_per_program is served, resolved as the JAX kernel
+    resolves it (3 divides 6 heads; 8 and 4 halve to 2), on CPU tensors by
+    the plain version; 0, negatives and non-integers are refused, and so are
+    unknown softmax variants."""
     q = torch.zeros(1, 6, 8, 16)
     before = (fused_attention.launches, fused_attention.grouped_launches,
+              fused_attention.core_launches, fused_attention.core_grouped_launches,
               attention_variant.launches)
-    for G in (3, 8):
-        with pytest.raises(ValueError, match="not in"):
+    for G, served in ((3, 3), (8, 2), (4, 2)):
+        assert resolve_heads_per_program(6, 8, 8, G) == served
+        assert torch.equal(fused_attention(q, q, q, heads_per_program=G), attention_ref(q, q, q))
+    for G in (0, -1, 2.0, True):
+        with pytest.raises(ValueError, match="positive integer"):
             fused_attention(q, q, q, heads_per_program=G)
-    with pytest.raises(ValueError, match="does not divide"):
-        fused_attention(q, q, q, heads_per_program=4)
     for softmax in ("exact", "fast"):
         with pytest.raises(ValueError, match="softmax"):
             attention_variant(q, q, q, softmax=softmax)
     with pytest.raises(ValueError, match="softmax"):
         attention_variant_ref(q, q, q, softmax="fast")
     assert (fused_attention.launches, fused_attention.grouped_launches,
+            fused_attention.core_launches, fused_attention.core_grouped_launches,
             attention_variant.launches) == before
 
 

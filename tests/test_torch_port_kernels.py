@@ -10,9 +10,10 @@ Tolerances, against the plain version computed in fp32 from the same
 inputs and scaled by its max |x|: attention 1e-2 for bf16 inputs (8-bit
 mantissa, P rounded to bf16 before P.v; the sm90 kernel and the mma.sync
 core alike), 1e-5 for fp32 inputs; strided views give the bits of the
-contiguous call of the same core, and 2 or 4 heads a block those of the
-mma.sync core's one head a block (each head's arithmetic is the same); the
-softmax
+contiguous call of the same core, and more than one head a block those of
+one head a block of the same kernel (each head's arithmetic is the same):
+any G that heads_per_program resolves to on the sm90 kernel, 2 or 4 on the
+mma.sync core; the softmax
 variants 1e-2 against their own plain version on the same bf16 inputs
 (the bf16 ones round (s - max) at the running max and in log2 units, so a
 P may sit one bf16 unit from the plain version's); conv3x3
@@ -28,15 +29,17 @@ conv (rows 10, 11) 1e-2 against `conv3x3_taps_ref` (both round Z to bf16
 after fp32 sums in another order, then two bf16 adds), its two variants
 bit-identical (the same sums in the same order); dpt_post (row 13) 1e-5
 against `dpt_post_ref` (fp32 either way); the attention floors (row 3)
-1e-2 against `attention_floor_ref` on the same bf16 inputs, each G > 1 call
-bit-identical to G = 1.
+1e-2 against `attention_floor_ref` on the same bf16 inputs, on either
+kernel, and the sm90 kernel's product floors 1e-2 from the mma.sync
+core's, each G > 1 call bit-identical to G = 1 of its kernel.
 """
 import pytest
 import torch
 
 from dust3r_tpu_torch.models.blocks import token_positions
 from dust3r_tpu_torch.models.heads import Conv3x3, DPTOutputAdapter
-from dust3r_tpu_torch.ops.attention_floors import MODES, attention_floor, attention_floor_ref
+from dust3r_tpu_torch.ops.attention_floors import (MODES, SM90_CODES, attention_floor,
+                                                   attention_floor_ref)
 from dust3r_tpu_torch.ops.conv3x3_taps import (VARIANTS, conv3x3_taps_kernel, conv3x3_taps_ref,
                                                tap_sums)
 from dust3r_tpu_torch.ops.dpt_post import dpt_post_kernel, dpt_post_ref
@@ -48,7 +51,8 @@ from dust3r_tpu_torch.ops.upsample import up2x, up2x_kernel, up2x_ref
 from dust3r_tpu_torch.ops.attention_variants import (SOFTMAXES, attention_variant,
                                                      attention_variant_ref)
 from dust3r_tpu_torch.ops.fused_attention import (SUPPORTED_HEAD_DIMS, attention_ref,
-                                                  fused_attention, route)
+                                                  fused_attention, resolve_heads_per_program,
+                                                  route)
 
 pytestmark = pytest.mark.cuda
 
@@ -68,8 +72,10 @@ def card():
 
 
 def _launches():
+    """(sm90 launches, mma.sync core launches, sm90 launches with G > 1,
+    core bf16 launches with G > 1)"""
     return (fused_attention.launches, fused_attention.core_launches,
-            fused_attention.grouped_launches)
+            fused_attention.grouped_launches, fused_attention.core_grouped_launches)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
@@ -89,7 +95,7 @@ def test_kernel_matches_plain_version(card, case, d, dtype):
     out = fused_attention(q, k, v, pq, pk)
     torch.cuda.synchronize()
     sm90 = route(dtype, d) == "sm90"
-    assert _launches() == (before[0] + sm90, before[1] + (not sm90), before[2])
+    assert _launches() == (before[0] + sm90, before[1] + (not sm90), before[2], before[3])
     ref = attention_ref(q.float(), k.float(), v.float(), pq, pk)
     assert out.shape == ref.shape and out.dtype == dtype
     err = (out.float() - ref).abs().max().item() / ref.abs().max().item()
@@ -165,12 +171,9 @@ GROUP_CASES = {  # name: (B, H, (hq, wq) token grid of q, (hk, wk) of k, rope)
 }
 
 
-@pytest.mark.parametrize("G", [2, 4])
-@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
-@pytest.mark.parametrize("case", sorted(GROUP_CASES))
-def test_heads_per_program_gives_the_bits_of_one_head_a_block(card, case, d, G):
+def _group_inputs(card, case, d, seed):
     B, H, gq, gk, rope = GROUP_CASES[case]
-    gen = torch.Generator(device=card).manual_seed(d + G)
+    gen = torch.Generator(device=card).manual_seed(seed)
 
     def rnd(grid):
         return torch.randn(B, H, grid[0] * grid[1], d, device=card, generator=gen).to(
@@ -179,11 +182,40 @@ def test_heads_per_program_gives_the_bits_of_one_head_a_block(card, case, d, G):
     q, k, v = rnd(gq), rnd(gk), rnd(gk)
     pq = token_positions(B, *gq, card) if rope else None
     pk = token_positions(B, *gk, card) if rope else None
+    return q, k, v, pq, pk
+
+
+@pytest.mark.parametrize("G", [2, 4])
+@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("case", sorted(GROUP_CASES))
+def test_heads_per_program_gives_the_bits_of_one_head_a_block(card, case, d, G):
+    """The mma.sync core (`core="mma"`, the baseline) at 2 and 4 heads a
+    block gives its one-head-a-block bits, at every head dim."""
+    q, k, v, pq, pk = _group_inputs(card, case, d, seed=d + G)
+    before = _launches()
+    out = fused_attention(q, k, v, pq, pk, heads_per_program=G, core="mma")
+    torch.cuda.synchronize()
+    assert _launches() == (before[0], before[1] + 1, before[2], before[3] + 1)
+    assert torch.equal(out, fused_attention(q, k, v, pq, pk, heads_per_program=1, core="mma"))
+
+
+@pytest.mark.parametrize("G", [2, 3, 4, 6, 8])
+@pytest.mark.parametrize("case", sorted(GROUP_CASES))
+def test_sm90_heads_per_program_gives_the_bits_of_one_head_a_block(card, case, G):
+    """bf16 at d = 64 goes to the sm90 kernel at the G heads_per_program
+    resolves to (3 and 6 halve to 1 at 4 and 8 heads, 8 to 4 at 12 heads):
+    its one-head-a-block bits, within 1e-2 of the plain version."""
+    q, k, v, pq, pk = _group_inputs(card, case, 64, seed=G)
+    H, Nq, Nk = q.shape[1], q.shape[2], k.shape[2]
+    resolved = resolve_heads_per_program(H, Nq, Nk, G)
     before = _launches()
     out = fused_attention(q, k, v, pq, pk, heads_per_program=G)
     torch.cuda.synchronize()
-    assert _launches() == (before[0], before[1] + 1, before[2] + 1)
-    assert torch.equal(out, fused_attention(q, k, v, pq, pk, heads_per_program=1, core="mma"))
+    assert _launches() == (before[0] + 1, before[1], before[2] + (resolved > 1), before[3])
+    assert torch.equal(out, fused_attention(q, k, v, pq, pk))
+    ref = attention_ref(q.float(), k.float(), v.float(), pq, pk)
+    err = (out.float() - ref).abs().max().item() / ref.abs().max().item()
+    assert err <= RTOL[torch.bfloat16], f"{case} G={G}: rel err {err:.3e}"
 
 
 @pytest.mark.parametrize("G", [2, 4])
@@ -193,7 +225,7 @@ def test_fp32_runs_one_head_a_block_for_any_heads_per_program(card, G):
     before = _launches()
     out = fused_attention(q, k, v, heads_per_program=G)
     torch.cuda.synchronize()
-    assert _launches() == (before[0], before[1] + 1, before[2])
+    assert _launches() == (before[0], before[1] + 1, before[2], before[3])
     assert torch.equal(out, fused_attention(q, k, v))
 
 
@@ -222,9 +254,9 @@ def test_sm90_kernel_matches_plain_version_and_the_mma_core(card, case):
     before = _launches()
     out = fused_attention(q, k, v, pq, pk)
     torch.cuda.synchronize()
-    assert _launches() == (before[0] + 1, before[1], before[2])
+    assert _launches() == (before[0] + 1, before[1], before[2], before[3])
     core = fused_attention(q, k, v, pq, pk, core="mma")
-    assert _launches() == (before[0] + 1, before[1] + 1, before[2])
+    assert _launches() == (before[0] + 1, before[1] + 1, before[2], before[3])
     ref = attention_ref(q.float(), k.float(), v.float(), pq, pk)
     assert out.shape == ref.shape and torch.isfinite(out).all()
     for name, got in (("sm90", out), ("mma", core)):
@@ -234,9 +266,10 @@ def test_sm90_kernel_matches_plain_version_and_the_mma_core(card, case):
 
 
 def test_attention_routes_each_call_to_its_core(card):
-    """bf16 at d = 64 with one head a block goes to the sm90 kernel, the rest
-    to the mma.sync core; asking the sm90 kernel for what it does not take
-    raises, and so do strides TMA cannot address, before any launch."""
+    """bf16 at d = 64 goes to the sm90 kernel at any heads a block, the rest
+    to the mma.sync core, and `core="mma"` asks for the core; asking the
+    sm90 kernel for what it does not take raises, and so do strides TMA
+    cannot address, before any launch."""
     q = torch.randn(1, 4, 64, 64, device=card).to(torch.bfloat16)
     before = _launches()
     fused_attention(q, q, q)
@@ -244,15 +277,15 @@ def test_attention_routes_each_call_to_its_core(card):
                     q[..., :32].contiguous())
     fused_attention(q.float(), q.float(), q.float())
     fused_attention(q, q, q, heads_per_program=2)
+    fused_attention(q, q, q, heads_per_program=4, core="sm90")
     fused_attention(q, q, q, core="mma")
+    fused_attention(q, q, q, heads_per_program=2, core="mma")
     torch.cuda.synchronize()
-    assert _launches() == (before[0] + 1, before[1] + 4, before[2] + 1)
+    assert _launches() == (before[0] + 3, before[1] + 4, before[2] + 2, before[3] + 1)
     before = _launches()
     with pytest.raises(ValueError, match="sm90 kernel takes"):
         fused_attention(q[..., :32].contiguous(), q[..., :32].contiguous(),
                         q[..., :32].contiguous(), core="sm90")
-    with pytest.raises(ValueError, match="sm90 kernel takes"):
-        fused_attention(q, q, q, heads_per_program=2, core="sm90")
     with pytest.raises(ValueError, match="sm90 kernel takes"):
         fused_attention(q.float(), q.float(), q.float(), core="sm90")
     with pytest.raises(ValueError, match="core"):
@@ -292,21 +325,32 @@ def test_softmax_variant_matches_its_plain_version(card, case, softmax):
 
 
 def test_kernel_refuses_strides_and_groupings_it_cannot_serve(card):
-    q = torch.zeros(1, 6, 8, 64, device=card, dtype=torch.bfloat16)
-    before = (fused_attention.launches, attention_variant.launches)
+    """Strides TMA cannot address and G < 1 are refused before any launch;
+    8 and 4 heads a block at 6 heads resolve as the JAX kernel resolves them
+    (to 2) and give the one-head-a-block bits."""
+    gen = torch.Generator(device=card).manual_seed(6)
+    q = torch.randn(1, 6, 8, 64, device=card, generator=gen).to(torch.bfloat16)
+    before = (_launches(), attention_variant.launches)
     wide = torch.zeros(1, 6, 8, 68, device=card, dtype=torch.bfloat16)[..., :64]
     with pytest.raises(ValueError, match="multiples of 8 elements"):
         fused_attention(wide, q, q)  # rows 136 bytes apart
     with pytest.raises(ValueError, match="unit stride"):
         attention_variant(q.transpose(2, 3).contiguous().transpose(2, 3), q, q,
                           softmax="nomax")
-    with pytest.raises(ValueError, match="not in"):
-        fused_attention(q, q, q, heads_per_program=8)
-    with pytest.raises(ValueError, match="does not divide"):
-        fused_attention(q, q, q, heads_per_program=4)
+    for G in (0, -1):
+        with pytest.raises(ValueError, match="positive integer"):
+            fused_attention(q, q, q, heads_per_program=G)
     with pytest.raises(TypeError, match="bf16"):
         attention_variant(q.float(), q.float(), q.float(), softmax="bf16_exp")
-    assert (fused_attention.launches, attention_variant.launches) == before
+    assert (_launches(), attention_variant.launches) == before
+    one = fused_attention(q, q, q)
+    for G in (8, 4):
+        assert resolve_heads_per_program(6, 8, 8, G) == 2
+        before = _launches()
+        out = fused_attention(q, q, q, heads_per_program=G)
+        torch.cuda.synchronize()
+        assert _launches() == (before[0] + 1, before[1], before[2] + 1, before[3])
+        assert torch.equal(out, one)
 
 
 CONV_RTOL = 1e-3
@@ -631,6 +675,11 @@ FLOOR_CASES = {  # name: (B, H, (hq, wq) token grid of q, (hk, wk) of k)
     (c, m) for c in sorted(FLOOR_CASES) for m in MODES
     if FLOOR_CASES[c][2] == FLOOR_CASES[c][3] or m in ("nosmax", "qkonly")])
 def test_attention_floor_matches_plain_version(card, case, mode):
+    """Each floor on its default kernel (nosmax and qkonly on the sm90
+    kernel, the copy floors on attention_floor.cu) and, for nosmax and
+    qkonly, on the mma.sync core (`core="mma"`): within 1e-2 of the plain
+    version, every G dividing the heads giving its kernel's G = 1 bits;
+    the two kernels' product floors within 1e-2 of each other."""
     B, H, gq, gk = FLOOR_CASES[case]
     gen = torch.Generator(device=card).manual_seed(len(case) + MODES.index(mode))
 
@@ -641,23 +690,32 @@ def test_attention_floor_matches_plain_version(card, case, mode):
     q, k, v = rnd(gq), rnd(gk), rnd(gk)
     pq, pk = token_positions(B, *gq, card), token_positions(B, *gk, card)
     ref = attention_floor_ref(q, k, v, pq, pk, 100.0, mode).float()
-    outs = []
-    for G in (1, 2, 4) if H % 4 == 0 else (1,):
-        before = attention_floor.launches
-        outs.append(attention_floor(q, k, v, pq, pk, mode=mode, heads_per_program=G))
-        torch.cuda.synchronize()
-        assert attention_floor.launches == before + 1
-    out = outs[0]
-    assert out.shape == q.shape and out.dtype == torch.bfloat16 and torch.isfinite(out).all()
-    err = (out.float() - ref).abs().max().item() / ref.abs().max().item()
-    assert err <= FLOOR_RTOL, f"{case} {mode}: rel err {err:.3e}"
-    assert all(torch.equal(o, out) for o in outs[1:])
+    scale = ref.abs().max().item()
+    firsts = {}
+    for core in (None, "mma") if mode in SM90_CODES else (None,):
+        sm90 = core is None and mode in SM90_CODES
+        outs = []
+        for G in (g for g in (1, 2, 3, 4) if H % g == 0):
+            before = (attention_floor.launches, attention_floor.core_launches)
+            outs.append(attention_floor(q, k, v, pq, pk, mode=mode, heads_per_program=G,
+                                        core=core))
+            torch.cuda.synchronize()
+            assert (attention_floor.launches, attention_floor.core_launches) == (
+                before[0] + sm90, before[1] + (not sm90))
+        out = firsts[core] = outs[0]
+        assert out.shape == q.shape and out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+        err = (out.float() - ref).abs().max().item() / scale
+        assert err <= FLOOR_RTOL, f"{case} {mode} {core or 'sm90'}: rel err {err:.3e}"
+        assert all(torch.equal(o, out) for o in outs[1:])
+    if len(firsts) == 2:
+        gap = (firsts[None].float() - firsts["mma"].float()).abs().max().item() / scale
+        assert gap <= FLOOR_RTOL, f"{case} {mode}: sm90 vs mma.sync floor {gap:.3e}"
 
 
 def test_attention_floor_refuses_what_it_cannot_serve(card):
     q = torch.zeros(1, 4, 64, 64, device=card, dtype=torch.bfloat16)
     pos = token_positions(1, 8, 8, card)
-    before = attention_floor.launches
+    before = (attention_floor.launches, attention_floor.core_launches)
     with pytest.raises(TypeError, match="bf16"):
         attention_floor(q.float(), q.float(), q.float(), pos, pos, mode="copynr")
     with pytest.raises(ValueError, match="head dim"):
@@ -666,4 +724,8 @@ def test_attention_floor_refuses_what_it_cannot_serve(card):
     with pytest.raises(ValueError, match="Nk"):
         attention_floor(q, q[:, :, :48], q[:, :, :48], pos, token_positions(1, 6, 8, card),
                         mode="qkonly")
-    assert attention_floor.launches == before
+    with pytest.raises(ValueError, match="sm90 kernel serves"):
+        attention_floor(q, q, q, pos, pos, mode="copy", core="sm90")
+    with pytest.raises(ValueError, match="not in the divisors"):
+        attention_floor(q, q, q, pos, pos, mode="nosmax", heads_per_program=3)
+    assert (attention_floor.launches, attention_floor.core_launches) == before

@@ -20,7 +20,8 @@ from dust3r_tpu.ops.pallas_attention import _rope_tables as jax_rope_tables
 from dust3r_tpu.ops.rope import apply_rope2d as jax_apply_rope2d
 from dust3r_tpu_torch.ops.attention import attention
 from dust3r_tpu_torch.ops.fused_attention import (CORES, _kernel_tables, attention_ref,
-                                                 fused_attention, route)
+                                                 fused_attention, kernel_heads_per_program,
+                                                 route)
 from dust3r_tpu_torch.ops.rope import apply_rope2d, rope_tables
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -152,23 +153,34 @@ def test_wrapper_builds_rope_tables_once_per_positions_tensor(monkeypatch):
     assert built == [((2, 6, 2), 16), ((1, 6, 2), 24), ((1, 6, 2), 24)]
 
 
-ROUTES = {  # (dtype, head dim, heads a block): the core that serves the call on the card
-    ("bf16", 64, 1): "sm90",
-    ("bf16", 64, 2): "mma",
-    ("bf16", 64, 4): "mma",
-    ("bf16", 32, 1): "mma",
-    ("bf16", 24, 1): "mma",
-    ("bf16", 16, 1): "mma",
-    ("fp32", 64, 1): "mma",
-    ("fp32", 16, 2): "mma",
+ROUTES = {  # (dtype, head dim, heads a block): the core that serves the call on the
+    # card and the heads a block its kernel runs (the mma.sync core's bf16
+    # kernel: the largest of 4, 2, 1 dividing G)
+    ("bf16", 64, 1): ("sm90", 1),
+    ("bf16", 64, 2): ("sm90", 2),
+    ("bf16", 64, 4): ("sm90", 4),
+    ("bf16", 64, 8): ("sm90", 8),
+    ("bf16", 64, 3): ("sm90", 3),
+    ("bf16", 32, 1): ("mma", 1),
+    ("bf16", 32, 8): ("mma", 4),
+    ("bf16", 32, 6): ("mma", 2),
+    ("bf16", 24, 1): ("mma", 1),
+    ("bf16", 16, 1): ("mma", 1),
+    ("bf16", 16, 3): ("mma", 1),
+    ("fp32", 64, 1): ("mma", 1),
+    ("fp32", 16, 2): ("mma", 2),
 }
 DTYPES = dict(bf16=torch.bfloat16, fp32=torch.float32)
 
 
 @pytest.mark.parametrize("key", sorted(ROUTES), ids=lambda k: "-".join(map(str, k)))
 def test_route_sends_bf16_head_dim_64_single_heads_to_the_sm90_kernel(key):
+    """bf16 at d = 64 goes to the sm90 kernel at any heads a block, the rest
+    to the mma.sync core at the largest of 4, 2, 1 heads a block dividing
+    G."""
     dtype, d, G = key
-    assert route(DTYPES[dtype], d, G) == ROUTES[key]
+    core = route(DTYPES[dtype], d)
+    assert (core, kernel_heads_per_program(core, G)) == ROUTES[key]
 
 
 def test_the_published_models_attend_through_the_sm90_kernel():
