@@ -25,10 +25,11 @@ Phases (each prints its lines; a failed phase raises and the exit code is 1):
      larger);
   3b. variants: the attention-variants entry point (fused_attention with 2,
      4 and 8 heads a block on the sm90 kernel and with 2 and 4 on the
-     mma.sync core, attention_variant's three softmax variants) driven once
+     mma.sync core, attention_variant's three softmax variants on the sm90
+     kernel, nomax at row 9's G = 2, and on the mma.sync core) driven once
      at the encoder shape with its launch counts from 0, then each against
      its plain version (and G > 1 against G = 1 of the same kernel, bit for
-     bit);
+     bit; whether each sm90 variant's bits equal the core's);
   3c. experiments: the other TPU experiments' entry points, each driven
      once with its launch counts from 0: the tap-sum conv (rows 10 and 11,
      `conv3x3_taps_kernel` "slices" and "copies") at two DPT shapes, the
@@ -283,11 +284,13 @@ def variants_phase(torch):
     q, k, v as views of a (B, N, 3C) qkv: fused_attention with 2, 4 and 8
     heads a block on the sm90 kernel and with 2 and 4 on the mma.sync core
     (`core="mma"`, the baseline), and attention_variant's three softmax
-    variants, each called once with the launch counts from 0 (the counts of
-    this path), then each against its plain version (tools/attn_variants.
-    measure: G > 1 bit for bit against G = 1 of the same kernel, with times,
-    library call and bound). Returns the measured rows and the launch
-    counts."""
+    variants on the sm90 kernel ("nomax" at row 9's G = 2 heads a block)
+    and on the mma.sync core, each called once with the launch counts from
+    0 (the counts of this path), then each against its plain version
+    (tools/attn_variants.measure: G > 1 bit for bit against G = 1 of the
+    same kernel, whether an sm90 variant's bits equal the core's, with
+    times, library call and bound). Returns the measured rows and the
+    launch counts."""
     from dust3r_tpu_torch.ops.attention_variants import SOFTMAXES, attention_variant
     from dust3r_tpu_torch.ops.fused_attention import fused_attention
     from dust3r_tpu_torch.ops.rope import rope_tables
@@ -300,20 +303,23 @@ def variants_phase(torch):
     tables = rope_tables(pos, d)
     configs = ([(f"G={G}", G, None, None) for G in (2, 4, 8)]
                + [(f"G={G} mma", G, None, "mma") for G in (2, 4)]
-               + [(s, 1, s, None) for s in SOFTMAXES])
+               + [("nomax G=2", 2, "nomax", None), ("bf16_logits", 1, "bf16_logits", None),
+                  ("bf16_exp", 1, "bf16_exp", None)]
+               + [(f"{s} mma", 1, s, "mma") for s in SOFTMAXES])
 
     reset_launches()
     for _, G, softmax, core in configs:
         if softmax is None:
             fused_attention(q, k, v, pos, pos, 100.0, tables, tables, G, core=core)
         else:
-            attention_variant(q, k, v, pos, pos, 100.0, softmax=softmax, tables_q=tables,
-                              tables_k=tables)
+            attention_variant(q, k, v, pos, pos, 100.0, softmax=softmax, heads_per_program=G,
+                              tables_q=tables, tables_k=tables, core=core)
     torch.cuda.synchronize()
     launches = read_launches()
     expected = dict.fromkeys(launches, 0)
     expected.update(fused_attention=3, fused_attention_grouped=3, fused_attention_core=2,
-                    fused_attention_grouped_mma=2, attention_variant=3)
+                    fused_attention_grouped_mma=2, attention_variant=3,
+                    attention_variant_core=3)
     log(f"[variants] entry point at {(B, Hh, N, d)}: launches {launches} (expected {expected})")
     if launches != expected:
         raise AssertionError(f"variants launches {launches} != {expected}")
@@ -330,7 +336,9 @@ def variants_phase(torch):
             + ("" if r["from_baseline"] is None else
                f"; max |out - row-1 baseline| {r['from_baseline']:.3e}")
             + ("" if r["identical"] is None else
-               f"; bits equal its kernel's G=1: {r['identical']}"))
+               f"; bits equal its kernel's G=1: {r['identical']}")
+            + ("" if r["equals_mma"] is None else
+               f"; bits equal the mma.sync core's: {r['equals_mma']}"))
         if not r["rel"] <= RTOL or r["identical"] is False:
             raise AssertionError(f"variants {label}: the kernel disagrees ({r})")
         rows[label] = dict(r, count=1)
@@ -635,8 +643,9 @@ def kernel_counters():
     """Each kernel's wrapper and the attribute that counts its launches:
     fused_attention's sm90 kernel and, of those, its launches with more than
     one head a block; its mma.sync core (`core_launches`) and the core's
-    launches with more than one head a block; attention_floor's sm90 floors
-    and those of `csrc/attention_floor.cu` (`core_launches`)."""
+    launches with more than one head a block; attention_variant's sm90
+    kernel and its mma.sync core (`core_launches`); attention_floor's sm90
+    floors and those of `csrc/attention_floor.cu` (`core_launches`)."""
     from dust3r_tpu_torch.ops.attention_floors import attention_floor
     from dust3r_tpu_torch.ops.attention_variants import attention_variant
     from dust3r_tpu_torch.ops.conv3x3 import conv3x3_kernel
@@ -651,6 +660,7 @@ def kernel_counters():
                 fused_attention_grouped=(fused_attention, "grouped_launches"),
                 fused_attention_grouped_mma=(fused_attention, "core_grouped_launches"),
                 attention_variant=(attention_variant, "launches"),
+                attention_variant_core=(attention_variant, "core_launches"),
                 conv3x3=(conv3x3_kernel, "launches"), up2x=(up2x_kernel, "launches"),
                 dpt_tail=(dpt_tail_kernel, "launches"),
                 conv3x3_taps_slices=(tap_sums, "slices_launches"),
@@ -902,8 +912,9 @@ def main(argv):
     # projection, on the sm90 kernel; its mma.sync core (the baseline) at
     # the same call; its grouped form: the variants phase's G = 2, 4 and 8
     # calls on the sm90 kernel, summed, and its G = 2 and 4 calls on the
-    # core, summed; attention_variant: its three softmax variants' calls,
-    # summed; conv3x3 and up2x: one DPT head's calls at batch 8, summed;
+    # core, summed; attention_variant: its three softmax variants' calls on
+    # the sm90 kernel, summed, and attention_variant_mma the three on the
+    # mma.sync core, summed; conv3x3 and up2x: one DPT head's calls at batch 8, summed;
     # dpt_tail: the head's one call; the floors: the sm90 kernel's and
     # attention_floor.cu's calls of the experiments phase, each summed.
     # Device times: CUDA-graph replays where the phase took them (the
@@ -913,7 +924,7 @@ def main(argv):
     # the epilogue and the floors: the experiments phase's
     launches.update({k: variant_launches[k]
                      for k in ("fused_attention_grouped", "fused_attention_grouped_mma",
-                               "attention_variant")})
+                               "attention_variant", "attention_variant_core")})
     launches.update({k: experiment_launches[k] for k in experiment_rows})
     enc = attn_rows[0]
     rows = dict(
@@ -925,7 +936,9 @@ def main(argv):
         fused_attention_grouped=summed([variant_rows[k] for k in ("G=2", "G=4", "G=8")]),
         fused_attention_grouped_mma=summed([variant_rows[k] for k in ("G=2 mma", "G=4 mma")]),
         attention_variant=summed([variant_rows[k] for k in
-                                  ("nomax", "bf16_logits", "bf16_exp")]),
+                                  ("nomax G=2", "bf16_logits", "bf16_exp")]),
+        attention_variant_mma=summed([variant_rows[f"{k} mma"] for k in
+                                      ("nomax", "bf16_logits", "bf16_exp")]),
         conv3x3=dict(conv_total, ms=conv_total["graph_ms"],
                      library_ms=conv_total["library_graph_ms"]),
         up2x=up_total, dpt_tail=tail_total,
@@ -941,8 +954,10 @@ def main(argv):
                                  "scripts/exp_attn_vmem_r2.py:104"),
         fused_attention_grouped_mma=("fused_attention.cu", "scripts/exp_attn_r2.py:144, "
                                      "scripts/exp_attn_vmem_r2.py:104"),
-        attention_variant=("fused_attention.cu", "scripts/exp_attn_variants.py:83, "
+        attention_variant=("fused_attention_sm90.cu", "scripts/exp_attn_variants.py:83, "
                            "scripts/exp_softmax_r2.py:65"),
+        attention_variant_mma=("fused_attention.cu", "scripts/exp_attn_variants.py:83, "
+                               "scripts/exp_softmax_r2.py:65"),
         conv3x3=("conv3x3.cu", "dust3r_tpu/ops/conv3x3.py:74"),
         up2x=("up2x.cu", "scripts/exp_up_pallas_r2.py:79"),
         dpt_tail=("dpt_tail.cu", "scripts/exp_tailk_r2.py:78, scripts/exp_tailk2_r2.py:113"),
@@ -952,6 +967,7 @@ def main(argv):
         attention_floor=("fused_attention_sm90.cu", "scripts/exp_attn_r2.py:144"),
         attention_floor_mma=("attention_floor.cu", "scripts/exp_attn_r2.py:144"))
     launches["fused_attention_mma"] = launches.pop("fused_attention_core")
+    launches["attention_variant_mma"] = launches.pop("attention_variant_core")
     kernels = [dict(name=name, route="cuda", source=f"dust3r_tpu_torch/csrc/{src}",
                     replaces=replaces, launches=launches[name],
                     **{k: rows[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -3,13 +3,14 @@
 // `fused_attention.cu` instantiates it with the exact softmax and the
 // softmax variants, `attention_floor.cu` with the floors' codes. What each
 // kernel serves: this core, G = 1, 2 or 4 heads a block (the wrapper runs a
-// call's G at the largest of those dividing it), takes fp32, d < 64, the
-// softmax variants, and with core="mma" the bf16 d = 64 calls and row 3's
-// floors nosmax and qkonly (the baseline of the sm90 kernel); the copy
-// floors are attention_floor.cu's alone. fused_attention_sm90.cu (TMA +
-// wgmma) takes bf16 d = 64 at any G dividing the heads, exact or as the
-// floors nosmax and qkonly, and shares this header's Args, make_args and
-// bf16 packing helpers.
+// call's G at the largest of those dividing it), takes fp32, d < 64 (the
+// softmax variants too), and with core="mma" the bf16 d = 64 calls, the
+// softmax variants and row 3's floors nosmax and qkonly (the baseline of
+// the sm90 kernel); the copy floors are attention_floor.cu's alone.
+// fused_attention_sm90.cu (TMA + wgmma) takes bf16 d = 64 at any G
+// dividing the heads, exact, as the softmax variants or as the floors
+// nosmax and qkonly, and shares this header's Args, make_args, Softmax
+// codes and bf16 packing and exp2 helpers.
 //
 // Per (batch, head):  O = softmax((R_q q)(R_k k)^T * d^-1/2) v
 // RoPE in fp32 (head dim halves [y | x], rotate-half within each half), q

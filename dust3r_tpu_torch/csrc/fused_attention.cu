@@ -11,8 +11,10 @@
 // exp_attn_vmem_r2.py (row 5), which fused_attention_sm90.cu serves at any
 // G; the wrapper runs a G here at the largest of 1, 2, 4 dividing it.
 //
-// With a softmax other than the exact one it serves the TPU experiments
-// that vary row 1's softmax (one head a block, bf16):
+// With a softmax other than the exact one (one head a block, bf16) it
+// runs the TPU experiments that vary row 1's softmax: at d = 64 as the
+// baseline (core="mma") of fused_attention_sm90.cu, which serves them as
+// modes of its consumer loop, and at d < 64 as their only kernel:
 //   * scripts/exp_softmax_r2.py::attn with safe=False (row 9): "nomax",
 //     p = exp(s) with no running max and no rescale of the accumulator. It
 //     overflows where a logit passes ~88, as row 9 does; nothing in the
@@ -22,13 +24,11 @@
 //     then the bf16 exp) and "bf16_exp" (fp32 logits and max, then
 //     exp2 of bf16((s - m) log2 e) on bf16 pairs, one sm_90
 //     ex2.approx.ftz.bf16x2 a pair; P comes out of it in bf16).
-// Row 4's kern_base and row 9's safe=True are the exact softmax. What
-// bounds a variant is what bounds row 1: at d = 64 a logit costs 256
-// tensor-core FLOPs and one exp, and 989 TFLOP/s / 256 is about the SM's
-// fp32 exp rate, so whether a cheaper exp (or none of the max's passes)
-// moves the time is measured, not assumed. Every variant divides by the
-// fp32 row sum of P as its exp made it; the TPU's ones-column fold is not
-// carried over.
+// Row 4's kern_base and row 9's safe=True are the exact softmax. Every
+// variant divides by the fp32 row sum of P as its exp made it; the TPU's
+// ones-column fold is not carried over. What the variants buy is measured
+// on both kernels by tools/attn_variants.py: on this core each carries its
+// whole deficit against the sm90 kernel.
 // The kernels and what bounds them are in attention_core.cuh.
 
 #include "attention_core.cuh"

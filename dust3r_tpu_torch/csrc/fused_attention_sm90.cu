@@ -1,6 +1,7 @@
 // Fused 2D-RoPE attention for Hopper (sm_90a) built on TMA and wgmma, with a
 // plain C interface: the main path's attention (bf16, head dim 64, exact
-// softmax), its grouped form (G heads a block) and two of its floors.
+// softmax), its grouped form (G heads a block), the softmax variants and two
+// of its floors.
 //
 // Replaces dust3r_tpu/ops/pallas_attention.py::fused_attention (the Pallas
 // TPU kernel _attn_kernel with _apply_rope_tile, row 1 of the repo's TPU
@@ -8,8 +9,22 @@
 // read q, k and v out of the (B, N, 3C) qkv projection or (B, N, C)
 // projections and write (B, N, C) (rows 6 and 7); with G heads a block,
 // the TPU experiments that group heads (scripts/exp_attn_r2.py::attn_g and
-// exp_attn_vmem_r2.py, rows 3 and 5), at any G that divides the heads; and
-// row 3's two product floors, as modes of the same consumer loop:
+// exp_attn_vmem_r2.py, rows 3 and 5), at any G that divides the heads.
+// Modes of the same consumer loop, an attn::Softmax code each, serve the
+// TPU experiments that vary row 1's softmax (attention_core.cuh's header
+// says what each computes):
+//   nomax        scripts/exp_softmax_r2.py::attn with safe=False (row 9):
+//                P = exp(s), keys past Nk masked to -inf first; no running
+//                max, no rescale. It overflows past logits of ~88, as row
+//                9 does;
+//   bf16_exp     scripts/exp_attn_variants.py's kern_bf16exp (row 4): the
+//                online max in fp32, then P = 2^bf16((s - m) log2 e), one
+//                ex2.approx.ftz.bf16x2 a pair, straight into P.v's A
+//                operand;
+//   bf16_logits  kern_bf16s (row 4): the logits rounded to bf16, then as
+//                bf16_exp;
+// each with the fp32 row sum of P as its exp made it, and with RoPE or
+// without; and row 3's two product floors, with RoPE:
 //   nosmax  P = bf16(S): both products, no max, exp, row sum or divide;
 //   qkonly  no P.v: the output is key tile 0's logits (the script's
 //           s[:, :d]); every tile's logits and a value of each V tile are
@@ -21,9 +36,9 @@
 // scaled and then rounded to bf16, k rotated and rounded to bf16, logits
 // and the online softmax in fp32, P rounded to bf16 before P.v, the output
 // divided by the fp32 row sum. Only the order of the fp32 sums inside the
-// products differs. That core stays the kernel of fp32, of d < 64, of the
-// softmax variants and of the copy floors, and the baseline (core="mma")
-// the grouped calls and the floors are held to.
+// products differs. That core stays the kernel of fp32, of d < 64 and of
+// the copy floors, and the baseline (core="mma") the grouped calls, the
+// softmax variants and the product floors are held to.
 //
 // What bounds it on an H100: at DUSt3R's sizes (N = 672-768, d = 64) the
 // two products are 4*N*N*d FLOPs against 4*N*d bf16 values in and out, some
@@ -222,10 +237,10 @@ __device__ __forceinline__ void rotate_keys(Smem& sm, int rt, int lane, const fl
 
 // A consumer warpgroup's share of one head: its 64 query rows of the
 // 192-row query tile q0 of head h of batch entry b, against every key tile;
-// `it` counts the ring's tiles across units. S makes of the
-// logits: attn::kExact P by the online softmax; attn::kNoSoftmax P =
-// bf16(S); attn::kQkOnly no P.v, the output key tile 0's logits and every
-// tile's folded into `sink` (see the header).
+// `it` counts the ring's tiles across units. S makes P of the logits:
+// attn::kExact by the online softmax; kNoMax, kBf16Exp and kBf16Logits as
+// the header's variants; kNoSoftmax P = bf16(S); kQkOnly no P.v, the output
+// key tile 0's logits and every tile's folded into `sink` (see the header).
 template <bool kRope, int S>
 __device__ __forceinline__ void consume(Smem& sm, const Args& args, int b, int h, int q0,
                                         int ntiles, int& it, uint32_t& sink) {
@@ -250,7 +265,8 @@ __device__ __forceinline__ void consume(Smem& sm, const Args& args, int b, int h
   float o[32], sc[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) o[i] = sc[i] = 0.f;
-  [[maybe_unused]] float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g and g + 8
+  // running max of rows g and g + 8 (kNoMax: 0)
+  [[maybe_unused]] float m0 = S == attn::kNoMax ? 0.f : -INFINITY, m1 = m0;
   float l0 = 0.f, l1 = 0.f;  // this thread's share of their row sums
 
   for (int j = 0; j < ntiles; ++j, ++it) {
@@ -294,6 +310,14 @@ __device__ __forceinline__ void consume(Smem& sm, const Args& args, int b, int h
           pa[n / 2][2 * (n % 2) + 1] = attn::pack_bf16(sc[4 * n + 2], sc[4 * n + 3]);
         }
       } else {
+        if constexpr (S == attn::kBf16Logits) {  // rounded a pair at a time: one cvt a pair
+#pragma unroll
+          for (int i = 0; i < 32; i += 2) {
+            const float2 r = __bfloat1622float2(__floats2bfloat162_rn(sc[i], sc[i + 1]));
+            sc[i] = r.x;
+            sc[i + 1] = r.y;
+          }
+        }
         const int valid = args.nk - j * kKeys;
         if (valid < kKeys) {
 #pragma unroll
@@ -301,40 +325,59 @@ __device__ __forceinline__ void consume(Smem& sm, const Args& args, int b, int h
             if ((i / 4) * 8 + 2 * t + (i & 1) >= valid) sc[i] = -INFINITY;
           }
         }
-        // the online softmax of attention_core.cuh's kExact: the four
-        // threads of a group share rows g and g + 8
-        float mx0 = m0, mx1 = m1;
+        if constexpr (S != attn::kNoMax) {  // kNoMax: no running max (m stays 0)
+          // the online softmax of attention_core.cuh: the four threads of a
+          // group share rows g and g + 8
+          float mx0 = m0, mx1 = m1;
 #pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          mx0 = fmaxf(mx0, fmaxf(sc[4 * n], sc[4 * n + 1]));
-          mx1 = fmaxf(mx1, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
+          for (int n = 0; n < 8; ++n) {
+            mx0 = fmaxf(mx0, fmaxf(sc[4 * n], sc[4 * n + 1]));
+            mx1 = fmaxf(mx1, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
+          }
+#pragma unroll
+          for (int sh = 1; sh <= 2; sh *= 2) {
+            mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
+            mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
+          }
+          const float corr0 = __expf(m0 - mx0);
+          const float corr1 = __expf(m1 - mx1);
+          m0 = mx0;
+          m1 = mx1;
+          l0 *= corr0;
+          l1 *= corr1;
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            o[4 * n] *= corr0;
+            o[4 * n + 1] *= corr0;
+            o[4 * n + 2] *= corr1;
+            o[4 * n + 3] *= corr1;
+          }
         }
+        if constexpr (S == attn::kExact || S == attn::kNoMax) {
 #pragma unroll
-        for (int sh = 1; sh <= 2; sh *= 2) {
-          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
-          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
-        }
-        const float corr0 = __expf(m0 - mx0);
-        const float corr1 = __expf(m1 - mx1);
-        m0 = mx0;
-        m1 = mx1;
-        l0 *= corr0;
-        l1 *= corr1;
+          for (int n = 0; n < 8; ++n) {
+            const float p0 = __expf(sc[4 * n] - m0), p1 = __expf(sc[4 * n + 1] - m0);
+            const float p2 = __expf(sc[4 * n + 2] - m1), p3 = __expf(sc[4 * n + 3] - m1);
+            l0 += p0 + p1;
+            l1 += p2 + p3;
+            pa[n / 2][2 * (n % 2)] = attn::pack_bf16(p0, p1);
+            pa[n / 2][2 * (n % 2) + 1] = attn::pack_bf16(p2, p3);
+          }
+        } else {  // kBf16Exp, kBf16Logits: bf16x2 exp2 of bf16((s - m) log2 e)
+          const float nm0 = -m0 * attn::kLog2e, nm1 = -m1 * attn::kLog2e;
 #pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          o[4 * n] *= corr0;
-          o[4 * n + 1] *= corr0;
-          o[4 * n + 2] *= corr1;
-          o[4 * n + 3] *= corr1;
-        }
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const float p0 = __expf(sc[4 * n] - m0), p1 = __expf(sc[4 * n + 1] - m0);
-          const float p2 = __expf(sc[4 * n + 2] - m1), p3 = __expf(sc[4 * n + 3] - m1);
-          l0 += p0 + p1;
-          l1 += p2 + p3;
-          pa[n / 2][2 * (n % 2)] = attn::pack_bf16(p0, p1);
-          pa[n / 2][2 * (n % 2) + 1] = attn::pack_bf16(p2, p3);
+          for (int n = 0; n < 8; ++n) {
+            const uint32_t p01 = attn::exp2_bf16x2(attn::pack_bf16(
+                fmaf(sc[4 * n], attn::kLog2e, nm0), fmaf(sc[4 * n + 1], attn::kLog2e, nm0)));
+            const uint32_t p23 = attn::exp2_bf16x2(attn::pack_bf16(
+                fmaf(sc[4 * n + 2], attn::kLog2e, nm1), fmaf(sc[4 * n + 3], attn::kLog2e, nm1)));
+            const float2 f01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&p01));
+            const float2 f23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&p23));
+            l0 += f01.x + f01.y;
+            l1 += f23.x + f23.y;
+            pa[n / 2][2 * (n % 2)] = p01;
+            pa[n / 2][2 * (n % 2) + 1] = p23;
+          }
         }
       }
 
@@ -355,14 +398,14 @@ __device__ __forceinline__ void consume(Smem& sm, const Args& args, int b, int h
     if (lane == 0) sm90::mbar_arrive(&sm.empty[s]);
   }
 
-  if constexpr (S == attn::kExact) {
+  if constexpr (S == attn::kNoSoftmax || S == attn::kQkOnly) {  // no row sum to divide by
+    l0 = l1 = 1.f;
+  } else {
 #pragma unroll
     for (int sh = 1; sh <= 2; sh *= 2) {
       l0 += __shfl_xor_sync(0xffffffffu, l0, sh);
       l1 += __shfl_xor_sync(0xffffffffu, l1, sh);
     }
-  } else {  // the floors: no row sum to divide by
-    l0 = l1 = 1.f;
   }
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(args.o) + b * args.so.b + h * args.so.h;
 #pragma unroll
@@ -490,6 +533,14 @@ int launch(const CUtensorMap& kmap, const CUtensorMap& vmap, const Args& a, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+// launch<kRope, S> with kRope taken at run time
+template <int S>
+int launch_rope(bool rope, const CUtensorMap& kmap, const CUtensorMap& vmap, const Args& a,
+                int batch, int group, cudaStream_t stream) {
+  return rope ? launch<true, S>(kmap, vmap, a, batch, group, stream)
+              : launch<false, S>(kmap, vmap, a, batch, group, stream);
+}
+
 }  // namespace
 
 // Arguments as dust3r_fused_attention's (fused_attention.cu) for bf16 and d
@@ -499,11 +550,12 @@ int launch(const CUtensorMap& kmap, const CUtensorMap& vmap, const Args& a, int 
 // where its dim exceeds 1, every base 16-byte aligned: TMA's rules); cos/sin
 // tables (batch, n, 64) fp32 contiguous as rope_tables builds them, ignored
 // (may be null) without RoPE; heads_per_block G, any divisor of heads;
-// `mode` an attn::Softmax code: kExact, or with RoPE the floors kNoSoftmax
-// (nosmax) and kQkOnly (qkonly, nk >= 64). Returns the CUDA error code of
-// the launch, or of encoding a tensor map offset by 1000 (1000 + CUresult;
-// sm90::kNoEncoder when the runtime gives no encoder); -1 for what it does
-// not take.
+// `mode` an attn::Softmax code: kExact or the softmax variants kNoMax
+// (nomax), kBf16Logits (bf16_logits) and kBf16Exp (bf16_exp), with RoPE or
+// without; with RoPE the floors kNoSoftmax (nosmax) and kQkOnly (qkonly, nk
+// >= 64). Returns the CUDA error code of the launch, or of encoding a
+// tensor map offset by 1000 (1000 + CUresult; sm90::kNoEncoder when the
+// runtime gives no encoder); -1 for what it does not take.
 extern "C" int dust3r_fused_attention_sm90(const void* q, const void* k, const void* v,
                                            const float* cos_q, const float* sin_q,
                                            const float* cos_k, const float* sin_k, void* o,
@@ -512,7 +564,7 @@ extern "C" int dust3r_fused_attention_sm90(const void* q, const void* k, const v
                                            float scale, void* stream) {
   if (heads_per_block < 1 || heads % heads_per_block) return -1;
   const bool floor = mode == attn::kNoSoftmax || mode == attn::kQkOnly;
-  if ((mode != attn::kExact && !floor) || (floor && !use_rope) ||
+  if (mode < attn::kExact || mode > attn::kQkOnly || (floor && !use_rope) ||
       (mode == attn::kQkOnly && nk < kD)) {
     return -1;
   }
@@ -525,12 +577,17 @@ extern "C" int dust3r_fused_attention_sm90(const void* q, const void* k, const v
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int g = heads_per_block;
   switch (mode) {
+    case attn::kNoMax:
+      return launch_rope<attn::kNoMax>(use_rope, kmap, vmap, a, batch, g, s);
+    case attn::kBf16Logits:
+      return launch_rope<attn::kBf16Logits>(use_rope, kmap, vmap, a, batch, g, s);
+    case attn::kBf16Exp:
+      return launch_rope<attn::kBf16Exp>(use_rope, kmap, vmap, a, batch, g, s);
     case attn::kNoSoftmax:
       return launch<true, attn::kNoSoftmax>(kmap, vmap, a, batch, g, s);
     case attn::kQkOnly:
       return launch<true, attn::kQkOnly>(kmap, vmap, a, batch, g, s);
     default:
-      return use_rope ? launch<true, attn::kExact>(kmap, vmap, a, batch, g, s)
-                      : launch<false, attn::kExact>(kmap, vmap, a, batch, g, s);
+      return launch_rope<attn::kExact>(use_rope, kmap, vmap, a, batch, g, s);
   }
 }

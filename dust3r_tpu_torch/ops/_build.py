@@ -79,9 +79,14 @@ def build(names):
         raise RuntimeError("\n".join(failed))
 
 
+def library_path(name):
+    """Where the current build of `csrc/<name>.cu` lies (or will lie)."""
+    return _out_dir(name)[1] / f"lib{name}.so"
+
+
 def load_library(name):
     """Build (if needed) and load `csrc/<name>.cu` as a ctypes library."""
     if name not in _loaded:
         build([name])
-        _loaded[name] = ctypes.CDLL(str(_out_dir(name)[1] / f"lib{name}.so"))
+        _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]

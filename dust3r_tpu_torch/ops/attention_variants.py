@@ -1,14 +1,24 @@
-"""Softmax variants of the fused attention: the CUDA kernel's wrapper and
-its plain version.
+"""Softmax variants of the fused attention: the CUDA kernels' wrapper and
+their plain version.
 
 Counterpart of the TPU experiments that vary the fused attention's
-softmax: `scripts/exp_softmax_r2.py::attn(safe=False)` ("nomax") and the
-`kern_bf16s` ("bf16_logits") and `kern_bf16exp` ("bf16_exp") kernels of
-`scripts/exp_attn_variants.py`. The kernel is `csrc/fused_attention.cu`'s,
-on the core of `csrc/attention_core.cuh`, given a softmax code; its
-header says what each variant computes. They answer a question of speed
-and are served by this entry point and `tools/attn_variants.py`, not by
-the model: "nomax" overflows where a logit passes ~88.
+softmax: `scripts/exp_softmax_r2.py::attn(safe=False)` ("nomax", the
+script's G = 2 heads a program) and the `kern_bf16s` ("bf16_logits") and
+`kern_bf16exp` ("bf16_exp") kernels of `scripts/exp_attn_variants.py`.
+Two hand-written sm_90a kernels serve them, each named by its `core` as in
+`fused_attention`, given a softmax code:
+
+* "sm90", `csrc/fused_attention_sm90.cu`: the variants are modes of its
+  consumer loop (TMA ring of K and V, products on wgmma), for bf16 with
+  head dim 64 at any G heads a block that divides the heads;
+* "mma", `csrc/fused_attention.cu` on the mma.sync core of
+  `csrc/attention_core.cuh`: bf16 at head dims 16-64, one head a block
+  (any G runs there at one head a block, with the same bits); with
+  `core="mma"` it is the sm90 kernel's baseline.
+
+The headers say what each variant computes. They answer a question of
+speed and are served by this entry point and `tools/attn_variants.py`,
+not by the model: "nomax" overflows where a logit passes ~88.
 
 * `attention_variant_ref` is the plain version, step by step the scripts'
   arithmetic: q and k to fp32, RoPE from fp32 tables, q scaled, q and k
@@ -19,14 +29,17 @@ the model: "nomax" overflows where a logit passes ~88.
   softmax="exact" is the TPU row-1 kernel's own arithmetic (fp32 RoPE),
   the yardstick the variants are held to.
 * `attention_variant` is the wrapper: the plain version for CPU tensors;
-  for CUDA tensors it launches the kernel or raises.
-  `attention_variant.launches` counts kernel launches.
+  for CUDA tensors it launches the kernel of its core or raises; nothing
+  falls back from one kernel to the other. `attention_variant.launches`
+  counts launches of the sm90 kernel, `attention_variant.core_launches`
+  those of the mma.sync core.
 """
 from __future__ import annotations
 
 import torch
 
-from .fused_attention import check, launch
+from .attention_floors import check_heads_per_program
+from .fused_attention import CORES, SM90_HEAD_DIM, check, launch, launch_sm90, route
 from .rope import apply_rope2d
 
 SOFTMAXES = ("nomax", "bf16_logits", "bf16_exp")
@@ -58,21 +71,40 @@ def attention_variant_ref(q, k, v, positions_q=None, positions_k=None, rope_base
 
 
 def attention_variant(q, k, v, positions_q=None, positions_k=None, rope_base=100.0, *,
-                      softmax, tables_q=None, tables_k=None):
+                      softmax, heads_per_program=1, tables_q=None, tables_k=None, core=None):
     """The fused attention with softmax "nomax", "bf16_logits" or
     "bf16_exp" (see the module docstring). Arguments and output as
-    `fused_attention`'s, one head a block, bf16 on the card."""
+    `fused_attention`'s, bf16 on the card. heads_per_program: any divisor
+    of the heads (the script's rule, `check_heads_per_program`), every
+    value giving the same bits. core: None (`route`: the sm90 kernel for
+    head dim 64, the mma.sync core below it), "sm90" (raises where that
+    kernel does not serve) or "mma"."""
     if softmax not in SOFTMAXES:
         raise ValueError(f"softmax {softmax!r} not in {SOFTMAXES}")
+    check_heads_per_program(heads_per_program, q.shape[1])
+    if core is not None and core not in CORES:
+        raise ValueError(f"core {core!r} not in {CORES} or None")
     if q.device.type == "cpu":
         return attention_variant_ref(q, k, v, positions_q, positions_k, rope_base, softmax)
-    check(q, k, v, positions_q, positions_k)
+    routed = route(q.dtype, q.shape[-1])
+    if core == "sm90" and routed != "sm90":
+        raise ValueError(f"the sm90 kernel takes bf16 with head dim {SM90_HEAD_DIM}, got "
+                         f"{q.dtype}, d={q.shape[-1]}")
+    core = core or routed
+    G = heads_per_program if core == "sm90" else 1  # the core's variants: one head a block
+    check(q, k, v, positions_q, positions_k, G)
     if q.dtype != torch.bfloat16:
         raise TypeError(f"the softmax variants are bf16 kernels, got {q.dtype}")
+    if core == "sm90":
+        out = launch_sm90(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k, G,
+                          softmax=_CODES[softmax])
+        attention_variant.launches += 1
+        return out
     out = launch(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k,
                  softmax=_CODES[softmax])
-    attention_variant.launches += 1
+    attention_variant.core_launches += 1
     return out
 
 
 attention_variant.launches = 0
+attention_variant.core_launches = 0

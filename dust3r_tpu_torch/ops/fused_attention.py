@@ -6,14 +6,15 @@ hand-written sm_90a kernels serve it, each named by its `core`:
 * "sm90", `csrc/fused_attention_sm90.cu`: TMA rings of K and V tiles, K
   rotated by a producer warpgroup, the products on wgmma, online softmax in
   fp32. It takes bf16 with head dim 64 and any number of heads a block that
-  divides the heads: every call of the model's path, and the grouped calls
-  of the TPU experiments (rows 3 and 5).
+  divides the heads: every call of the model's path, the grouped calls
+  of the TPU experiments (rows 3 and 5), and as modes of its consumer loop
+  the softmax variants (`attention_variants`) and two floors.
 * "mma", `csrc/fused_attention.cu` on the core of `csrc/attention_core.cuh`:
   mma.sync bf16 tensor cores, K/V streamed through shared memory, online
   softmax in fp32. It takes everything else (fp32, head dims 16, 24, 32)
   and, with `core="mma"`, the bf16 d = 64 calls too: it is the baseline of
-  the sm90 kernel, of the grouped calls and of the floors, and the kernel
-  of the softmax variants. Its bf16 kernel runs 1, 2 or 4 heads a block
+  the sm90 kernel, of the grouped calls, of the softmax variants and of
+  the floors. Its bf16 kernel runs 1, 2 or 4 heads a block
   (128 threads a head); a call's G is served there at the largest of those
   that divides it (`kernel_heads_per_program`), its fp32 kernel runs one
   head a block.
@@ -262,8 +263,9 @@ def launch_sm90(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k
                 heads_per_program=1, softmax=0):
     """Launch the sm90 kernel on checked bf16 CUDA q, k, v of head dim 64
     with `heads_per_program` heads a block (dividing H) and the softmax
-    code `softmax` (0: exact; `attention_floors`' product floors pass
-    theirs); returns as `launch` does, or raises."""
+    code `softmax` (0: exact; `attention_variants`' softmax variants and
+    `attention_floors`' product floors pass theirs); returns as `launch`
+    does, or raises."""
     B, H, Nq, d = q.shape
     Nk = k.shape[2]
     tables, out, strides = _operands(q, k, v, positions_q, positions_k, rope_base, tables_q,

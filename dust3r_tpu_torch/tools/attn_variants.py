@@ -14,17 +14,19 @@ draws them):
      attention_floor's floor modes: nosmax and qkonly on the sm90 kernel at
      G = 1, 4, 8, and on the mma.sync core at the script's G (nosmax and
      copynr at 1, 2, 4, qkonly, copy and copymm at 1, 4), (16,16,768,64)
-  4  attention_variant "bf16_exp" and "bf16_logits", (16,16,768,64)
+  4  attention_variant "bf16_exp" and "bf16_logits", (16,16,768,64), on
+     either kernel
   5  fused_attention G = 4 and G = 8 on the sm90 kernel, (16,16,768,64)
   6  fused_attention on (B, H, N, d) views of a (B, N, 3C) qkv projection,
      (16,16,768,64) and (8,12,768,64), on either kernel
   7  the same on views of three head-packed (B, N, C) projections
   8  fused_attention G = 1 on random positions, (16,16,768,64), on either
-  9  attention_variant "nomax", (16,16,768,64)
+  9  attention_variant "nomax", (16,16,768,64), on the sm90 kernel at G = 1
+     and at the script's G = 2, and on the mma.sync core
 
 A row names its kernel: the sm90 kernel (`core=None`, the route of every
-bf16 d = 64 call) or the mma.sync core (`core="mma"`, also the kernel of the
-softmax variants). For each: the row's kernel, the row-1 baseline (the
+bf16 d = 64 call) or the mma.sync core (`core="mma"`, the baseline). For
+each: the row's kernel, the row-1 baseline (the
 mma.sync core, G = 1 on contiguous q, k, v; for a floor, the exact kernel
 of its own core, G = 1), the plain version, the library yardstick
 (`F.scaled_dot_product_attention` on q and k rotated beforehand, in the
@@ -37,7 +39,9 @@ version by CUDA events through its calls (`time_ms`), with the RoPE tables
 built once; the kernel's error against its plain version; for the exact
 softmax whether its bits equal its own kernel's at G = 1 on contiguous q,
 k, v, and its largest distance from the row-1 baseline's output; for a
-floor with G > 1, whether its bits equal its G = 1 call's. qkonly is also
+floor or a variant with G > 1, whether its bits equal its G = 1 call's;
+for a variant on the sm90 kernel, whether its bits equal the same
+variant's on the mma.sync core. qkonly is also
 timed at Nk = 64 beside Nk = 768 on both kernels: its time must grow with
 the keys it reads. The sm90 kernel's K rotation: its time with and without
 RoPE at (16,16,768,64), beside the bytes of fp32 tables its rotating warps
@@ -46,9 +50,12 @@ read. Then the scripts' chain comparison (`exp_attn_dma_r2.py:149-159`,
 out-projection, with the head-transposing copies of q, k, v and a copy of
 the merged output (the path before the kernel read strides) against the
 strided path, for self-attention on one qkv GEMM and for cross-attention
-on three. Last, which `ex2` instructions the attention source compiled
-to (the PTX of `csrc/fused_attention.cu`: the bf16x2 ones are the bf16
-variants'). Without a CUDA device it exits non-zero.
+on three. Last, which `ex2` instructions the attention sources compiled
+to: the PTX of `csrc/fused_attention.cu` and `csrc/fused_attention_sm90.cu`
+(the bf16x2 ones are the bf16 variants'), and the SASS `MUFU.EX2` forms of
+each instance of the sm90 kernel (`cuobjdump` of its library), where the
+bf16 variants' instances must show the bf16x2 form and the others must not.
+Without a CUDA device it exits non-zero.
 """
 from __future__ import annotations
 
@@ -57,6 +64,7 @@ import collections
 import re
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -88,8 +96,10 @@ ROWS = (
     (3, "G=4", ENC16, "contiguous", 4, None, "grid", None),
     (3, "G=2 mma", ENC16, "contiguous", 2, None, "grid", "mma"),
     (3, "G=4 mma", ENC16, "contiguous", 4, None, "grid", "mma"),
-    (4, "bf16_exp", ENC16, "contiguous", 1, "bf16_exp", "grid", "mma"),
-    (4, "bf16_logits", ENC16, "contiguous", 1, "bf16_logits", "grid", "mma"),
+    (4, "bf16_exp", ENC16, "contiguous", 1, "bf16_exp", "grid", None),
+    (4, "bf16_exp mma", ENC16, "contiguous", 1, "bf16_exp", "grid", "mma"),
+    (4, "bf16_logits", ENC16, "contiguous", 1, "bf16_logits", "grid", None),
+    (4, "bf16_logits mma", ENC16, "contiguous", 1, "bf16_logits", "grid", "mma"),
     (5, "G=4", ENC16, "contiguous", 4, None, "grid", None),
     (5, "G=8", ENC16, "contiguous", 8, None, "grid", None),
 ) + tuple((row, label + suffix, shape, layout, 1, None, kind, core)
@@ -99,7 +109,9 @@ ROWS = (
               (7, "head-packed views", DEC12, "packed", "grid"),
               (8, "random positions", ENC16, "contiguous", "random"))
           for suffix, core in (("", None), (" mma", "mma"))) + (
-    (9, "nomax", ENC16, "contiguous", 1, "nomax", "grid", "mma"),
+    (9, "nomax", ENC16, "contiguous", 1, "nomax", "grid", None),
+    (9, "nomax G=2", ENC16, "contiguous", 2, "nomax", "grid", None),
+    (9, "nomax mma", ENC16, "contiguous", 1, "nomax", "grid", "mma"),
 ) + tuple((3, f"{m} G={G}", ENC16, "contiguous", G, m, "grid", None)
           for m in ("nosmax", "qkonly") for G in (1, 4, 8)) + tuple(
     (3, f"{m} G={G} mma", ENC16, "contiguous", G, m, "grid", "mma")
@@ -157,12 +169,13 @@ def measure(q, k, v, pq, pk, heads_per_program=1, softmax=None, iters=20, warm=F
             core=None):
     """One kernel configuration against its baseline, plain version, library
     yardstick and bound; returns a dict of ms, errors, whether the output's
-    bits equal its own kernel's at G = 1 on contiguous q, k, v (None for a
-    variant; for a floor with G > 1, its G = 1 call's) and, for the exact
-    softmax, `from_baseline`, its max abs distance from the row-1
-    baseline's output. core: the exact softmax's and the floors' kernel
-    (None: the route). warm: run the kernel for half a second first (for
-    the process's first timing)."""
+    bits equal its own kernel's at G = 1 on contiguous q, k, v (for a floor
+    or a variant, its G = 1 call's where G > 1, else None), for a variant
+    on the sm90 kernel `equals_mma`, whether its bits equal the same
+    variant's on the mma.sync core (else None), and, for the exact softmax,
+    `from_baseline`, its max abs distance from the row-1 baseline's
+    output. core: the row's kernel (None: the route). warm: run the kernel
+    for half a second first (for the process's first timing)."""
     tq, tk = rope_tables(pq, q.shape[-1]), rope_tables(pk, q.shape[-1])
     if softmax in MODES:
         return measure_floor(q, k, v, pq, pk, tq, tk, heads_per_program, softmax, iters, warm,
@@ -179,9 +192,9 @@ def measure(q, k, v, pq, pk, heads_per_program=1, softmax=None, iters=20, warm=F
         def plain():
             return attention_ref(q, k, v, pq, pk)
     else:
-        def kernel():
-            return attention_variant(q, k, v, pq, pk, 100.0, softmax=softmax, tables_q=tq,
-                                     tables_k=tk)
+        def kernel(G=heads_per_program, core=core):
+            return attention_variant(q, k, v, pq, pk, 100.0, softmax=softmax,
+                                     heads_per_program=G, tables_q=tq, tables_k=tk, core=core)
 
         def plain():
             return attention_variant_ref(q, k, v, pq, pk, 100.0, softmax)
@@ -197,7 +210,12 @@ def measure(q, k, v, pq, pk, heads_per_program=1, softmax=None, iters=20, warm=F
            else plain().float())
     err = (out.float() - ref).abs().max().item()
     rel = err / ref.abs().max().item()
-    identical = torch.equal(out, one_head()) if softmax is None else None
+    if softmax is None:
+        identical = torch.equal(out, one_head())
+    else:
+        identical = torch.equal(out, kernel(1)) if heads_per_program > 1 else None
+    equals_mma = (torch.equal(out, kernel(1, "mma"))
+                  if softmax is not None and core != "mma" else None)
     from_baseline = ((out.float() - baseline().float()).abs().max().item()
                      if softmax is None else None)
     if not (out.shape == q.shape and torch.isfinite(out).all()):
@@ -211,7 +229,7 @@ def measure(q, k, v, pq, pk, heads_per_program=1, softmax=None, iters=20, warm=F
                 plain_ms=time_ms(plain, iters),
                 library_ms=graph_ms(lambda: F.scaled_dot_product_attention(qr, kr, v), iters),
                 bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err, rel=rel,
-                identical=identical, from_baseline=from_baseline,
+                identical=identical, from_baseline=from_baseline, equals_mma=equals_mma,
                 wrapper_ms=time_ms(kernel, iters))
 
 
@@ -252,7 +270,8 @@ def measure_floor(q, k, v, pq, pk, tq, tk, heads_per_program, mode, iters=20, wa
                 plain_ms=time_ms(plain, iters),
                 library_ms=None if library is None else graph_ms(library, iters),
                 bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err, rel=rel,
-                identical=identical, from_baseline=None, wrapper_ms=time_ms(kernel, iters))
+                identical=identical, from_baseline=None, equals_mma=None,
+                wrapper_ms=time_ms(kernel, iters))
 
 
 def qkonly_growth(iters=20, log=print, core=None):
@@ -329,7 +348,9 @@ def run_rows(iters=20, rows=ROWS, log=print):
             f"(limit {RTOL:g})"
             + ("" if r["from_baseline"] is None else
                f"; max |out - row-1 baseline| {r['from_baseline']:.3e}")
-            + ("" if r["identical"] is None else f"; bits equal G=1's: {r['identical']}"))
+            + ("" if r["identical"] is None else f"; bits equal G=1's: {r['identical']}")
+            + ("" if r["equals_mma"] is None else
+               f"; bits equal the mma.sync core's: {r['equals_mma']}"))
         if not r["rel"] <= RTOL or r["identical"] is False:
             raise AssertionError(f"row {row} {label}: the kernel disagrees ({r})")
         results.append(dict(row=row, label=label, shape=(B, H, N, d), layout=layout, **r))
@@ -381,14 +402,51 @@ def chains(shape, iters=20, log=print):
     return out
 
 
-def ptx_exp_instructions():
-    """Counts of the `ex2` instructions in the PTX of fused_attention.cu."""
-    src = _build.CSRC / "fused_attention.cu"
-    out = _build.BUILD_ROOT / "ptx" / "fused_attention.ptx"
+def ptx_exp_instructions(name):
+    """Counts of the `ex2` instructions in the PTX of csrc/<name>.cu."""
+    src = _build.CSRC / f"{name}.cu"
+    out = _build.BUILD_ROOT / "ptx" / f"{name}.ptx"
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([_build.nvcc_path(), "-ptx", "-arch=sm_90a", "-std=c++17", "-O3",
                     "-o", str(out), str(src)], check=True, capture_output=True, text=True)
     return collections.Counter(re.findall(r"ex2\.approx[.\w]*", out.read_text()))
+
+
+# an instance of the sm90 kernel in the SASS: attn_sm90_kernel<kRope, S>
+SM90_INSTANCE = re.compile(r"attn_sm90_kernelILb(\d)ELi(\d)E")
+BF16_SOFTMAX_CODES = {2: "bf16_logits", 3: "bf16_exp"}  # attn::Softmax
+
+
+def sass_exp_instructions():
+    """{(rope, softmax code): Counter of `MUFU.EX2` forms} of every instance
+    of the built sm90 kernel, from `cuobjdump -sass` of its library."""
+    lib = _build.library_path("fused_attention_sm90")
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    out = {}
+    for function in sass.split("Function : ")[1:]:
+        m = SM90_INSTANCE.search(function.split(None, 1)[0])
+        if m:
+            out[bool(int(m[1])), int(m[2])] = collections.Counter(
+                re.findall(r"MUFU\.EX2[.\w]*", function))
+    return out
+
+
+def check_sass(sass, log=print):
+    """Log each instance's `MUFU.EX2` forms; raise unless the bf16 variants'
+    instances hold a bf16x2 form (one naming BF16) and no other instance
+    does."""
+    for (rope, code), forms in sorted(sass.items()):
+        bf16x2 = sum(n for form, n in forms.items() if "BF16" in form)
+        log(f"[sass] attn_sm90_kernel<rope={rope}, softmax={code}"
+            f"{' ' + BF16_SOFTMAX_CODES[code] if code in BF16_SOFTMAX_CODES else ''}>: "
+            f"{dict(forms)}")
+        if (bf16x2 > 0) != (code in BF16_SOFTMAX_CODES):
+            raise AssertionError(f"sm90 instance rope={rope} softmax={code}: {dict(forms)}")
+    if len(sass) != 10:
+        raise AssertionError(f"expected the 10 instances of the sm90 kernel, found "
+                             f"{sorted(sass)}")
 
 
 def main(argv=None):
@@ -405,7 +463,9 @@ def main(argv=None):
     rotation(args.iters)
     for shape in (ENC16, DEC12):
         chains(shape, args.iters)
-    print(f"[ptx] fused_attention.cu ex2 instructions: {dict(ptx_exp_instructions())}")
+    for name in ("fused_attention", "fused_attention_sm90"):
+        print(f"[ptx] {name}.cu ex2 instructions: {dict(ptx_exp_instructions(name))}")
+    check_sass(sass_exp_instructions())
 
 
 if __name__ == "__main__":

@@ -54,6 +54,7 @@ from dust3r_tpu.ops.attention import attention_ref as jax_attention_ref
 from dust3r_tpu.ops.pallas_attention import _rope_tables
 from dust3r_tpu.ops.pallas_attention import fused_attention as jax_fused_attention
 from dust3r_tpu_torch.models import blocks
+from dust3r_tpu_torch.ops import attention_variants as variants
 from dust3r_tpu_torch.ops.attention_variants import (SOFTMAXES, attention_variant,
                                                      attention_variant_ref)
 from dust3r_tpu_torch.ops.fused_attention import (attention_ref, fused_attention,
@@ -117,7 +118,8 @@ def _held(tpu_out, dtype, tq, tk, tv, pos_q, pos_k=None, heads_per_program=1, so
     if softmax == "exact":
         ours = fused_attention(tq, tk, tv, pos_q, pos_k, heads_per_program=heads_per_program)
     else:
-        ours = attention_variant(tq, tk, tv, pos_q, pos_k, softmax=softmax)
+        ours = attention_variant(tq, tk, tv, pos_q, pos_k, softmax=softmax,
+                                 heads_per_program=heads_per_program)
     assert _rel(ref, tpu_out) <= tol
     if dtype == "fp32" or softmax != "exact":  # attention_ref rotates in bf16
         assert _rel(ours, tpu_out) <= tol
@@ -256,13 +258,16 @@ def test_row8_random_positions(dtype):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("G", [1, 2])
 @pytest.mark.parametrize("safe", [True, False], ids=["safe", "nomax"])
-def test_row9_softmax_without_max(tpu, safe, dtype):
+def test_row9_softmax_without_max(tpu, safe, G, dtype):
+    """Row 9 runs G = 2 heads a program; the port serves it at G = 1 and at
+    the script's G = 2."""
     (jq, jk, jv), (tq, tk, tv) = _both(_inputs(9), dtype)
     pos = _grid_positions()
     with pltpu.force_tpu_interpret_mode():
         out = tpu[9].attn(jq, jk, jv, jnp.asarray(pos), safe=safe)
-    _held(out, dtype, tq, tk, tv, torch.from_numpy(pos), heads_per_program=2,
+    _held(out, dtype, tq, tk, tv, torch.from_numpy(pos), heads_per_program=G,
           softmax="exact" if safe else "nomax")
 
 
@@ -302,6 +307,59 @@ def test_wrappers_refuse_what_they_cannot_serve():
     assert (fused_attention.launches, fused_attention.grouped_launches,
             fused_attention.core_launches, fused_attention.core_grouped_launches,
             attention_variant.launches) == before
+
+
+VARIANT_ROUTES = [  # (d, heads a block, core) -> (launcher, heads a block it gets)
+    ((64, 1, None), ("sm90", 1)),
+    ((64, 2, None), ("sm90", 2)),
+    ((32, 1, None), ("mma", 1)),
+    ((32, 2, None), ("mma", 1)),
+    ((64, 1, "mma"), ("mma", 1)),
+    ((64, 2, "mma"), ("mma", 1)),
+    ((64, 4, "sm90"), ("sm90", 4)),
+]
+
+
+@pytest.mark.parametrize("softmax", SOFTMAXES)
+@pytest.mark.parametrize("call,want", VARIANT_ROUTES)
+def test_variant_routes_each_call_to_its_kernel(monkeypatch, call, want, softmax):
+    """On a tensor that is not on the CPU (here on the meta device, with the
+    launchers and the device check replaced by recorders), bf16 at head
+    dim 64 reaches the sm90 kernel with its G and the softmax's code; head
+    dim 32 and `core="mma"` reach the mma.sync core at one head a block;
+    each launch moves its own counter."""
+    d, G, core = call
+    seen = []
+
+    def launcher(name):
+        def record(q, k, v, *args, softmax, **kwargs):
+            G = args[5] if len(args) > 5 else kwargs.get("heads_per_program", 1)
+            seen.append((name, softmax, G))
+            return torch.empty_like(q)
+        return record
+
+    monkeypatch.setattr(variants, "check", lambda *args: None)
+    monkeypatch.setattr(variants, "launch_sm90", launcher("sm90"))
+    monkeypatch.setattr(variants, "launch", launcher("mma"))
+    q = torch.empty(1, 4, 8, d, dtype=torch.bfloat16, device="meta")
+    before = (attention_variant.launches, attention_variant.core_launches)
+    attention_variant(q, q, q, softmax=softmax, heads_per_program=G, core=core)
+    assert seen == [(want[0], variants._CODES[softmax], want[1])]
+    sm90 = want[0] == "sm90"
+    assert (attention_variant.launches, attention_variant.core_launches) == (
+        before[0] + sm90, before[1] + (not sm90))
+
+
+@pytest.mark.parametrize("G", [3, 0, -2, 2.0, True, None])
+def test_variant_refuses_heads_per_program_not_dividing_the_heads(G):
+    """The script's rule (row 9's grid of H // G programs): G must be a
+    positive integer dividing the heads, on CPU tensors as on the card;
+    no counter moves."""
+    q = torch.zeros(1, 4, 8, 64, dtype=torch.bfloat16)
+    before = (attention_variant.launches, attention_variant.core_launches)
+    with pytest.raises(ValueError, match="divisors"):
+        attention_variant(q, q, q, softmax="nomax", heads_per_program=G)
+    assert (attention_variant.launches, attention_variant.core_launches) == before
 
 
 @pytest.mark.parametrize("softmax", SOFTMAXES)

@@ -14,9 +14,10 @@ contiguous call of the same core, and more than one head a block those of
 one head a block of the same kernel (each head's arithmetic is the same):
 any G that heads_per_program resolves to on the sm90 kernel, 2 or 4 on the
 mma.sync core; the softmax
-variants 1e-2 against their own plain version on the same bf16 inputs
-(the bf16 ones round (s - max) at the running max and in log2 units, so a
-P may sit one bf16 unit from the plain version's); conv3x3
+variants 1e-2 against their own plain version on the same bf16 inputs, on
+either kernel (the bf16 ones round (s - max) at the running max and in
+log2 units, so a P may sit one bf16 unit from the plain version's), G > 1
+on the sm90 kernel bit-identical to G = 1; conv3x3
 1e-3 against `conv3x3_bf16_ref` (the same bf16-rounded operands, products
 exact in fp32, only the order of the fp32 sums differs), a split
 reduction's calls bit-identical to each other; up2x 1e-5 against
@@ -307,21 +308,101 @@ VARIANT_CASES = {  # name: (B, H, Nq grid, Nk grid, layout)
 VARIANT_RTOL = 1e-2
 
 
+def _variant_launches():
+    """(sm90 launches, mma.sync core launches) of attention_variant"""
+    return attention_variant.launches, attention_variant.core_launches
+
+
+@pytest.mark.parametrize("core", [None, "mma"], ids=["sm90", "mma"])
 @pytest.mark.parametrize("softmax", SOFTMAXES)
 @pytest.mark.parametrize("case", sorted(VARIANT_CASES))
-def test_softmax_variant_matches_its_plain_version(card, case, softmax):
+def test_softmax_variant_matches_its_plain_version(card, case, softmax, core):
+    """Each variant on the sm90 kernel (the route of bf16 d = 64) and on the
+    mma.sync core (`core="mma"`): within 1e-2 of its plain version, at the
+    encoder's self-attention from qkv views, the decoder's 768x672
+    cross-attention and ragged 130 tokens."""
     B, H, gq, gk, layout = VARIANT_CASES[case]
     q, k, v = _views(card, B, H, gq[0] * gq[1], gk[0] * gk[1], 64, layout, torch.bfloat16,
                      seed=len(case))
     pq, pk = token_positions(B, *gq, card), token_positions(B, *gk, card)
-    before = attention_variant.launches
-    out = attention_variant(q, k, v, pq, pk, softmax=softmax)
+    before = _variant_launches()
+    out = attention_variant(q, k, v, pq, pk, softmax=softmax, core=core)
     torch.cuda.synchronize()
-    assert attention_variant.launches == before + 1
+    sm90 = core is None
+    assert _variant_launches() == (before[0] + sm90, before[1] + (not sm90))
     ref = attention_variant_ref(q, k, v, pq, pk, 100.0, softmax).float()
     assert out.shape == ref.shape and torch.isfinite(out).all()
     err = (out.float() - ref).abs().max().item() / ref.abs().max().item()
-    assert err <= VARIANT_RTOL, f"{case} {softmax}: rel err {err:.3e}"
+    assert err <= VARIANT_RTOL, f"{case} {softmax} {core or 'sm90'}: rel err {err:.3e}"
+
+
+@pytest.mark.parametrize("G", [2, 4])
+@pytest.mark.parametrize("softmax", SOFTMAXES)
+def test_sm90_softmax_variant_heads_per_program_gives_the_bits_of_one_head_a_block(
+        card, softmax, G, record_property):
+    """On the sm90 kernel G heads a block walk the heads in turn, each with
+    the G = 1 arithmetic: the G = 1 bits, ragged keys included. Whether
+    they also equal the mma.sync core's bits is recorded (`equals_mma`):
+    the two kernels sum the products' fp32 terms in their own order."""
+    B, H, gq, gk = 2, 8, (10, 13), (7, 11)
+    q, k, v = _views(card, B, H, gq[0] * gq[1], gk[0] * gk[1], 64, "packed", torch.bfloat16,
+                     seed=G)
+    pq, pk = token_positions(B, *gq, card), token_positions(B, *gk, card)
+    one = attention_variant(q, k, v, pq, pk, softmax=softmax)
+    before = _variant_launches()
+    out = attention_variant(q, k, v, pq, pk, softmax=softmax, heads_per_program=G)
+    torch.cuda.synchronize()
+    assert _variant_launches() == (before[0] + 1, before[1])
+    assert torch.equal(out, one)
+    record_property("equals_mma", torch.equal(
+        out, attention_variant(q, k, v, pq, pk, softmax=softmax, core="mma")))
+
+
+@pytest.mark.parametrize("core", [None, "mma"], ids=["sm90", "mma"])
+def test_nomax_overflows_on_the_card(card, core):
+    """Without the max a logit past ~88 overflows exp in fp32, on either
+    kernel as in row 9: q x 40 gives non-finite rows where the exact
+    softmax stays finite."""
+    gen = torch.Generator(device=card).manual_seed(10)
+    q, k, v = (torch.randn(2, 4, 130, 64, device=card, generator=gen) for _ in range(3))
+    q, k, v = (q * 40.0).to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16)
+    assert torch.isfinite(fused_attention(q, k, v)).all()
+    out = attention_variant(q, k, v, softmax="nomax", core=core)
+    torch.cuda.synchronize()
+    assert not torch.isfinite(out).all()
+
+
+def test_softmax_variants_without_rope_launch_and_refuse_what_they_cannot_serve(card):
+    """Without RoPE every variant launches on both kernels (within 1e-2 of
+    its plain version), head dim 32 goes to the core; fp32 inputs, G not
+    dividing the heads, G = 0, a non-integer G and the sm90 kernel at head
+    dim 32 are refused before any launch."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    q, k, v = (torch.randn(2, 4, 196, 64, device=card, generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    for softmax in SOFTMAXES:
+        ref = attention_variant_ref(q, k, v, softmax=softmax).float()
+        for core in (None, "mma"):
+            before = _variant_launches()
+            out = attention_variant(q, k, v, softmax=softmax, core=core)
+            torch.cuda.synchronize()
+            assert _variant_launches() == (before[0] + (core is None), before[1] + (core == "mma"))
+            err = (out.float() - ref).abs().max().item() / ref.abs().max().item()
+            assert err <= VARIANT_RTOL, f"{softmax} {core or 'sm90'} no RoPE: rel err {err:.3e}"
+    q32 = q[..., :32].contiguous()
+    before = _variant_launches()
+    attention_variant(q32, q32, q32, softmax="bf16_exp")
+    torch.cuda.synchronize()
+    assert _variant_launches() == (before[0], before[1] + 1)
+    before = _variant_launches()
+    with pytest.raises(TypeError, match="bf16"):
+        attention_variant(q.float(), k.float(), v.float(), softmax="nomax")
+    for G in (3, 0, 2.0):
+        with pytest.raises(ValueError, match="divisors"):
+            attention_variant(q, k, v, softmax="nomax", heads_per_program=G)
+    with pytest.raises(ValueError, match="sm90 kernel takes"):
+        attention_variant(q32, q32, q32, softmax="nomax", core="sm90")
+    assert _variant_launches() == before
 
 
 def test_kernel_refuses_strides_and_groupings_it_cannot_serve(card):
@@ -330,7 +411,7 @@ def test_kernel_refuses_strides_and_groupings_it_cannot_serve(card):
     (to 2) and give the one-head-a-block bits."""
     gen = torch.Generator(device=card).manual_seed(6)
     q = torch.randn(1, 6, 8, 64, device=card, generator=gen).to(torch.bfloat16)
-    before = (_launches(), attention_variant.launches)
+    before = (_launches(), _variant_launches())
     wide = torch.zeros(1, 6, 8, 68, device=card, dtype=torch.bfloat16)[..., :64]
     with pytest.raises(ValueError, match="multiples of 8 elements"):
         fused_attention(wide, q, q)  # rows 136 bytes apart
@@ -342,7 +423,7 @@ def test_kernel_refuses_strides_and_groupings_it_cannot_serve(card):
             fused_attention(q, q, q, heads_per_program=G)
     with pytest.raises(TypeError, match="bf16"):
         attention_variant(q.float(), q.float(), q.float(), softmax="bf16_exp")
-    assert (_launches(), attention_variant.launches) == before
+    assert (_launches(), _variant_launches()) == before
     one = fused_attention(q, q, q)
     for G in (8, 4):
         assert resolve_heads_per_program(6, 8, 8, G) == 2
