@@ -6,7 +6,7 @@
 
 Phases (each prints its lines; a failed phase raises and the exit code is 1):
   1. device: requires CUDA; prints the card's name and power limit;
-  2. build: compiles the eight kernel sources from `dust3r_tpu_torch/csrc/`
+  2. build: compiles the nine kernel sources from `dust3r_tpu_torch/csrc/`
      (one nvcc per source, all started together, sm_90a);
   3. kernels: each kernel of the main path (fused_attention's sm90 kernel,
      conv3x3, up2x, dpt_tail) against its plain PyTorch version on the card,
@@ -32,14 +32,18 @@ Phases (each prints its lines; a failed phase raises and the exit code is 1):
      bit; whether each sm90 variant's bits equal the core's);
   3c. experiments: the other TPU experiments' entry points, each driven
      once with its launch counts from 0: the tap-sum conv (rows 10 and 11,
-     `conv3x3_taps_kernel` "slices" and "copies") at two DPT shapes, the
+     `conv3x3_taps_kernel` "slices" and "copies", on the sm90 kernel and on
+     its mma.sync baseline, `core="mma"`) at two DPT shapes, the
      DPT tail's epilogue (row 13, `dpt_post_kernel`) at 512x384, and row
      3's floor modes (`attention_floor`) at the encoder shape with 1 and 4
      heads a block: nosmax and qkonly on the sm90 kernel, and all five
      (nosmax, qkonly, copy, copynr, copymm) on `csrc/attention_floor.cu`;
      then each against its plain version with its times, bound and library
-     call (G = 4 bit for bit against G = 1), and qkonly's time at 64 keys
-     beside 768 on both kernels;
+     call (G = 4 bit for bit against G = 1; the tap-sum conv's kernel alone
+     by CUDA-graph replay on both kernels, "slices" bit for bit against
+     "copies", the sm90 kernel's Z within one bf16 unit of the largest Z of
+     the baseline's), and qkonly's time at 64 keys beside 768 on both
+     kernels;
   4. slice: `DUSt3R_ViTLarge_BaseDecoder_512_dpt` at full width (seeded random
      weights, bf16 body, fp32 heads) serves three requests through
      make_pairs -> InferenceEngine -> inference; checks outputs, the four
@@ -79,7 +83,7 @@ KERNEL_RTOL = 1e-2
 PARITY_RMSE = 1e-2
 H384, H336, W = 384, 336, 512  # the 512x384 and 512x336 buckets
 SOURCES = ("fused_attention_sm90", "conv3x3", "up2x", "dpt_tail", "fused_attention",
-           "conv3x3_taps", "dpt_post", "attention_floor")
+           "conv3x3_taps", "conv3x3_taps_mma", "dpt_post", "attention_floor")
 # max abs error of conv3x3 against conv3x3_bf16_ref over max |ref|: both
 # take the same bf16-rounded operands, whose products are exact in fp32;
 # only the order of the fp32 sums differs. The same for dpt_tail against
@@ -347,18 +351,20 @@ def variants_phase(torch):
 
 def experiments_phase(torch):
     """The other TPU experiments' entry points: the tap-sum conv (rows 10,
-    11) at TAP_CASES, the DPT tail's epilogue (row 13) at POST_CASE and row
+    11, on the sm90 kernel and its mma.sync baseline) at TAP_CASES, the DPT
+    tail's epilogue (row 13) at POST_CASE and row
     3's floors at the encoder shape (8,16,768,64) at FLOOR_CASES (nosmax and
     qkonly on the sm90 kernel, every floor on attention_floor.cu), each
     called once with the launch counts from 0 (the counts of this path),
     then each against its plain version with times, bound and library call
-    (tools/conv_variants.measure_conv and measure_post; tools/attn_variants.
+    (tools/conv_variants.measure_conv, which also holds the sm90 kernel's Z
+    to the baseline's, and measure_post; tools/attn_variants.
     measure: G = 4 bit for bit against G = 1, beside the exact kernel of
     the same core), and qkonly at 64 keys beside 768 on both kernels (its
     time must grow with the keys). Returns the measured rows by kernel and
     the launch counts."""
     from dust3r_tpu_torch.ops.attention_floors import attention_floor
-    from dust3r_tpu_torch.ops.conv3x3_taps import VARIANTS, conv3x3_taps_kernel
+    from dust3r_tpu_torch.ops.conv3x3_taps import CORES, VARIANTS, conv3x3_taps_kernel
     from dust3r_tpu_torch.ops.dpt_post import dpt_post_kernel
     from dust3r_tpu_torch.ops.rope import rope_tables
     from dust3r_tpu_torch.tools import attn_variants as av
@@ -374,9 +380,11 @@ def experiments_phase(torch):
     tables = rope_tables(pos, d)
 
     reset_launches()
-    for x, wt in convs.values():
+    taps_out = {}
+    for name, (x, wt) in convs.items():
         for variant in VARIANTS:
-            conv3x3_taps_kernel(x, wt, variant)
+            for core in CORES:
+                taps_out[name, variant, core] = conv3x3_taps_kernel(x, wt, variant, core)
     dpt_post_kernel(*post, 1.0)
     for mode, G, core in FLOOR_CASES:
         attention_floor(q, k, v, pos, pos, 100.0, mode=mode, heads_per_program=G,
@@ -386,23 +394,34 @@ def experiments_phase(torch):
     expected = dict.fromkeys(launches, 0)
     sm90_floors = sum(core is None for _, _, core in FLOOR_CASES)
     expected.update(conv3x3_taps_slices=len(TAP_CASES), conv3x3_taps_copies=len(TAP_CASES),
-                    dpt_post=1, attention_floor=sm90_floors,
-                    attention_floor_mma=len(FLOOR_CASES) - sm90_floors)
+                    conv3x3_taps_mma=2 * len(TAP_CASES), dpt_post=1,
+                    attention_floor=sm90_floors, attention_floor_mma=len(FLOOR_CASES) - sm90_floors)
     log(f"[experiments] entry points: launches {launches} (expected {expected})")
     if launches != expected:
         raise AssertionError(f"experiments launches {launches} != {expected}")
 
-    rows = dict(conv3x3_taps_slices=[], conv3x3_taps_copies=[], dpt_post=[],
-                attention_floor=[], attention_floor_mma=[])
+    rows = dict(conv3x3_taps_slices=[], conv3x3_taps_copies=[], conv3x3_taps_mma=[],
+                dpt_post=[], attention_floor=[], attention_floor_mma=[])
     for name, cin, cout, h, w in TAP_CASES:
         x, wt = convs.pop(name)
+        for core in CORES:
+            same = torch.equal(taps_out.pop((name, "slices", core)),
+                               taps_out.pop((name, "copies", core)))
+            log(f"[experiments] conv3x3_taps {core} {name}: slices bits equal copies': {same}")
+            if not same:
+                raise AssertionError(f"conv3x3_taps {core} {name}: slices and copies differ")
         for variant in VARIANTS:
             r = cv.measure_conv(x, wt, variant, row2=False)
             log("[experiments] " + cv.conv_line(name, (BATCH_SIZE, cin, h, w), variant, r))
-            if not r["rel"] <= cv.CONV_RTOL:
-                raise AssertionError(f"conv3x3_taps {variant} {name}: the kernel disagrees "
-                                     f"with its plain version, rel err {r['rel']:.3e}")
-            rows[f"conv3x3_taps_{variant}"].append(dict(r, count=1))
+            cv.check_conv(name, variant, r)
+            # the kernel alone by graph replay, against its own bound and
+            # the library call's graph replay
+            kept = dict(plain_ms=r["plain_ms"], library_ms=r["library_graph_ms"],
+                        bound_ms=r["kernel_bound_ms"], bound_by=r["kernel_bound_by"], count=1)
+            rows[f"conv3x3_taps_{variant}"].append(
+                dict(kept, ms=r["kernel_ms"], max_abs_err=r["max_abs_err"]))
+            rows["conv3x3_taps_mma"].append(
+                dict(kept, ms=r["mma_kernel_ms"], max_abs_err=r["mma_max_abs_err"]))
         del x, wt
     r = cv.measure_post(*post, tail=False)
     log("[experiments] " + cv.post_line(POST_CASE, r))
@@ -665,6 +684,7 @@ def kernel_counters():
                 dpt_tail=(dpt_tail_kernel, "launches"),
                 conv3x3_taps_slices=(tap_sums, "slices_launches"),
                 conv3x3_taps_copies=(tap_sums, "copies_launches"),
+                conv3x3_taps_mma=(tap_sums, "mma_launches"),
                 dpt_post=(dpt_post_kernel, "launches"),
                 attention_floor=(attention_floor, "launches"),
                 attention_floor_mma=(attention_floor, "core_launches"))
@@ -916,9 +936,12 @@ def main(argv):
     # the sm90 kernel, summed, and attention_variant_mma the three on the
     # mma.sync core, summed; conv3x3 and up2x: one DPT head's calls at batch 8, summed;
     # dpt_tail: the head's one call; the floors: the sm90 kernel's and
-    # attention_floor.cu's calls of the experiments phase, each summed.
-    # Device times: CUDA-graph replays where the phase took them (the
-    # attention kernels, the floors, conv3x3, up2x, dpt_tail), else CUDA
+    # attention_floor.cu's calls of the experiments phase, each summed; the
+    # tap-sum conv: each variant's kernel alone at TAP_CASES on the sm90
+    # kernel, summed, and conv3x3_taps_mma both variants' on the mma.sync
+    # baseline, summed, against the kernel-alone bound. Device times:
+    # CUDA-graph replays where the phase took them (the attention kernels,
+    # the floors, conv3x3, up2x, dpt_tail, the tap-sum conv), else CUDA
     # events over a loop of calls. Launches: the slice's run (requests
     # (a)-(c)); the variants phase's for the variants; the conv variants,
     # the epilogue and the floors: the experiments phase's
@@ -963,6 +986,8 @@ def main(argv):
         dpt_tail=("dpt_tail.cu", "scripts/exp_tailk_r2.py:78, scripts/exp_tailk2_r2.py:113"),
         conv3x3_taps_slices=("conv3x3_taps.cu", "scripts/exp_convk_r3.py:67"),
         conv3x3_taps_copies=("conv3x3_taps.cu", "scripts/exp_convk2_r3.py:67"),
+        conv3x3_taps_mma=("conv3x3_taps_mma.cu", "scripts/exp_convk_r3.py:67, "
+                          "scripts/exp_convk2_r3.py:67"),
         dpt_post=("dpt_post.cu", "scripts/exp_tailk2_r2.py:52"),
         attention_floor=("fused_attention_sm90.cu", "scripts/exp_attn_r2.py:144"),
         attention_floor_mma=("attention_floor.cu", "scripts/exp_attn_r2.py:144"))

@@ -46,7 +46,7 @@
 // bf16 Z of 3 * cout channels and the vertical combine outside the kernel
 // (Z never exists here, so it is not rounded), and the row-block sizing
 // against VMEM. conv3x3_igemm.cuh's mma.sync k-loop, which this kernel
-// replaced, still carries conv3x3_taps.cu.
+// replaced, still carries conv3x3_taps_mma.cu (the tap-sum conv's baseline).
 //
 // The kernel launches on the caller's stream, allocates nothing and does
 // not synchronise; the entry point returns cudaGetLastError() after the

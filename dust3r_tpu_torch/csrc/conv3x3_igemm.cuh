@@ -1,10 +1,10 @@
-// The mma.sync implicit GEMM of conv3x3_taps.cu (sm_90a): the mma.sync /
+// The mma.sync implicit GEMM of conv3x3_taps_mma.cu (sm_90a): the mma.sync /
 // ldmatrix helpers (dpt_tail.cu uses these too), the double-buffered tiles
 // and the k-loop that accumulates one block's (128 output pixels x BN output
 // columns) tile, generic over the loader of its A tile.
 //
 // Each k-step takes 32 rows of K: a 128 x 32 A slice (from the caller's
-// loader: conv3x3_taps.cu's loaders read bf16 x with the tap's shift and
+// loader: conv3x3_taps_mma.cu's loaders read bf16 x with the tap's shift and
 // the zero halo applied in the load) and the matching 32 x BN slice of the
 // packed bf16 B go through registers into a double-buffered shared-memory
 // tile, so the global loads of step k+1 are in flight while the tensor cores

@@ -12,17 +12,21 @@ with fp32 sums, zero outside the width, then the vertical combine
 `y[h] = Z_0[h - 1] + Z_1[h] + Z_2[h + 1]` as two bf16 adds, zero outside
 the height: a conv whose result is bf16. The kernel is
 `csrc/conv3x3_taps.cu` (hand-written for sm_90a: an implicit GEMM of
-M = B*H*W pixels, N = 3*Cout, K = 3*Cin on the k-loop of
-`csrc/conv3x3_igemm.cuh`; its header says what bounds it and how the design
-answers that); the combine stays in PyTorch, as the JAX functions leave it
-to XLA outside their `pallas_call`. The model's path takes row 2's nine-tap
-kernel (`ops/conv3x3.py`); these serve `tools/conv_variants.py`, which
-times the Z form beside it.
+M = B*H*W pixels, N = 3*Cout, K = 3*Cin on TMA and wgmma, persistent
+blocks, the W halo from TMA's zero fill; its header says what bounds it and
+how the design answers that). Its baseline, the mma.sync kernel it
+replaced, is `csrc/conv3x3_taps_mma.cu` (`core="mma"`). The combine stays
+in PyTorch, as the JAX functions leave it to XLA outside their
+`pallas_call`. The model's path takes row 2's nine-tap kernel
+(`ops/conv3x3.py`); these serve `tools/conv_variants.py`, which times the Z
+form beside it.
 
-The weight is packed as row 11 packs it: (3, Cin, 3 * Cout), row dx,
-column dy * Cout + c. Row 10's own wrapper packs it otherwise
-(`exp_convk_r3.py:72-74` mixes dx with Cin) and computes no conv; the port
-holds to its kernel body, not to that packing (ROADMAP §C).
+The weight is packed as row 11 packs it, (3, Cin, 3 * Cout), row dx,
+column dy * Cout + c (`pack_tap_weight`, the mma.sync kernel's), or with
+its last two dims swapped, (3, 3 * Cout, Cin), K-major for wgmma
+(`pack_tap_weight_kmajor`, the sm90 kernel's). Row 10's own wrapper packs
+it otherwise (`exp_convk_r3.py:72-74` mixes dx with Cin) and computes no
+conv; the port holds to its kernel body, not to that packing (ROADMAP §C).
 
 Layouts are PyTorch's: x (B, Cin, H, W) fp32 in `torch.channels_last`
 memory, w `nn.Conv2d`'s (Cout, Cin, 3, 3); y (B, Cout, H, W) bf16 in
@@ -30,12 +34,15 @@ channels_last memory (the scripts return bf16 NHWC).
 
 * `conv3x3_taps_ref` is the plain version, step by step the scripts'
   arithmetic.
-* `conv3x3_taps_kernel(x, w, variant)` is the wrapper: it refuses what the
-  kernel cannot take, returns the plain version for CPU tensors and
-  launches the kernel for CUDA tensors (or raises).
-  `tap_sums(x, wt, variant)` is its kernel step alone (bf16 NHWC x in, Z
-  out), which counts the launches: `tap_sums.slices_launches` and
-  `tap_sums.copies_launches`.
+* `conv3x3_taps_kernel(x, w, variant, core=None)` is the wrapper: it
+  refuses what the kernel cannot take, returns the plain version for CPU
+  tensors (whatever the core) and launches the kernel for CUDA tensors (or
+  raises): the sm90 kernel for core None or "sm90", the mma.sync baseline
+  for "mma". `tap_sums(taps, wt, variant, core=None)` is the kernel step
+  alone (bf16 NHWC x in, Z out, the weight packed for the core by
+  `pack_for(w, core)`), which counts the launches: the sm90 kernel's in
+  `tap_sums.slices_launches` and `tap_sums.copies_launches`, the baseline's
+  in `tap_sums.mma_launches`.
 """
 from __future__ import annotations
 
@@ -45,7 +52,8 @@ import torch
 import torch.nn.functional as F
 
 VARIANTS = ("slices", "copies")
-CHANNEL_MULTIPLE = 32  # the kernel's k-step (Cin) and narrowest n-tile (Cout)
+CORES = ("sm90", "mma")  # csrc/conv3x3_taps.cu, csrc/conv3x3_taps_mma.cu (the baseline)
+CHANNEL_MULTIPLE = 32  # the kernels' narrowest k-step (Cin) and n-tile (Cout)
 
 
 def pack_tap_weight(w):
@@ -55,14 +63,31 @@ def pack_tap_weight(w):
     return w.permute(3, 1, 2, 0).reshape(3, cin, 3 * cout).to(torch.bfloat16).contiguous()
 
 
+def pack_tap_weight_kmajor(w):
+    """(Cout, Cin, 3, 3) -> bf16 (3, 3 * Cout, Cin): [dx, dy * Cout + c, ci]
+    holds w[c, ci, dy, dx], `pack_tap_weight` with its last two dims
+    swapped (each tap's B K-major, as wgmma reads it)."""
+    cout, cin = w.shape[:2]
+    return w.permute(3, 2, 0, 1).reshape(3, 3 * cout, cin).to(torch.bfloat16).contiguous()
+
+
+def pack_for(w, core=None):
+    """The weight packed for `core`'s kernel: K-major for the sm90 kernel
+    (None, "sm90"), row 11's packing for the mma.sync baseline ("mma")."""
+    _check_core(core)
+    return pack_tap_weight(w) if core == "mma" else pack_tap_weight_kmajor(w)
+
+
 def combine_rows(z, cout):
     """Z (B, H, W, 3 * Cout) bf16 -> y (B, Cout, H, W) bf16, channels_last:
     y[h] = (Z_0[h - 1] + Z_1[h]) + Z_2[h + 1], zero outside the height, each
-    add rounded to bf16 (the scripts' `sum` over the padded Z)."""
-    H = z.shape[1]
-    zp = F.pad(z, (0, 0, 0, 0, 1, 1))
-    y = zp[:, 0:H, :, 0:cout] + zp[:, 1:H + 1, :, cout:2 * cout]
-    y = y + zp[:, 2:H + 2, :, 2 * cout:3 * cout]
+    add rounded to bf16 (the scripts' `sum` over the padded Z). Built in
+    place from a copy of Z_1, with no padded copy of Z: a bf16 add is
+    commutative and adding a zero is exact, so the bits are the padded
+    formula's."""
+    y = z[..., cout:2 * cout].contiguous()  # Z_1[h]
+    y[:, 1:] += z[:, :-1, :, 0:cout]  # + Z_0[h - 1]
+    y[:, :-1] += z[:, 1:, :, 2 * cout:3 * cout]  # + Z_2[h + 1]
     return y.permute(0, 3, 1, 2)
 
 
@@ -79,19 +104,23 @@ def conv3x3_taps_ref(x, w, variant="slices"):
     return combine_rows(z.permute(0, 2, 3, 1), cout)
 
 
-_LIB = None
+_ENTRIES = dict(sm90=("conv3x3_taps", "dust3r_conv3x3_taps"),
+                mma=("conv3x3_taps_mma", "dust3r_conv3x3_taps_mma"))
+_LIBS = {}
 
 
-def _kernel():
-    global _LIB
-    if _LIB is None:
+def _kernel(core):
+    """The C entry of `core`'s kernel, built at first use; both take the
+    same arguments."""
+    if core not in _LIBS:
         from ._build import load_library
 
-        fn = load_library("conv3x3_taps").dust3r_conv3x3_taps
+        source, entry = _ENTRIES[core]
+        fn = getattr(load_library(source), entry)
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _LIB = fn
-    return _LIB
+        _LIBS[core] = fn
+    return _LIBS[core]
 
 
 def _check_variant(variant):
@@ -99,9 +128,15 @@ def _check_variant(variant):
         raise ValueError(f"variant {variant!r} not in {VARIANTS}")
 
 
-def _check(x, w, variant):
-    """Refuse what the kernel cannot take, on any device."""
+def _check_core(core):
+    if core is not None and core not in CORES:
+        raise ValueError(f"core {core!r} not in {CORES} or None")
+
+
+def _check(x, w, variant, core=None):
+    """Refuse what the kernels cannot take, on any device."""
     _check_variant(variant)
+    _check_core(core)
     if x.dtype != torch.float32 or w.dtype != torch.float32:
         raise TypeError(f"conv3x3_taps takes fp32 x and w, got {x.dtype}, {w.dtype}")
     if x.dim() != 4 or w.dim() != 4 or w.shape[2:] != (3, 3) or w.shape[1] != x.shape[1]:
@@ -131,23 +166,35 @@ def tap_inputs(xb, variant):
     return tuple(xp[:, :, dx:dx + W].contiguous() for dx in range(3))
 
 
-def tap_sums(taps, wt, variant):
-    """The kernel alone: `tap_inputs(...)` and `pack_tap_weight(w)` on one
-    CUDA device -> Z (B, H, W, 3 * Cout) bf16. Counts its launches."""
+def tap_sums(taps, wt, variant, core=None):
+    """The kernel alone: `tap_inputs(...)` and `pack_for(w, core)` on one
+    CUDA device -> Z (B, H, W, 3 * Cout) bf16, on the sm90 kernel (core
+    None or "sm90") or the mma.sync baseline ("mma"). Counts its launches."""
+    _check_variant(variant)
+    _check_core(core)
+    core = core or "sm90"
     B, H, W, cin = taps[0].shape
-    n = wt.shape[2]
+    n = wt.shape[1] if core == "sm90" else wt.shape[2]
+    want = (3, n, cin) if core == "sm90" else (3, cin, n)
+    if tuple(wt.shape) != want or wt.dtype != torch.bfloat16 or not wt.is_contiguous():
+        raise ValueError(f"the {core} kernel takes its weight packed by pack_for(w, {core!r}): "
+                         f"bf16 {want}, got {wt.dtype} {tuple(wt.shape)}")
+    if len(taps) != (3 if variant == "copies" else 1):
+        raise ValueError(f"{variant} takes tap_inputs(x, {variant!r}), got {len(taps)} inputs")
     z = torch.empty((B, H, W, n), device=wt.device, dtype=torch.bfloat16)
     ptrs = [t.data_ptr() for t in taps] + [None] * (3 - len(taps))
     if any(p % 16 for p in ptrs if p is not None) or wt.data_ptr() % 16:
         raise ValueError("the tap inputs and the packed weight must be 16-byte aligned")
     with torch.cuda.device(wt.device):
         stream = torch.cuda.current_stream(wt.device).cuda_stream
-        err = _kernel()(*ptrs, wt.data_ptr(), z.data_ptr(), B * H * W, W, cin, n // 3,
-                        int(variant == "copies"), stream)
+        err = _kernel(core)(*ptrs, wt.data_ptr(), z.data_ptr(), B * H * W, W, cin, n // 3,
+                            int(variant == "copies"), stream)
     if err != 0:
-        raise RuntimeError(f"conv3x3_taps kernel launch failed: CUDA error {err} "
+        raise RuntimeError(f"conv3x3_taps {core} kernel launch failed: CUDA error {err} "
                            f"(x {(B, H, W, cin)}, Cout {n // 3}, {variant})")
-    if variant == "copies":
+    if core == "mma":
+        tap_sums.mma_launches += 1
+    elif variant == "copies":
         tap_sums.copies_launches += 1
     else:
         tap_sums.slices_launches += 1
@@ -156,16 +203,19 @@ def tap_sums(taps, wt, variant):
 
 tap_sums.slices_launches = 0
 tap_sums.copies_launches = 0
+tap_sums.mma_launches = 0
 
 
-def conv3x3_taps_kernel(x, w, variant="slices"):
+def conv3x3_taps_kernel(x, w, variant="slices", core=None):
     """x (B, Cin, H, W) fp32 channels_last, w (Cout, Cin, 3, 3) fp32 ->
-    y (B, Cout, H, W) bf16 channels_last: cast, (copies,) kernel, combine."""
-    _check(x, w, variant)
+    y (B, Cout, H, W) bf16 channels_last: cast, (copies,) kernel, combine.
+    core: None or "sm90" (the TMA + wgmma kernel), "mma" (the mma.sync
+    baseline); CPU tensors take the plain version whatever the core."""
+    _check(x, w, variant, core)
     if x.device.type == "cpu":
         return conv3x3_taps_ref(x, w, variant)
     if not x.is_cuda:
         raise ValueError(f"conv3x3_taps runs on CPU or CUDA tensors, got {x.device}")
     xb = x.permute(0, 2, 3, 1).to(torch.bfloat16)  # NHWC memory: a contiguous cast
-    z = tap_sums(tap_inputs(xb, variant), pack_tap_weight(w), variant)
+    z = tap_sums(tap_inputs(xb, variant), pack_for(w, core), variant, core)
     return combine_rows(z, w.shape[0])

@@ -8,14 +8,20 @@ The port's counterpart of `scripts/exp_convk_r3.py`, `exp_convk2_r3.py`
 combine) and `exp_tailk2_r2.py`'s `post_pallas` (the 1x1 and the exp
 postprocess alone). Rows 10 and 11 run at the six `SHAPES` of
 `exp_convk_r3.py:109-116` (batch 8, fp32 x from a seeded generator, w times
-0.05), row 13 at (8, 384, 512, 32). For each shape, in ms by CUDA events
-through the wrappers:
+0.05), row 13 at (8, 384, 512, 32). For each shape, in ms:
   rows 10, 11: the kernel alone (`tap_sums`: bf16 x or its copies in, Z
-    out), the whole function (cast, copies, kernel, combine), the plain
-    version, row 2's nine-tap `conv3x3_kernel` (the kernel it varies), the
-    library call (`F.conv2d` on bf16 channels_last x and w), the bound
-    (fp32 x read once, bf16 y written once, 2*M*9*Cin*Cout bf16 FLOPs) and
-    the error against the plain version;
+    out) on the sm90 kernel and on its mma.sync baseline (`core="mma"`),
+    both as CUDA-graph replays (`card.graph_ms`), with the kernel-alone
+    bound (bf16 x read once, three times for the copies, Z written once,
+    2*M*9*Cin*Cout bf16 FLOPs) and the two kernels' Z against each other
+    (at most one bf16 unit of the largest Z apart: their fp32 sums run in
+    other orders); by CUDA events through the wrappers, the whole function
+    (cast, copies, kernel, combine), the plain version, row 2's nine-tap
+    `conv3x3_kernel` (the kernel it varies; also as a graph replay) and
+    the library call (`F.conv2d` on bf16 channels_last x and w; also as a
+    graph replay), the conv's bound (fp32 x read once, bf16 y written once,
+    the same FLOPs) and the error against the plain version; then the sums
+    over the six shapes;
   row 13: the kernel (timed as a CUDA-graph replay, `card.graph_ms`: it
     runs about as long as its wrapper's launch), the plain version (fp32
     cuDNN 1x1 + the postprocess: the chain it stands for; no one PyTorch
@@ -27,6 +33,7 @@ Without a CUDA device it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import math
 import sys
 
 import torch
@@ -34,7 +41,7 @@ import torch.nn.functional as F
 
 from ..ops import _build
 from ..ops.conv3x3 import conv3x3_kernel, pack_weight
-from ..ops.conv3x3_taps import (VARIANTS, conv3x3_taps_kernel, conv3x3_taps_ref, pack_tap_weight,
+from ..ops.conv3x3_taps import (CORES, VARIANTS, conv3x3_taps_kernel, conv3x3_taps_ref, pack_for,
                                 tap_inputs, tap_sums)
 from ..ops.dpt_post import dpt_post_kernel, dpt_post_ref
 from ..ops.dpt_tail import dpt_tail_kernel
@@ -77,52 +84,73 @@ def conv_bound(B, H, W, cin, cout):
                  dict(bf16=2 * M * 9 * cin * cout))
 
 
+def taps_bound(B, H, W, cin, cout, variant):
+    """(ms, what bounds it) of the kernel alone: bf16 x read once (its three
+    copies for "copies"), the packed weight read once, bf16 Z (3 * Cout
+    channels) written once, the conv's 2*M*9*Cin*Cout bf16 FLOPs."""
+    M = B * H * W
+    reads = 3 if variant == "copies" else 1
+    return bound(2 * (reads * M * cin + 9 * cin * cout + 3 * M * cout),
+                 dict(bf16=2 * M * 9 * cin * cout))
+
+
+def bf16_unit(v):
+    """One bf16 unit in the last place of a value of magnitude v > 0."""
+    return 2.0 ** (math.floor(math.log2(v)) - 7)
+
+
 def _rel_err(out, ref):
     err = (out.float() - ref.float()).abs().max().item()
     return err, err / ref.float().abs().max().item()
 
 
 def measure_conv(x, w, variant, iters=20, row2=True):
-    """One tap-sum variant at x's shape: the whole function against its
-    plain version (error) and the times of the kernel alone, the function,
-    the plain version, row 2's kernel (if `row2`) and bf16 `F.conv2d`."""
+    """One tap-sum variant at x's shape: the whole function on each kernel
+    against its plain version (error), the sm90 kernel's Z against the mma.sync
+    baseline's (`z_err` against `z_unit`, one bf16 unit of the largest Z),
+    the kernel-alone times of both by CUDA-graph replay, and by CUDA events
+    the whole function, the plain version, row 2's kernel (if `row2`, also
+    by graph replay) and bf16 `F.conv2d` (also by graph replay)."""
     B, cin, H, W = x.shape
     cout = w.shape[0]
-    out = conv3x3_taps_kernel(x, w, variant)
-    torch.cuda.synchronize()
     ref = conv3x3_taps_ref(x, w, variant)
-    if not (out.shape == ref.shape and out.dtype == torch.bfloat16
-            and out.is_contiguous(memory_format=torch.channels_last)
-            and torch.isfinite(out).all()):
-        raise AssertionError(f"conv3x3_taps {variant}: bad output {tuple(out.shape)} "
-                             f"{out.dtype}")
-    err, rel = _rel_err(out, ref)
+    errs = {}
+    for core in CORES:
+        out = conv3x3_taps_kernel(x, w, variant, core)
+        torch.cuda.synchronize()
+        if not (out.shape == ref.shape and out.dtype == torch.bfloat16
+                and out.is_contiguous(memory_format=torch.channels_last)
+                and torch.isfinite(out).all()):
+            raise AssertionError(f"conv3x3_taps {variant} {core}: bad output "
+                                 f"{tuple(out.shape)} {out.dtype}")
+        errs[core] = _rel_err(out, ref)
+        del out
     del ref
+    (err, rel), (mma_err, mma_rel) = errs["sm90"], errs["mma"]
     taps = tap_inputs(x.permute(0, 2, 3, 1).to(torch.bfloat16), variant)
-    wt = pack_tap_weight(w)
+    wk, wt = pack_for(w), pack_for(w, "mma")
+    z, z_mma = tap_sums(taps, wk, variant), tap_sums(taps, wt, variant, "mma")
+    z_err = _rel_err(z, z_mma)[0]
+    z_unit = bf16_unit(z_mma.float().abs().max().item())
+    del z, z_mma
     xb = x.to(torch.bfloat16)
     wb = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    wp = pack_weight(w) if row2 else None
     bound_ms, bound_by = conv_bound(B, H, W, cin, cout)
-    return dict(kernel_ms=time_ms(lambda: tap_sums(taps, wt, variant), iters),
+    kernel_bound_ms, kernel_bound_by = taps_bound(B, H, W, cin, cout, variant)
+    return dict(kernel_ms=graph_ms(lambda: tap_sums(taps, wk, variant), iters),
+                mma_kernel_ms=graph_ms(lambda: tap_sums(taps, wt, variant, "mma"), iters),
                 ms=time_ms(lambda: conv3x3_taps_kernel(x, w, variant), iters),
                 plain_ms=time_ms(lambda: conv3x3_taps_ref(x, w, variant), iters),
                 row2_ms=time_ms(lambda: conv3x3_kernel(x, w), iters) if row2 else None,
+                row2_graph_ms=(graph_ms(lambda: conv3x3_kernel(x, w, packed=wp), iters)
+                               if row2 else None),
                 library_ms=time_ms(lambda: F.conv2d(xb, wb, padding=1), iters),
-                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err, rel=rel,
-                tflops=2 * B * H * W * 9 * cin * cout)
-
-
-def graph_times(x, w, iters=20):
-    """Device times by CUDA-graph replay at x's shape: row 2's kernel on w
-    packed once, and each variant's kernel alone."""
-    wp = pack_weight(w)
-    out = dict(row2=graph_ms(lambda: conv3x3_kernel(x, w, packed=wp), iters))
-    xb = x.permute(0, 2, 3, 1).to(torch.bfloat16)
-    wt = pack_tap_weight(w)
-    for variant in VARIANTS:
-        taps = tap_inputs(xb, variant)
-        out[variant] = graph_ms(lambda: tap_sums(taps, wt, variant), iters)
-    return out
+                library_graph_ms=graph_ms(lambda: F.conv2d(xb, wb, padding=1), iters),
+                bound_ms=bound_ms, bound_by=bound_by, kernel_bound_ms=kernel_bound_ms,
+                kernel_bound_by=kernel_bound_by, max_abs_err=err, rel=rel,
+                mma_max_abs_err=mma_err, mma_rel=mma_rel, z_err=z_err,
+                z_unit=z_unit, tflops=2 * B * H * W * 9 * cin * cout)
 
 
 def post_inputs(B, H, W, gen):
@@ -177,12 +205,45 @@ def measure_post(h, w3, b3, iters=20, tail=True, gen=None):
 
 def conv_line(label, shape, variant, r):
     return (f"[row {10 if variant == 'slices' else 11}] {variant} {label} x{shape}: kernel "
-            f"alone {r['kernel_ms']:.4f} ms, whole function {r['ms']:.4f} ms "
-            f"({r['tflops'] / r['ms'] / 1e9:.1f} TFLOP/s), plain {r['plain_ms']:.4f} ms, "
-            + ("" if r["row2_ms"] is None else f"row-2 conv3x3 {r['row2_ms']:.4f} ms, ")
-            + f"bf16 F.conv2d {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}); max_abs_err {r['max_abs_err']:.3e} rel {r['rel']:.3e} "
-            f"(limit {CONV_RTOL:g})")
+            f"alone (graph) {r['kernel_ms']:.4f} ms ({r['tflops'] / r['kernel_ms'] / 1e9:.1f} "
+            f"TFLOP/s, {100 * r['kernel_bound_ms'] / r['kernel_ms']:.1f} % of its bound "
+            f"{r['kernel_bound_ms']:.4f} ms, {r['kernel_bound_by']}), mma.sync baseline "
+            f"{r['mma_kernel_ms']:.4f} ms ({r['mma_kernel_ms'] / r['kernel_ms']:.2f}x); whole "
+            f"function {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            + ("" if r["row2_ms"] is None else
+               f"row-2 conv3x3 {r['row2_ms']:.4f} ms (graph {r['row2_graph_ms']:.4f}), ")
+            + f"bf16 F.conv2d {r['library_ms']:.4f} ms (graph {r['library_graph_ms']:.4f}), "
+            f"conv bound {r['bound_ms']:.4f} ms ({r['bound_by']}); max_abs_err "
+            f"{r['max_abs_err']:.3e} rel {r['rel']:.3e} (baseline {r['mma_rel']:.3e}; limit "
+            f"{CONV_RTOL:g}); Z against the baseline's {r['z_err']:.3e} (limit one bf16 unit "
+            f"{r['z_unit']:.3e})")
+
+
+def check_conv(label, variant, r):
+    """Raise if either kernel disagrees with its plain version or the sm90
+    kernel's Z with the baseline's."""
+    if not (max(r["rel"], r["mma_rel"]) <= CONV_RTOL and r["z_err"] <= r["z_unit"]):
+        raise AssertionError(f"conv3x3_taps {variant} {label}: the kernels disagree (rel err "
+                             f"{r['rel']:.3e}, baseline {r['mma_rel']:.3e}, Z against the "
+                             f"baseline's {r['z_err']:.3e} of "
+                             f"{r['z_unit']:.3e})")
+
+
+SUMMED = ("kernel_ms", "mma_kernel_ms", "kernel_bound_ms", "ms", "plain_ms", "row2_ms",
+          "row2_graph_ms", "library_ms", "library_graph_ms", "bound_ms")
+
+
+def sum_line(variant, rows):
+    total = {k: sum(r[k] or 0.0 for r in rows) for k in SUMMED}
+    return (f"[row {10 if variant == 'slices' else 11}] {variant}, the {len(rows)} shapes "
+            f"summed: kernel alone (graph) {total['kernel_ms']:.4f} ms "
+            f"({100 * total['kernel_bound_ms'] / total['kernel_ms']:.1f} % of its bound "
+            f"{total['kernel_bound_ms']:.4f} ms), mma.sync baseline {total['mma_kernel_ms']:.4f} "
+            f"ms ({total['mma_kernel_ms'] / total['kernel_ms']:.2f}x); whole function "
+            f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, row-2 conv3x3 "
+            f"{total['row2_ms']:.4f} ms (graph {total['row2_graph_ms']:.4f}), bf16 F.conv2d "
+            f"{total['library_ms']:.4f} ms (graph {total['library_graph_ms']:.4f}), conv bound "
+            f"{total['bound_ms']:.4f} ms")
 
 
 def post_line(shape, r):
@@ -207,13 +268,11 @@ def run(iters=20, log=print):
         for variant in VARIANTS:
             r = measure_conv(x, w, variant, iters)
             log(conv_line(label, (B, cin, H, W), variant, r))
-            if not r["rel"] <= CONV_RTOL:
-                raise AssertionError(f"{variant} {label}: the kernel disagrees ({r})")
+            check_conv(label, variant, r)
             results.append(dict(label=label, variant=variant, **r))
-        g = graph_times(x, w, iters)
-        log(f"[graph] {label} x{(B, cin, H, W)}: row-2 conv3x3 {g['row2']:.4f} ms, kernel alone "
-            + ", ".join(f"{v} {g[v]:.4f} ms" for v in VARIANTS))
         del x, w
+    for variant in VARIANTS:
+        log(sum_line(variant, [r for r in results if r["variant"] == variant]))
     B, H, W, C = POST_SHAPE
     h, w3, b3 = post_inputs(B, H, W, gen)
     r = measure_post(h, w3, b3, iters, gen=gen)
@@ -231,7 +290,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("conv_variants: no CUDA device (torch.cuda.is_available() is False)")
     print(card_name())
-    _build.build(["conv3x3_taps", "dpt_post", "conv3x3", "dpt_tail"])
+    _build.build(["conv3x3_taps", "conv3x3_taps_mma", "dpt_post", "conv3x3", "dpt_tail"])
     run(args.iters)
 
 

@@ -30,11 +30,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from dust3r_tpu_torch.ops.conv3x3_taps import (VARIANTS, conv3x3_taps_kernel, conv3x3_taps_ref,
-                                               pack_tap_weight, tap_sums)
+from dust3r_tpu_torch.ops.conv3x3_taps import (CORES, VARIANTS, combine_rows,
+                                               conv3x3_taps_kernel, conv3x3_taps_ref, pack_for,
+                                               pack_tap_weight, pack_tap_weight_kmajor,
+                                               tap_inputs, tap_sums)
 from dust3r_tpu_torch.ops.dpt_post import dpt_post_kernel, dpt_post_ref
 
 SCRIPTS = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))), "scripts")
@@ -143,6 +146,68 @@ def test_pack_tap_weight_is_row_11s_packing():
     np.testing.assert_array_equal(pack_tap_weight(tw).float().numpy(), want)
 
 
+def test_pack_tap_weight_kmajor_is_a_permutation_of_row_11s():
+    """The sm90 kernel's packing holds row 11's values with its last two
+    dims swapped: [dx, dy * Cout + c, ci] = row 11's [dx, ci, dy * Cout + c]."""
+    _, jw, _, tw = _conv_inputs((1, 4, 4, 96, 32))
+    row11 = np.asarray(jw.astype(jnp.bfloat16).transpose(1, 2, 0, 3).reshape(3, 96, 96)
+                       .astype(jnp.float32))
+    kmajor = pack_tap_weight_kmajor(tw)
+    assert kmajor.shape == (3, 96, 96) and kmajor.dtype == torch.bfloat16
+    assert kmajor.is_contiguous()
+    np.testing.assert_array_equal(kmajor.float().numpy(), row11.transpose(0, 2, 1))
+    assert torch.equal(kmajor, pack_tap_weight(tw).transpose(1, 2))
+    assert torch.equal(pack_for(tw), kmajor) and torch.equal(pack_for(tw, "sm90"), kmajor)
+    assert torch.equal(pack_for(tw, "mma"), pack_tap_weight(tw))
+
+
+@pytest.mark.parametrize("H", [1, 2, 7, 13])
+def test_combine_rows_gives_the_padded_formulas_bits(H):
+    """y = Z_1; y[1:] += Z_0[:-1]; y[:-1] += Z_2[1:] against the scripts'
+    sum over the H-padded Z, (Z_0[h-1] + Z_1[h]) + Z_2[h+1], bit for bit."""
+    cout = 32
+    rng = np.random.default_rng(H)
+    z = torch.from_numpy(rng.standard_normal((2, H, 5, 3 * cout)).astype(np.float32)).to(
+        torch.bfloat16)
+    zp = F.pad(z, (0, 0, 0, 0, 1, 1))
+    want = (zp[:, 0:H, :, 0:cout] + zp[:, 1:H + 1, :, cout:2 * cout]) \
+        + zp[:, 2:H + 2, :, 2 * cout:3 * cout]
+    got = combine_rows(z, cout)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, cout, H, 5)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want.permute(0, 3, 1, 2))
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("core", [None, *CORES], ids=["default", *CORES])
+def test_cpu_tensors_take_the_plain_version_on_either_core(core, variant):
+    _, _, tx, tw = _conv_inputs((2, 5, 7, 32, 64), seed=2)
+    before = (tap_sums.slices_launches, tap_sums.copies_launches, tap_sums.mma_launches)
+    out = conv3x3_taps_kernel(tx, tw, variant, core)
+    assert torch.equal(out, conv3x3_taps_ref(tx, tw, variant))
+    assert (tap_sums.slices_launches, tap_sums.copies_launches, tap_sums.mma_launches) == before
+
+
+def test_conv_taps_refuse_an_unknown_core_and_a_weight_packed_for_another():
+    _, _, tx, tw = _conv_inputs((1, 4, 4, 64, 32))
+    taps = tap_inputs(tx.permute(0, 2, 3, 1).to(torch.bfloat16), "slices")
+    before = (tap_sums.slices_launches, tap_sums.copies_launches, tap_sums.mma_launches)
+    for call in (lambda: conv3x3_taps_kernel(tx, tw, "slices", "tma"),
+                 lambda: conv3x3_taps_kernel(tx, tw, "copies", core="cuda"),
+                 lambda: pack_for(tw, "mma.sync"),
+                 lambda: tap_sums(taps, pack_for(tw), "slices", core="tma")):
+        with pytest.raises(ValueError, match="core"):
+            call()
+    # Cin 64 and 3 * Cout 96: each core's packing has the other's shape wrong
+    with pytest.raises(ValueError, match="pack_for"):
+        tap_sums(taps, pack_for(tw, "mma"), "slices")
+    with pytest.raises(ValueError, match="pack_for"):
+        tap_sums(taps, pack_for(tw), "slices", core="mma")
+    with pytest.raises(ValueError, match="tap_inputs"):
+        tap_sums(taps, pack_for(tw), "copies")
+    assert (tap_sums.slices_launches, tap_sums.copies_launches, tap_sums.mma_launches) == before
+
+
 def test_conv_taps_refuse_what_the_kernel_cannot_take():
     _, _, tx, tw = _conv_inputs((1, 4, 4, 64, 32))
     before = (tap_sums.slices_launches, tap_sums.copies_launches)
@@ -200,6 +265,34 @@ def test_dpt_post_refuses_what_the_kernel_cannot_take():
     with pytest.raises(TypeError, match="fp32"):
         dpt_post_kernel(h.double(), w3, b3)
     assert dpt_post_kernel.launches == before
+
+
+def test_taps_probe_needs_a_card(monkeypatch):
+    from dust3r_tpu_torch.tools import taps_probe
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        taps_probe.main([])
+
+
+@pytest.mark.parametrize("name", ["no_store", "no_tma", "a_once", "b_once"])
+def test_taps_probe_takes_one_cost_out_of_the_kernel_source(name):
+    """Each probe variant is the kernel's source with its own lines guarded
+    (and, for the loads, the bytes the stage waits for), nothing else."""
+    from dust3r_tpu_torch.ops import _build
+    from dust3r_tpu_torch.tools import taps_probe as tp
+
+    src = (_build.CSRC / "conv3x3_taps.cu").read_text()
+    assert tp.variant_source(src, "base") == src
+    out = tp.variant_source(src, name)
+    want = {"no_store": [tp.NEVER + tp.STORE], "no_tma": [tp.NEVER + tp.TMA],
+            "a_once": ["if (it < kS || dx == 0) " + tp.ALOAD, "if (true) " + tp.BLOAD],
+            "b_once": ["if (true) " + tp.ALOAD, "if (it < kS) " + tp.BLOAD]}[name]
+    for guarded in want:
+        assert out.count(guarded) == 1
+    changed = [a for a, b in zip(src.splitlines(), out.splitlines()) if a != b]
+    assert len(src.splitlines()) == len(out.splitlines())
+    assert len(changed) == (1 if name in ("no_store", "no_tma") else 3)
 
 
 def test_conv_variants_tool_needs_a_card(monkeypatch):

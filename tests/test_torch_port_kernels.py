@@ -27,13 +27,18 @@ operands, then fp32 through the 1x1 and the exp; only the order of the fp32
 sums differs), its calls bit-identical to each other and to the adapter's
 call on its kept W2 packing. The TPU experiments' kernels: the tap-sum
 conv (rows 10, 11) 1e-2 against `conv3x3_taps_ref` (both round Z to bf16
-after fp32 sums in another order, then two bf16 adds), its two variants
-bit-identical (the same sums in the same order); dpt_post (row 13) 1e-5
+after fp32 sums in another order, then two bf16 adds) on the sm90 kernel
+and its mma.sync baseline, its two variants bit-identical (the same sums in
+the same order), its calls bit-identical to each other, and the sm90
+kernel's Z within one bf16 unit of the largest Z of the baseline's (their
+fp32 sums run in other orders); dpt_post (row 13) 1e-5
 against `dpt_post_ref` (fp32 either way); the attention floors (row 3)
 1e-2 against `attention_floor_ref` on the same bf16 inputs, on either
 kernel, and the sm90 kernel's product floors 1e-2 from the mma.sync
 core's, each G > 1 call bit-identical to G = 1 of its kernel.
 """
+import math
+
 import pytest
 import torch
 
@@ -42,7 +47,7 @@ from dust3r_tpu_torch.models.heads import Conv3x3, DPTOutputAdapter
 from dust3r_tpu_torch.ops.attention_floors import (MODES, SM90_CODES, attention_floor,
                                                    attention_floor_ref)
 from dust3r_tpu_torch.ops.conv3x3_taps import (VARIANTS, conv3x3_taps_kernel, conv3x3_taps_ref,
-                                               tap_sums)
+                                               pack_for, tap_inputs, tap_sums)
 from dust3r_tpu_torch.ops.dpt_post import dpt_post_kernel, dpt_post_ref
 from dust3r_tpu_torch.ops.conv3x3 import (conv3x3, conv3x3_bf16_ref, conv3x3_kernel, pack_weight,
                                           plan)
@@ -678,20 +683,27 @@ def test_dpt_tail_kernel_refuses_what_it_cannot_serve(card):
 
 TAPS_RTOL = 1e-2
 TAPS_CASES = {  # name: (B, Cin, Cout, H, W)
-    "layer1_rn": (2, 96, 256, 96, 128),
+    "layer1_rn": (2, 96, 256, 96, 128),  # Cin % 64 == 32: 32-channel chunks
     "head_conv2": (1, 128, 32, 384, 512),
     "rcu3": (2, 256, 256, 24, 32),
     "ragged_13x7": (3, 32, 64, 13, 7),  # 273 pixels: a ragged last M tile
+    "w45": (2, 64, 64, 11, 45),  # W not a multiple of the 64-pixel patch width
+    "w200_cin160": (1, 160, 96, 5, 200),  # two strips a row, the second 72 wide; N = 288
 }
 
 
-@pytest.mark.parametrize("case", sorted(TAPS_CASES))
-def test_conv3x3_taps_kernel_matches_plain_version(card, case):
+def _taps_inputs(card, case):
     B, cin, cout, h, w = TAPS_CASES[case]
     gen = torch.Generator(device=card).manual_seed(cin + cout + h)
     x = torch.randn(B, cin, h, w, device=card, generator=gen).contiguous(
         memory_format=torch.channels_last)
     wt = 0.05 * torch.randn(cout, cin, 3, 3, device=card, generator=gen)
+    return x, wt
+
+
+@pytest.mark.parametrize("case", sorted(TAPS_CASES))
+def test_conv3x3_taps_kernel_matches_plain_version(card, case):
+    x, wt = _taps_inputs(card, case)
     outs = {}
     for variant in VARIANTS:
         before = getattr(tap_sums, f"{variant}_launches")
@@ -707,17 +719,60 @@ def test_conv3x3_taps_kernel_matches_plain_version(card, case):
     assert torch.equal(outs["slices"], outs["copies"])
 
 
+@pytest.mark.parametrize("case", ["ragged_13x7", "w200_cin160", "rcu3"])
+def test_conv3x3_taps_kernel_gives_the_same_bits_call_to_call(card, case):
+    x, wt = _taps_inputs(card, case)
+    first = conv3x3_taps_kernel(x, wt)
+    for _ in range(3):
+        again = conv3x3_taps_kernel(x, wt)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("case", sorted(TAPS_CASES))
+def test_conv3x3_taps_sm90_z_is_within_one_bf16_unit_of_the_mma_baseline(card, case, variant):
+    """The kernel alone on both cores: Z within one bf16 unit of the largest
+    Z; the baseline's whole function within 1e-2 of the plain version."""
+    x, wt = _taps_inputs(card, case)
+    taps = tap_inputs(x.permute(0, 2, 3, 1).to(torch.bfloat16), variant)
+    before = (getattr(tap_sums, f"{variant}_launches"), tap_sums.mma_launches)
+    z = tap_sums(taps, pack_for(wt), variant)
+    z_mma = tap_sums(taps, pack_for(wt, "mma"), variant, core="mma")
+    torch.cuda.synchronize()
+    assert (getattr(tap_sums, f"{variant}_launches"), tap_sums.mma_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert z.shape == z_mma.shape == (*taps[0].shape[:3], 3 * wt.shape[0])
+    top = z_mma.float().abs().max().item()
+    unit = 2.0 ** (math.floor(math.log2(top)) - 7)
+    assert (z.float() - z_mma.float()).abs().max().item() <= unit
+    out = conv3x3_taps_kernel(x, wt, variant, core="mma")
+    torch.cuda.synchronize()
+    ref = conv3x3_taps_ref(x, wt, variant).float()
+    assert (out.float() - ref).abs().max().item() <= TAPS_RTOL * ref.abs().max().item()
+
+
 def test_conv3x3_taps_kernel_refuses_what_it_cannot_serve(card):
     x = torch.zeros(1, 64, 8, 8, device=card).contiguous(memory_format=torch.channels_last)
     w = torch.zeros(32, 64, 3, 3, device=card)
-    before = (tap_sums.slices_launches, tap_sums.copies_launches)
+    before = (tap_sums.slices_launches, tap_sums.copies_launches, tap_sums.mma_launches)
     with pytest.raises(ValueError, match="one device"):
         conv3x3_taps_kernel(x, w.cpu())
     with pytest.raises(TypeError):
         conv3x3_taps_kernel(x.half(), w.half())
     with pytest.raises(ValueError, match="multiples"):
         conv3x3_taps_kernel(x, w[:16], "copies")
-    assert (tap_sums.slices_launches, tap_sums.copies_launches) == before
+    with pytest.raises(ValueError, match="multiples"):
+        conv3x3_taps_kernel(x, w[:16], core="mma")
+    with pytest.raises(ValueError, match="core"):
+        conv3x3_taps_kernel(x, w, core="tma")
+    taps = tap_inputs(x.permute(0, 2, 3, 1).to(torch.bfloat16), "slices")
+    with pytest.raises(ValueError, match="pack_for"):
+        tap_sums(taps, pack_for(w, "mma"), "slices")
+    buf = torch.zeros(taps[0].numel() + 8, dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="aligned"):  # 2 bytes past a 16-byte boundary
+        tap_sums((buf[1:1 + taps[0].numel()].view(taps[0].shape),), pack_for(w), "slices")
+    assert (tap_sums.slices_launches, tap_sums.copies_launches, tap_sums.mma_launches) == before
 
 
 POST_RTOL = 1e-5
