@@ -35,11 +35,13 @@ Phases (each prints its lines; a failed phase raises and the exit code is 1):
      `conv3x3_taps_kernel` "slices" and "copies", on the sm90 kernel and on
      its mma.sync baseline, `core="mma"`) at two DPT shapes, the
      DPT tail's epilogue (row 13, `dpt_post_kernel`) at 512x384, and row
-     3's floor modes (`attention_floor`) at the encoder shape with 1 and 4
-     heads a block: nosmax and qkonly on the sm90 kernel, and all five
-     (nosmax, qkonly, copy, copynr, copymm) on `csrc/attention_floor.cu`;
+     3's five floor modes (`attention_floor`: nosmax, qkonly, copy,
+     copynr, copymm) at the encoder shape with 1 and 4 heads a block, on
+     the sm90 kernel and on their baseline, `csrc/attention_floor.cu`;
      then each against its plain version with its times, bound and library
-     call (G = 4 bit for bit against G = 1; the tap-sum conv's kernel alone
+     call (G = 4 bit for bit against G = 1; each copy floor on the sm90
+     kernel against the baseline's bits: copynr equal, copy and copymm at
+     most one bf16 unit apart; the tap-sum conv's kernel alone
      by CUDA-graph replay on both kernels, "slices" bit for bit against
      "copies", the sm90 kernel's Z within one bf16 unit of the largest Z of
      the baseline's), and qkonly's time at 64 keys beside 768 on both
@@ -135,11 +137,10 @@ TAIL_CASES = (("384x512", H384, W, 1), ("336x512", H336, W, 0))
 TAP_CASES = (("layer1_rn 96x128 96->256", 96, 256, 96, 128),
              ("head_conv2 384x512 128->32", 128, 32, H384, W))
 POST_CASE = (BATCH_SIZE, H384, W, 32)
-# (mode, G, core): the product floors on the sm90 kernel, every floor on
-# attention_floor.cu (core "mma")
-FLOOR_CASES = (tuple((m, G, None) for m in ("nosmax", "qkonly") for G in (1, 4))
-               + tuple((m, G, "mma") for m in ("nosmax", "qkonly", "copy", "copynr", "copymm")
-                       for G in (1, 4)))
+# (mode, G, core): every floor on the sm90 kernel (core None) and on
+# attention_floor.cu (core "mma"), its baseline
+FLOOR_CASES = tuple((m, G, core) for core in (None, "mma")
+                    for m in ("nosmax", "qkonly", "copy", "copynr", "copymm") for G in (1, 4))
 
 
 def log(msg):
@@ -353,14 +354,15 @@ def experiments_phase(torch):
     """The other TPU experiments' entry points: the tap-sum conv (rows 10,
     11, on the sm90 kernel and its mma.sync baseline) at TAP_CASES, the DPT
     tail's epilogue (row 13) at POST_CASE and row
-    3's floors at the encoder shape (8,16,768,64) at FLOOR_CASES (nosmax and
-    qkonly on the sm90 kernel, every floor on attention_floor.cu), each
+    3's floors at the encoder shape (8,16,768,64) at FLOOR_CASES (every
+    floor on the sm90 kernel and on attention_floor.cu), each
     called once with the launch counts from 0 (the counts of this path),
     then each against its plain version with times, bound and library call
     (tools/conv_variants.measure_conv, which also holds the sm90 kernel's Z
     to the baseline's, and measure_post; tools/attn_variants.
     measure: G = 4 bit for bit against G = 1, beside the exact kernel of
-    the same core), and qkonly at 64 keys beside 768 on both kernels (its
+    the same core, a copy floor on the sm90 kernel against the baseline's
+    bits, `check_floor`), and qkonly at 64 keys beside 768 on both kernels (its
     time must grow with the keys). Returns the measured rows by kernel and
     the launch counts."""
     from dust3r_tpu_torch.ops.attention_floors import attention_floor
@@ -440,9 +442,9 @@ def experiments_phase(torch):
             f"{av.library_label(mode, r['library_ms'])}, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}); max_abs_err {r['max_abs_err']:.3e} rel {r['rel']:.3e} "
             f"(limit {av.RTOL:g})"
-            + ("" if r["identical"] is None else f"; bits equal G=1's: {r['identical']}"))
-        if not r["rel"] <= av.RTOL or r["identical"] is False:
-            raise AssertionError(f"floor {mode} {kernel} G={G}: the kernel disagrees ({r})")
+            + ("" if r["identical"] is None else f"; bits equal G=1's: {r['identical']}")
+            + av.floor_line(r))
+        av.check_floor(f"floor {mode} {kernel} G={G}", mode, r)
         rows["attention_floor" if core is None else "attention_floor_mma"].append(
             dict(r, count=1))
     for core in (None, "mma"):

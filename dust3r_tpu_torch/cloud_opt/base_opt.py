@@ -93,11 +93,11 @@ class BasePCOptimizer:
                  **_ignored):
         if mesh is not None:
             raise NotImplementedError("the aligner's mesh path is not ported "
-                                      "(ROADMAP.md, queue A item 3)")
+                                      "(ROADMAP.md, queue A item 4)")
         if obs_dtype not in (torch.bfloat16, torch.float32):
             raise NotImplementedError(f"obs_dtype {obs_dtype}: the port stores "
                                       f"observations in bf16 or fp32 (int8: ROADMAP.md, "
-                                      f"queue A item 3)")
+                                      f"queue A item 4)")
         self.verbose = verbose
         self.obs_dtype = obs_dtype
         self.min_conf_thr = min_conf_thr

@@ -255,8 +255,8 @@ def global_alignment_loop(scene, lr=0.01, niter=300, schedule="cosine", lr_min=1
 
 
 class ModularPointCloudOptimizer(PointCloudOptimizer):
-    """Not ported yet (ROADMAP.md, queue A item 3)."""
+    """Not ported yet (ROADMAP.md, queue A item 4)."""
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError("ModularPointCloudOptimizer is not ported yet "
-                                  "(ROADMAP.md, queue A item 3)")
+                                  "(ROADMAP.md, queue A item 4)")

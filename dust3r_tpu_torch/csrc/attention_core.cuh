@@ -5,12 +5,11 @@
 // kernel serves: this core, G = 1, 2 or 4 heads a block (the wrapper runs a
 // call's G at the largest of those dividing it), takes fp32, d < 64 (the
 // softmax variants too), and with core="mma" the bf16 d = 64 calls, the
-// softmax variants and row 3's floors nosmax and qkonly (the baseline of
-// the sm90 kernel); the copy floors are attention_floor.cu's alone.
-// fused_attention_sm90.cu (TMA + wgmma) takes bf16 d = 64 at any G
-// dividing the heads, exact, as the softmax variants or as the floors
-// nosmax and qkonly, and shares this header's Args, make_args, Softmax
-// codes and bf16 packing and exp2 helpers.
+// softmax variants and row 3's five floors (attention_floor.cu: the
+// baseline of the sm90 kernel's). fused_attention_sm90.cu (TMA + wgmma)
+// takes bf16 d = 64 at any G dividing the heads, exact, as the softmax
+// variants or as row 3's five floors, and shares this header's Args,
+// make_args, Softmax codes and bf16 packing and exp2 helpers.
 //
 // Per (batch, head):  O = softmax((R_q q)(R_k k)^T * d^-1/2) v
 // RoPE in fp32 (head dim halves [y | x], rotate-half within each half), q
@@ -92,8 +91,16 @@ static_assert(kRowsPerBlock == kKeysPerTile, "one tile loader serves Q, K and V"
 //               tile are folded into a sink stored only when
 //               Args::store_sink is set, so no q.k^T and no load is
 //               compiled away.
+// The copy floors of row 3 make no logits either; only
+// fused_attention_sm90.cu takes their codes (attention_floor.cu keeps
+// its own Floor codes, the wrapper's MODES order):
+//   kFloorCopy    bf16(rope(q) + v), q unscaled (`copy`);
+//   kFloorCopyNr  bf16(q + v) (`copynr`);
+//   kFloorCopyMm  bf16(q cos + (q P) sin + v), P the signed permutation
+//                 with t P = rotate-half(t) (`copymm`).
 enum Softmax : int {
-  kExact = 0, kNoMax = 1, kBf16Logits = 2, kBf16Exp = 3, kNoSoftmax = 4, kQkOnly = 5
+  kExact = 0, kNoMax = 1, kBf16Logits = 2, kBf16Exp = 3, kNoSoftmax = 4, kQkOnly = 5,
+  kFloorCopy = 6, kFloorCopyNr = 7, kFloorCopyMm = 8
 };
 
 // Element (b, h, n, c) of a view lies at b * b + h * h + n * n + c. Head

@@ -4,10 +4,10 @@
 //
 // Replaces the floor modes of scripts/exp_attn_r2.py::attn_g (TPU row 3;
 // its attention modes are fused_attention_sm90.cu's at any G, with
-// fused_attention.cu's G = 1, 2, 4 as the baseline). The copy floors are
-// served here alone; nosmax and qkonly here are the mma.sync core's, the
-// baseline of the same two floors as modes of fused_attention_sm90.cu (the
-// wrapper's default route, core="mma" for these). Per (batch,
+// fused_attention.cu's G = 1, 2, 4 as the baseline). All five floors are
+// modes of fused_attention_sm90.cu (the wrapper's default route); this file
+// is their baseline (core="mma"): nosmax and qkonly on the mma.sync core,
+// the copy floors on the small kernel below. Per (batch,
 // head), with q and k rotated by RoPE in fp32 from the tables, q scaled by
 // d^-1/2, both rounded to bf16, v and the output bf16:
 //   nosmax  O = bf16(q k^T) v: both products, no softmax (attn::kNoSoftmax

@@ -1,7 +1,7 @@
 // Fused 2D-RoPE attention for Hopper (sm_90a) built on TMA and wgmma, with a
 // plain C interface: the main path's attention (bf16, head dim 64, exact
-// softmax), its grouped form (G heads a block), the softmax variants and two
-// of its floors.
+// softmax), its grouped form (G heads a block), the softmax variants and the
+// five floors of TPU row 3.
 //
 // Replaces dust3r_tpu/ops/pallas_attention.py::fused_attention (the Pallas
 // TPU kernel _attn_kernel with _apply_rope_tile, row 1 of the repo's TPU
@@ -24,21 +24,45 @@
 //   bf16_logits  kern_bf16s (row 4): the logits rounded to bf16, then as
 //                bf16_exp;
 // each with the fp32 row sum of P as its exp made it, and with RoPE or
-// without; and row 3's two product floors, with RoPE:
+// without; and row 3's floors (scripts/exp_attn_r2.py:82-115), with RoPE,
+// which split this loop's time into parts because they run on its ring:
 //   nosmax  P = bf16(S): both products, no max, exp, row sum or divide;
 //   qkonly  no P.v: the output is key tile 0's logits (the script's
 //           s[:, :d]); every tile's logits and a value of each V tile are
 //           folded into a sink that is stored only when Args::store_sink is
 //           set, which the wrappers never do, so no product is compiled
-//           away (as csrc/attention_floor.cu keeps its discarded work).
+//           away (as csrc/attention_floor.cu keeps its discarded work);
+//   copynr  O = bf16(q + v): the ring's I/O alone, no tables read;
+//   copy    O = bf16(rope(q) + v), q unscaled: the I/O and Q's rotation
+//           (rope_unit's arithmetic without the scale, in fp32 to the one
+//           rounding);
+//   copymm  O = bf16(q cos + (q P) sin + v), P the signed permutation with
+//           t P = rotate-half(t) (the script's rot_matrix): rot = Q P by the
+//           four wgmma m64n64k16 that make S = Q K^T elsewhere, against a
+//           P^T tile built once a block in a K stage's layout (k_rot[0], free
+//           while the rotating warps idle); every sum of the product has one
+//           nonzero term, so rot is exact and lands in O's accumulator layout.
+// The copy floors keep the ring as it is: the producer streams every K and
+// V tile of a unit as in every mode, because the TPU call DMAs q, k and v in
+// every mode (exp_attn_r2.py:156-174); a TMA load cannot be compiled away,
+// so k needs no sink. The rotating warps idle and the key tables are not
+// read: the TPU floors never rotate k. A consumer warpgroup's 64 rows are
+// exactly key tile row0 / 64 (the item's first row is a multiple of 192,
+// and the mode needs Nq = Nk), so it reads v at its own accumulator elements
+// from that V stage and only waits on and releases the others. q is staged
+// raw (scale 1: exact) as the Q tile; the output is fp32 until the
+// epilogue's one rounding. What bounds them: bytes, q, v and o once each and
+// K and V through L2 once for each 192-row item (4 times a head at N =
+// 768); floor_bound in tools/attn_variants.py counts the TPU call's bytes,
+// q, k, v and o once (copy and copymm: and the tables).
 // It computes what the mma.sync core of attention_core.cuh computes (its
 // header's "Per (batch, head)" lines): RoPE in fp32 from the wrapper's fp32 tables, q
 // scaled and then rounded to bf16, k rotated and rounded to bf16, logits
 // and the online softmax in fp32, P rounded to bf16 before P.v, the output
 // divided by the fp32 row sum. Only the order of the fp32 sums inside the
-// products differs. That core stays the kernel of fp32, of d < 64 and of
-// the copy floors, and the baseline (core="mma") the grouped calls, the
-// softmax variants and the product floors are held to.
+// products differs. That core stays the kernel of fp32 and of d < 64, and
+// the baseline (core="mma") the grouped calls, the softmax variants and the
+// floors (csrc/attention_floor.cu) are held to.
 //
 // What bounds it on an H100: at DUSt3R's sizes (N = 672-768, d = 64) the
 // two products are 4*N*N*d FLOPs against 4*N*d bf16 values in and out, some
@@ -188,6 +212,96 @@ __device__ __forceinline__ void stage_q(unsigned char* tile, const __nv_bfloat16
   }
 }
 
+// copymm's P^T tile, the B operand of rot = Q P in a K stage's layout (K-major,
+// 128-byte swizzle): row n holds column n of P, so P^T[n, c] = +1 where n = c
+// + d/4 for c in the first quarter of a half, -1 where n = c - d/4 for c in
+// the second, else 0 (ops/attention_floors.py::rot_tile mirrors it).
+__device__ __forceinline__ void build_rot_tile(unsigned char* tile) {
+  for (int i = threadIdx.x; i < kKeys * 8; i += kThreads) {
+    const int n = i / 8, chunk = i % 8;
+    float p[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int c = chunk * 8 + e;
+      const bool first = c % (kD / 2) < kD / 4;
+      p[e] = first ? (n == c + kD / 4 ? 1.f : 0.f) : (n == c - kD / 4 ? -1.f : 0.f);
+    }
+    *reinterpret_cast<uint4*>(tile + swizzled(n, chunk)) = attn::pack8(p);
+  }
+}
+
+// bf16 pair at (row r, columns 8 n + 2 t, + 1) of a 128-byte swizzled tile, in
+// fp32
+__device__ __forceinline__ float2 tile_pair(const unsigned char* tile, int r, int n, int t) {
+  return __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(tile + swizzled(r, n) + 4 * t));
+}
+
+// t cos + p sin + v of a copy floor, p the signed rotate-half partner (copy)
+// or rot (copymm): fma(t, cos, p sin), then v added, the form
+// csrc/attention_floor.cu compiles to. Written with the rounding intrinsics
+// because the compiler may fuse either product, and where t cos and p sin
+// nearly cancel the two forms lie many bf16 units apart.
+__device__ __forceinline__ float rope_add(float t, float cs, float p, float sn, float v) {
+  return __fadd_rn(__fmaf_rn(t, cs, __fmul_rn(p, sn)), v);
+}
+
+// A copy floor's output at this thread's elements of the accumulator layout
+// (o[4 n + 2 half + e] at local row r + 8 half, column 8 n + 2 t + e), in
+// fp32: q from the warpgroup's raw Q tile, v from the V stage that holds its
+// rows, the tables (copy, copymm) at global row `row` + 8 half; rot is
+// copymm's Q P in the same layout. A thread holds a column's rotate-half
+// partner (column + d/4, chunk n + 2) at the same offset, and the tables
+// repeat with period d/4 within a half, so both take chunk n's cos and sin
+// for the partner too, as rope_unit does (half the table reads; the same
+// values as each column's own).
+template <int S>
+__device__ __forceinline__ void copy_out(float (&o)[32], const float (&rot)[32],
+                                         const unsigned char* qt, const unsigned char* vt,
+                                         const float* cos_q, const float* sin_q, int r, int row,
+                                         int nq, int t) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int lr = r + 8 * half, n_row = row + 8 * half;
+    float2 q[8], v[8];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      q[n] = tile_pair(qt, lr, n, t);
+      v[n] = tile_pair(vt, lr, n, t);
+    }
+    float* out = o + 2 * half;
+    if constexpr (S == attn::kFloorCopyNr) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        out[4 * n] = q[n].x + v[n].x;
+        out[4 * n + 1] = q[n].y + v[n].y;
+      }
+    } else {
+      const float* cos_row = cos_q + (size_t)n_row * kD + 2 * t;
+      const float* sin_row = sin_q + (size_t)n_row * kD + 2 * t;
+      const float2 zero = make_float2(0.f, 0.f);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int n = i / 2 * 4 + i % 2;  // chunks 0, 1, 4, 5: the first quarter of each half
+        const float2 cs = n_row < nq ? *reinterpret_cast<const float2*>(cos_row + 8 * n) : zero;
+        const float2 sn = n_row < nq ? *reinterpret_cast<const float2*>(sin_row + 8 * n) : zero;
+        const float2 a = q[n], b = q[n + 2];
+        // the signed partners of chunks n and n + 2: -b and a by rotate-half
+        // (copy), or Q P's, the same values (copymm)
+        float2 pa = make_float2(-b.x, -b.y), pb = a;
+        if constexpr (S == attn::kFloorCopyMm) {
+          pa = make_float2(rot[4 * n + 2 * half], rot[4 * n + 2 * half + 1]);
+          pb = make_float2(rot[4 * (n + 2) + 2 * half], rot[4 * (n + 2) + 2 * half + 1]);
+        }
+        out[4 * n] = rope_add(a.x, cs.x, pa.x, sn.x, v[n].x);
+        out[4 * n + 1] = rope_add(a.y, cs.y, pa.y, sn.y, v[n].y);
+        out[4 * (n + 2)] = rope_add(b.x, cs.x, pb.x, sn.x, v[n + 2].x);
+        out[4 * (n + 2) + 1] = rope_add(b.y, cs.y, pb.y, sn.y, v[n + 2].y);
+      }
+    }
+  }
+}
+
 // The rotating warps: the K tiles of one unit (a head of a work item), once
 // their TMA landed, rotated into k_rot; `it` counts the ring's tiles across
 // units. A
@@ -235,12 +349,34 @@ __device__ __forceinline__ void rotate_keys(Smem& sm, int rt, int lane, const fl
   }
 }
 
+// acc = A B^T by four wgmma m64n64k16: A the warpgroup's 64 x 64 Q tile
+// (its descriptor), B a 64 x 64 tile of rows (a K stage, or copymm's P^T),
+// both K-major with the 128-byte swizzle; acc in the accumulator layout of
+// O. S = Q K^T, or copymm's rot = Q P. kWait: wait for the products here
+// (else the caller waits before it reads acc).
+template <bool kWait = true>
+__device__ __forceinline__ void qk_product(float (&acc)[32], uint64_t qdesc, const void* b) {
+  const uint64_t bdesc = sm90::smem_desc(b, 16, 1024, sm90::kSwizzle128B);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    sm90::wgmma_ss<0, 0>(acc, sm90::desc_advance(qdesc, 32 * kc),
+                         sm90::desc_advance(bdesc, 32 * kc), kc > 0);
+  }
+  sm90::wgmma_commit();
+  if constexpr (kWait) {
+    sm90::wgmma_wait<0>();
+    sm90::fence_operand(acc);
+  }
+}
+
 // A consumer warpgroup's share of one head: its 64 query rows of the
 // 192-row query tile q0 of head h of batch entry b, against every key tile;
 // `it` counts the ring's tiles across units. S makes P of the logits:
 // attn::kExact by the online softmax; kNoMax, kBf16Exp and kBf16Logits as
 // the header's variants; kNoSoftmax P = bf16(S); kQkOnly no P.v, the output
-// key tile 0's logits and every tile's folded into `sink` (see the header).
+// key tile 0's logits and every tile's folded into `sink` (see the header);
+// the copy floors make no logits (copy_out).
 template <bool kRope, int S>
 __device__ __forceinline__ void consume(Smem& sm, const Args& args, int b, int h, int q0,
                                         int ntiles, int& it, uint32_t& sink) {
@@ -249,14 +385,16 @@ __device__ __forceinline__ void consume(Smem& sm, const Args& args, int b, int h
   const int lane = threadIdx.x % 32;
   const int cw = warp / 4;
   const int g = lane / 4, t = lane % 4;  // this thread holds rows row and row + 8 of S and O
+  constexpr bool kCopy = S >= attn::kFloorCopy;
   // the previous head's products have read this warpgroup's Q; then its 64
-  // query rows go into shared memory
+  // query rows go into shared memory (the copy floors': raw, scale 1)
   sm90::named_barrier_sync(1 + cw, 128);
-  stage_q<kRope>(reinterpret_cast<unsigned char*>(sm.q[cw]),
-                 static_cast<const __nv_bfloat16*>(args.q) + b * args.sq.b + h * args.sq.h,
-                 args.sq.n, kRope ? args.cos_q + (size_t)b * nq * kD : nullptr,
-                 kRope ? args.sin_q + (size_t)b * nq * kD : nullptr, q0 + cw * 64, nq,
-                 threadIdx.x % 128, args.scale);
+  const float* cos_q = kRope ? args.cos_q + (size_t)b * nq * kD : nullptr;
+  const float* sin_q = kRope ? args.sin_q + (size_t)b * nq * kD : nullptr;
+  stage_q<kRope && !kCopy>(
+      reinterpret_cast<unsigned char*>(sm.q[cw]),
+      static_cast<const __nv_bfloat16*>(args.q) + b * args.sq.b + h * args.sq.h, args.sq.n,
+      cos_q, sin_q, q0 + cw * 64, nq, threadIdx.x % 128, kCopy ? 1.f : args.scale);
   sm90::fence_proxy_async();
   sm90::named_barrier_sync(1 + cw, 128);
   const uint64_t qdesc = sm90::smem_desc(sm.q[cw], 16, 1024, sm90::kSwizzle128B);
@@ -265,6 +403,11 @@ __device__ __forceinline__ void consume(Smem& sm, const Args& args, int b, int h
   float o[32], sc[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) o[i] = sc[i] = 0.f;
+  if constexpr (S == attn::kFloorCopyMm) {  // rot = Q P into sc, waited for at own_tile
+    qk_product<false>(sc, qdesc, sm.k_rot[0]);
+  }
+  // the key tile that holds this warpgroup's rows (the copy floors' v)
+  [[maybe_unused]] const int own_tile = (q0 + cw * 64) / kKeys;
   // running max of rows g and g + 8 (kNoMax: 0)
   [[maybe_unused]] float m0 = S == attn::kNoMax ? 0.f : -INFINITY, m1 = m0;
   float l0 = 0.f, l1 = 0.f;  // this thread's share of their row sums
@@ -273,23 +416,20 @@ __device__ __forceinline__ void consume(Smem& sm, const Args& args, int b, int h
     const int s = it % kStages;
     const uint32_t parity = (it / kStages) & 1;
     sm90::mbar_wait(&sm.full[s], parity);
-    if (kRope) sm90::mbar_wait(&sm.rotated[s], parity);
+    if (kRope && !kCopy) sm90::mbar_wait(&sm.rotated[s], parity);
 
-    // S = Q K^T: Q rows are the queries, K rows the 64 keys, both K-major
-    // with the 128-byte swizzle
-    const uint64_t kdesc = sm90::smem_desc(kRope ? sm.k_rot[s] : sm.k_raw[s], 16, 1024,
-                                           sm90::kSwizzle128B);
-    sm90::wgmma_fence();
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      sm90::wgmma_ss<0, 0>(sc, sm90::desc_advance(qdesc, 32 * kc),
-                           sm90::desc_advance(kdesc, 32 * kc), kc > 0);
-    }
-    sm90::wgmma_commit();
-    sm90::wgmma_wait<0>();
-    sm90::fence_operand(sc);
-
-    if constexpr (S == attn::kQkOnly) {
+    if constexpr (kCopy) {
+      if (j == own_tile) {
+        if constexpr (S == attn::kFloorCopyMm) {
+          sm90::wgmma_wait<0>();
+          sm90::fence_operand(sc);
+        }
+        copy_out<S>(o, sc, reinterpret_cast<const unsigned char*>(sm.q[cw]),
+                    reinterpret_cast<const unsigned char*>(sm.v[s]), cos_q, sin_q,
+                    (warp % 4) * 16 + g, row, nq, t);
+      }
+    } else if constexpr (S == attn::kQkOnly) {
+      qk_product(sc, qdesc, kRope ? sm.k_rot[s] : sm.k_raw[s]);
       // the accumulators of S and O share one (row, column) layout
       if (j == 0) {
 #pragma unroll
@@ -299,6 +439,7 @@ __device__ __forceinline__ void consume(Smem& sm, const Args& args, int b, int h
       for (int i = 0; i < 32; ++i) sink ^= __float_as_uint(sc[i]);
       sink ^= reinterpret_cast<const uint32_t*>(sm.v[s])[threadIdx.x % 128];
     } else {
+      qk_product(sc, qdesc, kRope ? sm.k_rot[s] : sm.k_raw[s]);
       // P in bf16 pairs: the accumulator's (row, key) layout is the A layout
       // of P.v, 16 keys (two 8-column blocks) a k-chunk
       uint32_t pa[4][4];
@@ -398,7 +539,10 @@ __device__ __forceinline__ void consume(Smem& sm, const Args& args, int b, int h
     if (lane == 0) sm90::mbar_arrive(&sm.empty[s]);
   }
 
-  if constexpr (S == attn::kNoSoftmax || S == attn::kQkOnly) {  // no row sum to divide by
+  // copymm: a warpgroup whose rows start at or past Nq has no own tile; Q P
+  // must be done before the next unit stages Q
+  if constexpr (S == attn::kFloorCopyMm) sm90::wgmma_wait<0>();
+  if constexpr (S == attn::kNoSoftmax || S == attn::kQkOnly || kCopy) {  // no row sum
     l0 = l1 = 1.f;
   } else {
 #pragma unroll
@@ -468,6 +612,10 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap kmap,
     }
     sm90::fence_barrier_init();
   }
+  if constexpr (S == attn::kFloorCopyMm) {  // k_rot is free: no K is rotated
+    build_rot_tile(reinterpret_cast<unsigned char*>(sm.k_rot[0]));
+    sm90::fence_proxy_async();
+  }
   __syncthreads();
 
   int it = 0;  // the ring's tiles so far: stage it % kStages, phase (it / kStages) & 1
@@ -485,7 +633,7 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap kmap,
             sm90::tma_load_4d(sm.v[s], &vmap, &sm.full[s], 0, j * kKeys, w.h, w.b);
           }
         }
-      } else if (kRope) {
+      } else if (kRope && S < attn::kFloorCopy) {  // the copy floors rotate no K
         rotate_keys(sm, threadIdx.x - 128 * kConsumers - 32, lane,
                     args.cos_k + (size_t)w.b * nk * kD, args.sin_k + (size_t)w.b * nk * kD, nk,
                     ntiles, it);
@@ -552,8 +700,9 @@ int launch_rope(bool rope, const CUtensorMap& kmap, const CUtensorMap& vmap, con
 // (may be null) without RoPE; heads_per_block G, any divisor of heads;
 // `mode` an attn::Softmax code: kExact or the softmax variants kNoMax
 // (nomax), kBf16Logits (bf16_logits) and kBf16Exp (bf16_exp), with RoPE or
-// without; with RoPE the floors kNoSoftmax (nosmax) and kQkOnly (qkonly, nk
-// >= 64). Returns the CUDA error code of the launch, or of encoding a
+// without; with RoPE the floors kNoSoftmax (nosmax), kQkOnly (qkonly, nk
+// >= 64), kFloorCopy (copy), kFloorCopyNr (copynr; it reads no tables) and
+// kFloorCopyMm (copymm), the copy floors with nq == nk. Returns the CUDA error code of the launch, or of encoding a
 // tensor map offset by 1000 (1000 + CUresult; sm90::kNoEncoder when the
 // runtime gives no encoder); -1 for what it does not take.
 extern "C" int dust3r_fused_attention_sm90(const void* q, const void* k, const void* v,
@@ -563,9 +712,9 @@ extern "C" int dust3r_fused_attention_sm90(const void* q, const void* k, const v
                                            int nk, int heads_per_block, int mode, int use_rope,
                                            float scale, void* stream) {
   if (heads_per_block < 1 || heads % heads_per_block) return -1;
-  const bool floor = mode == attn::kNoSoftmax || mode == attn::kQkOnly;
-  if (mode < attn::kExact || mode > attn::kQkOnly || (floor && !use_rope) ||
-      (mode == attn::kQkOnly && nk < kD)) {
+  const bool floor = mode >= attn::kNoSoftmax;
+  if (mode < attn::kExact || mode > attn::kFloorCopyMm || (floor && !use_rope) ||
+      (mode == attn::kQkOnly && nk < kD) || (mode >= attn::kFloorCopy && nq != nk)) {
     return -1;
   }
   const Args a = attn::make_args(q, k, v, cos_q, sin_q, cos_k, sin_k, o, strides, heads, nq, nk,
@@ -587,6 +736,12 @@ extern "C" int dust3r_fused_attention_sm90(const void* q, const void* k, const v
       return launch<true, attn::kNoSoftmax>(kmap, vmap, a, batch, g, s);
     case attn::kQkOnly:
       return launch<true, attn::kQkOnly>(kmap, vmap, a, batch, g, s);
+    case attn::kFloorCopy:
+      return launch<true, attn::kFloorCopy>(kmap, vmap, a, batch, g, s);
+    case attn::kFloorCopyNr:
+      return launch<true, attn::kFloorCopyNr>(kmap, vmap, a, batch, g, s);
+    case attn::kFloorCopyMm:
+      return launch<true, attn::kFloorCopyMm>(kmap, vmap, a, batch, g, s);
     default:
       return launch_rope<attn::kExact>(use_rope, kmap, vmap, a, batch, g, s);
   }

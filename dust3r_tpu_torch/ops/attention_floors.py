@@ -15,16 +15,18 @@ kernel's work, so that its time on the card splits into parts:
   `attention_variants`' "nomax", which keeps the exp and the row sum and
   drops only the max.
 
-The kernels are hand-written for sm_90a. "nosmax" and "qkonly" are modes
-of the sm90 attention kernel's consumer loop (`csrc/fused_attention_sm90.cu`,
-TMA + wgmma), so they split that kernel's time; with `core="mma"` they run
-on the mma.sync attention core of `csrc/attention_core.cuh` instead
-(`csrc/attention_floor.cu`, two more softmax codes), their baseline. The
-copy modes are one small kernel of `csrc/attention_floor.cu` on the core's
-tile loaders. The headers say what bounds each and how work that a floor
-discards is kept from being compiled away. They answer a question of
-speed, served by this entry point and `tools/attn_variants.py`, not by the
-model.
+The kernels are hand-written for sm_90a. All five floors are modes of the
+sm90 attention kernel's consumer loop (`csrc/fused_attention_sm90.cu`, TMA
++ wgmma), on its ring of K and V tiles, so their differences split that
+kernel's time: copynr the ring's I/O, copy - copynr Q's rotation, qkonly -
+copy K's rotation and q.k^T, nosmax - qkonly P.v, the exact kernel -
+nosmax the softmax. With `core="mma"` they run on
+`csrc/attention_floor.cu` instead, their baseline: nosmax and qkonly on
+the mma.sync attention core of `csrc/attention_core.cuh` (two more softmax
+codes), the copy modes on one small kernel on the core's tile loaders.
+The headers say what bounds each and how work that a floor discards is
+kept from being compiled away. They answer a question of speed, served by
+this entry point and `tools/attn_variants.py`, not by the model.
 
 * `attention_floor_ref` is the plain version, step by step the script's
   arithmetic (`exp_attn_r2.py:63-115`): q and k to fp32, RoPE from fp32
@@ -33,9 +35,12 @@ model.
   once. The output has v's dtype.
 * `attention_floor` is the wrapper: it refuses what the kernels cannot
   take, returns the plain version for CPU tensors and launches a kernel
-  for CUDA tensors (bf16, d = 64), or raises. `attention_floor.launches`
-  counts launches of the sm90 kernel's floors, `attention_floor.core_launches`
-  those of `csrc/attention_floor.cu`.
+  for CUDA tensors (bf16, d = 64), or raises: a CUDA tensor launches the
+  kernel the call names and nothing else. `attention_floor.launches`
+  counts launches of the sm90 kernel's floors,
+  `attention_floor.core_launches` those of `csrc/attention_floor.cu`.
+* `rot_matrix` is the script's P; `rot_tile` is P^T as the sm90 kernel
+  builds it for copymm, by the kernel's own rule.
 """
 from __future__ import annotations
 
@@ -49,8 +54,8 @@ from .rope import apply_rope2d, rope_tables
 
 MODES = ("nosmax", "qkonly", "copy", "copynr", "copymm")  # attention_floor.cu's codes 0-4
 COPY_MODES = ("copy", "copynr", "copymm")
-# the product floors, modes of the sm90 kernel: their attn::Softmax codes
-SM90_CODES = dict(nosmax=4, qkonly=5)
+# the floors as modes of the sm90 kernel: their attn::Softmax codes
+SM90_CODES = dict(nosmax=4, qkonly=5, copy=6, copynr=7, copymm=8)
 HEAD_DIM = 64  # the kernels' head dim, the script's
 
 
@@ -64,6 +69,18 @@ def rot_matrix(d, device=None):
             P[o + qq + i, o + i] = -1.0
             P[o + i, o + qq + i] = 1.0
     return P.to(device)
+
+
+def rot_tile(d, device=None):
+    """(d, d) fp32 P^T, the B operand of copymm's rot = q P as
+    `csrc/fused_attention_sm90.cu::build_rot_tile` builds it (a K-major B
+    holds B's columns as rows): row n, column c is +1 where n = c + d/4 for
+    c in the first quarter of a half, -1 where n = c - d/4 for c in the
+    second, else 0. Equal to `rot_matrix(d).T`."""
+    n, c = torch.arange(d)[:, None], torch.arange(d)[None]
+    first = c % (d // 2) < d // 4
+    plus, minus = first & (n == c + d // 4), ~first & (n == c - d // 4)
+    return (plus.float() - minus.float()).to(device)
 
 
 def _check_mode(mode):
@@ -126,16 +143,13 @@ def attention_floor(q, k, v, positions_q, positions_k, rope_base=100.0, *, mode,
     Arguments as `fused_attention`'s; positions are required (the script's
     attention always rotates). heads_per_program: any divisor of the heads,
     every value giving the same bits. core: None or "sm90" (the sm90
-    kernel for the product floors, `csrc/attention_floor.cu` for the copy
-    floors), or "mma" (`csrc/attention_floor.cu` for every mode, at the
-    largest of 4, 2, 1 heads a block dividing G). Output as
-    `fused_attention`'s."""
+    kernel, every mode), or "mma" (the baseline, `csrc/attention_floor.cu`,
+    every mode, at the largest of 4, 2, 1 heads a block dividing G).
+    Output as `fused_attention`'s."""
     _check_mode(mode)
     check_heads_per_program(heads_per_program, q.shape[1])
     if core is not None and core not in CORES:
         raise ValueError(f"core {core!r} not in {CORES} or None")
-    if core == "sm90" and mode not in SM90_CODES:
-        raise ValueError(f"the sm90 kernel serves the floors {tuple(SM90_CODES)}, not {mode!r}")
     if positions_q is None or positions_k is None:
         raise ValueError("the floors run the script's RoPE attention: give positions for "
                          "q and k")
@@ -147,7 +161,7 @@ def attention_floor(q, k, v, positions_q, positions_k, rope_base=100.0, *, mode,
         raise ValueError(f"{mode} adds v to q: Nq = {Nq} and Nk = {Nk} must agree")
     if q.device.type == "cpu":
         return attention_floor_ref(q, k, v, positions_q, positions_k, rope_base, mode)
-    core = core or ("sm90" if mode in SM90_CODES else "mma")
+    core = core or "sm90"
     G = kernel_heads_per_program(core, heads_per_program)
     check(q, k, v, positions_q, positions_k, G)
     if q.dtype != torch.bfloat16:

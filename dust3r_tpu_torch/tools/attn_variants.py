@@ -11,9 +11,11 @@ draws them):
 
   3  fused_attention with G = 1, 2, 4 heads a block on the sm90 kernel and
      G = 2, 4 on the mma.sync core (the baseline), (16,16,768,64); and
-     attention_floor's floor modes: nosmax and qkonly on the sm90 kernel at
-     G = 1, 4, 8, and on the mma.sync core at the script's G (nosmax and
-     copynr at 1, 2, 4, qkonly, copy and copymm at 1, 4), (16,16,768,64)
+     attention_floor's floor modes, (16,16,768,64): nosmax and qkonly on
+     the sm90 kernel at G = 1, 4, 8, the copy floors there at the script's
+     G, and all five on their baseline, `csrc/attention_floor.cu`, at the
+     script's G (nosmax and copynr at 1, 2, 4, qkonly, copy and copymm at
+     1, 4)
   4  attention_variant "bf16_exp" and "bf16_logits", (16,16,768,64), on
      either kernel
   5  fused_attention G = 4 and G = 8 on the sm90 kernel, (16,16,768,64)
@@ -41,7 +43,14 @@ softmax whether its bits equal its own kernel's at G = 1 on contiguous q,
 k, v, and its largest distance from the row-1 baseline's output; for a
 floor or a variant with G > 1, whether its bits equal its G = 1 call's;
 for a variant on the sm90 kernel, whether its bits equal the same
-variant's on the mma.sync core. qkonly is also
+variant's on the mma.sync core; for a copy floor on the sm90 kernel,
+whether its bits equal its baseline's at the same G, how many elements
+differ and by how many bf16 units at most (copynr must give the baseline's
+bits, copy and copymm at most one unit). The split of the sm90 exact
+kernel by its floors at (16,16,768,64), G = 1, from one set of timings:
+the ring (copynr), Q's rotation (copy - copynr), K's rotation and q.k^T
+(qkonly - copy), P.v (nosmax - qkonly), the softmax (exact - nosmax).
+qkonly is also
 timed at Nk = 64 beside Nk = 768 on both kernels: its time must grow with
 the keys it reads. The sm90 kernel's K rotation: its time with and without
 RoPE at (16,16,768,64), beside the bytes of fp32 tables its rotating warps
@@ -71,7 +80,7 @@ import torch.nn.functional as F
 
 from ..models.blocks import token_positions
 from ..ops import _build
-from ..ops.attention_floors import MODES, attention_floor, attention_floor_ref
+from ..ops.attention_floors import COPY_MODES, MODES, attention_floor, attention_floor_ref
 from ..ops.attention_variants import attention_variant, attention_variant_ref
 from ..ops.fused_attention import attention_ref, fused_attention
 from ..ops.rope import apply_rope2d, rope_tables
@@ -113,7 +122,9 @@ ROWS = (
     (9, "nomax G=2", ENC16, "contiguous", 2, "nomax", "grid", None),
     (9, "nomax mma", ENC16, "contiguous", 1, "nomax", "grid", "mma"),
 ) + tuple((3, f"{m} G={G}", ENC16, "contiguous", G, m, "grid", None)
-          for m in ("nosmax", "qkonly") for G in (1, 4, 8)) + tuple(
+          for m, Gs in (("nosmax", (1, 4, 8)), ("qkonly", (1, 4, 8)), ("copy", (1, 4)),
+                        ("copynr", (1, 2, 4)), ("copymm", (1, 4)))
+          for G in Gs) + tuple(
     (3, f"{m} G={G} mma", ENC16, "contiguous", G, m, "grid", "mma")
     for m, Gs in (("nosmax", (1, 2, 4)), ("qkonly", (1, 4)), ("copy", (1, 4)),
                   ("copynr", (1, 2, 4)), ("copymm", (1, 4)))
@@ -150,6 +161,17 @@ def rotated_like(t, pos):
     the library yardstick's pre-rotated q or k."""
     out = torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device=t.device)
     return out.copy_(apply_rope2d(t, pos))
+
+
+def bf16_units_apart(a, b):
+    """Elementwise distance of two bf16 tensors of one shape in units in
+    the last place: how many bf16 steps lie between them (0: the same
+    value; +0 and -0 are 0 apart)."""
+    def ordered(t):
+        i = t.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    return (ordered(a) - ordered(b)).abs()
 
 
 def floor_bound(mode, B, H, Nq, Nk, d):
@@ -236,8 +258,11 @@ def measure(q, k, v, pq, pk, heads_per_program=1, softmax=None, iters=20, warm=F
 def measure_floor(q, k, v, pq, pk, tq, tk, heads_per_program, mode, iters=20, warm=False,
                   core=None):
     """`measure` for a floor mode (tables built by the caller) on `core`'s
-    kernel, against the exact kernel of the same core at G = 1."""
-    def kernel(G=heads_per_program):
+    kernel, against the exact kernel of the same core at G = 1; a copy
+    floor on the sm90 kernel also against its baseline's output at the same
+    G (`equals_mma`, `mma_differing` elements, at most `mma_units` bf16
+    units apart)."""
+    def kernel(G=heads_per_program, core=core):
         return attention_floor(q, k, v, pq, pk, 100.0, mode=mode, heads_per_program=G,
                                tables_q=tq, tables_k=tk, core=core)
 
@@ -255,6 +280,11 @@ def measure_floor(q, k, v, pq, pk, tq, tk, heads_per_program, mode, iters=20, wa
     identical = torch.equal(out, kernel(1)) if heads_per_program > 1 else None
     if not (out.shape == q.shape and torch.isfinite(out).all()):
         raise AssertionError(f"bad kernel output {tuple(out.shape)}")
+    against_mma = dict(equals_mma=None)
+    if mode in COPY_MODES and core != "mma":
+        units = bf16_units_apart(out, kernel(core="mma"))
+        against_mma = dict(equals_mma=bool((units == 0).all()),
+                           mma_differing=int((units > 0).sum()), mma_units=int(units.max()))
     B, H, Nq, d = q.shape
     library = None
     if mode == "copynr":
@@ -270,8 +300,63 @@ def measure_floor(q, k, v, pq, pk, tq, tk, heads_per_program, mode, iters=20, wa
                 plain_ms=time_ms(plain, iters),
                 library_ms=None if library is None else graph_ms(library, iters),
                 bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err, rel=rel,
-                identical=identical, from_baseline=None, equals_mma=None,
-                wrapper_ms=time_ms(kernel, iters))
+                identical=identical, from_baseline=None, wrapper_ms=time_ms(kernel, iters),
+                **against_mma)
+
+
+def floor_line(r):
+    """The log text of a copy floor's comparison with its baseline ("" for
+    any other row)."""
+    if "mma_units" not in r:
+        return ""
+    return (f"; bits equal attention_floor.cu's: {r['equals_mma']} ({r['mma_differing']} "
+            f"elements differ, at most {r['mma_units']} bf16 unit(s) apart)")
+
+
+def check_floor(label, mode, r):
+    """Raise unless a row agrees: within RTOL of its plain version, G > 1
+    with G = 1's bits, and a copy floor on the sm90 kernel with its
+    baseline's bits (copynr) or within one bf16 unit of them (copy and
+    copymm: the same fp32 multiply-adds, perhaps fused in another way)."""
+    limit = 0 if mode == "copynr" else 1
+    if not r["rel"] <= RTOL or r["identical"] is False or r.get("mma_units", 0) > limit:
+        raise AssertionError(f"{label}: the kernel disagrees ({r})")
+
+
+def split(iters=20, log=print):
+    """The sm90 exact kernel's time at (16,16,768,64), G = 1, split by its
+    floors, each a mode of the same loop on the same ring: the ring's I/O
+    (copynr), Q's rotation (copy - copynr), K's rotation and q.k^T (qkonly
+    - copy), P.v (nosmax - qkonly), the softmax (exact - nosmax). Each by
+    `graph_ms`, twice, in the order copynr ... exact ... copynr, the mean
+    taken; returns the times by mode and the parts by name."""
+    B, H, N, d = ENC16
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v = make_qkv(B, H, N, N, d, "contiguous", gen)
+    pos = positions(B, GRID, "grid", gen)
+    tables = rope_tables(pos, d)
+    order = ("copynr", "copy", "qkonly", "nosmax", "exact")
+
+    def call(mode):
+        if mode == "exact":
+            return fused_attention(q, k, v, pos, pos, 100.0, tables, tables)
+        return attention_floor(q, k, v, pos, pos, 100.0, mode=mode, tables_q=tables,
+                               tables_k=tables)
+
+    ms = dict.fromkeys(order, 0.0)
+    for turn in (order, order[::-1]):
+        for mode in turn:
+            ms[mode] += graph_ms(lambda m=mode: call(m), iters) / 2
+    parts = {"ring (copynr)": ms["copynr"],
+             "Q rotation (copy - copynr)": ms["copy"] - ms["copynr"],
+             "K rotation + q.k^T (qkonly - copy)": ms["qkonly"] - ms["copy"],
+             "P.v (nosmax - qkonly)": ms["nosmax"] - ms["qkonly"],
+             "softmax (exact - nosmax)": ms["exact"] - ms["nosmax"]}
+    log(f"[split] sm90 exact {(B, H, N, d)} G=1 {ms['exact']:.4f} ms: "
+        + ", ".join(f"{name} {t:.4f} ms ({100 * t / ms['exact']:.1f} %)"
+                    for name, t in parts.items())
+        + "; floors " + ", ".join(f"{m} {ms[m]:.4f}" for m in order[:-1]))
+    return ms, parts
 
 
 def qkonly_growth(iters=20, log=print, core=None):
@@ -349,10 +434,10 @@ def run_rows(iters=20, rows=ROWS, log=print):
             + ("" if r["from_baseline"] is None else
                f"; max |out - row-1 baseline| {r['from_baseline']:.3e}")
             + ("" if r["identical"] is None else f"; bits equal G=1's: {r['identical']}")
-            + ("" if r["equals_mma"] is None else
-               f"; bits equal the mma.sync core's: {r['equals_mma']}"))
-        if not r["rel"] <= RTOL or r["identical"] is False:
-            raise AssertionError(f"row {row} {label}: the kernel disagrees ({r})")
+            + ("" if r["equals_mma"] is None or softmax in MODES else
+               f"; bits equal the mma.sync core's: {r['equals_mma']}")
+            + floor_line(r))
+        check_floor(f"row {row} {label}", softmax, r)
         results.append(dict(row=row, label=label, shape=(B, H, N, d), layout=layout, **r))
     return results
 
@@ -444,8 +529,8 @@ def check_sass(sass, log=print):
             f"{dict(forms)}")
         if (bf16x2 > 0) != (code in BF16_SOFTMAX_CODES):
             raise AssertionError(f"sm90 instance rope={rope} softmax={code}: {dict(forms)}")
-    if len(sass) != 10:
-        raise AssertionError(f"expected the 10 instances of the sm90 kernel, found "
+    if len(sass) != 13:
+        raise AssertionError(f"expected the 13 instances of the sm90 kernel, found "
                              f"{sorted(sass)}")
 
 
@@ -461,6 +546,7 @@ def main(argv=None):
     for core in (None, "mma"):
         qkonly_growth(args.iters, core=core)
     rotation(args.iters)
+    split(args.iters)
     for shape in (ENC16, DEC12):
         chains(shape, args.iters)
     for name in ("fused_attention", "fused_attention_sm90"):

@@ -29,8 +29,10 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from dust3r_tpu_torch.ops.attention_floors import (MODES, attention_floor, attention_floor_ref,
-                                                   rot_matrix)
+from dust3r_tpu_torch.ops.attention_floors import (COPY_MODES, MODES, attention_floor,
+                                                   attention_floor_ref, rot_matrix, rot_tile)
+from dust3r_tpu_torch.ops.rope import rotate_half
+from dust3r_tpu_torch.tools.attn_variants import bf16_units_apart
 
 SCRIPTS = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))), "scripts")
 B, H, N, D = 2, 4, 96, 64  # an 8x12 token grid
@@ -89,6 +91,36 @@ def test_rot_matrix_is_the_scripts(row3):
         np.testing.assert_array_equal(rot_matrix(d).numpy(), row3.rot_matrix(d))
 
 
+@pytest.mark.parametrize("d", [16, 64])
+def test_rot_tile_is_the_transpose_of_rot_matrix_and_rotates_exactly(d):
+    """The P^T tile the sm90 kernel builds for copymm (mirrored by
+    `rot_tile`): q times its transpose is rotate-half(q) within each half,
+    bit for bit in bf16, as the kernel's product with fp32 sums gives it
+    (one nonzero term a sum)."""
+    tile = rot_tile(d)
+    np.testing.assert_array_equal(tile.numpy(), rot_matrix(d).numpy().T)
+    q = torch.from_numpy(np.random.default_rng(d).standard_normal((3, 5, 96, d))
+                         .astype(np.float32)).to(torch.bfloat16)
+    rot = torch.matmul(q.float(), tile.T).to(torch.bfloat16)
+    want = torch.cat([rotate_half(q[..., :d // 2]), rotate_half(q[..., d // 2:])], -1)
+    assert torch.equal(rot, want)
+
+
+@pytest.mark.parametrize("mode", COPY_MODES)
+def test_copy_floors_take_the_sm90_kernel_and_serve_cpu_tensors_plainly(mode):
+    """core="sm90" names the kernel of every floor; on CPU tensors the call
+    returns the plain version and launches nothing, whichever core it
+    names."""
+    _, (tq, tk, tv) = _inputs(43 + COPY_MODES.index(mode), "bf16")
+    pos = torch.from_numpy(_grid_positions())
+    before = (attention_floor.launches, attention_floor.core_launches)
+    ref = attention_floor_ref(tq, tk, tv, pos, pos, 100.0, mode)
+    for core in ("sm90", "mma", None):
+        out = attention_floor(tq, tk, tv, pos, pos, mode=mode, core=core, heads_per_program=2)
+        assert torch.equal(out, ref)
+    assert (attention_floor.launches, attention_floor.core_launches) == before
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_copymm_is_copy_up_to_rounding(dtype):
     """The product with the signed permutation is exact, so copymm and copy
@@ -129,3 +161,14 @@ def test_nosmax_serves_fewer_keys_than_queries():
     pk = torch.from_numpy(_grid_positions(B, 6, 8))
     out = attention_floor(tq, tk, tv, pq, pk, mode="nosmax")
     assert out.shape == tq.shape and torch.isfinite(out).all()
+
+
+def test_bf16_units_apart_counts_bf16_steps():
+    """The distance the card's tests hold the copy floors to: 0 for the same
+    value (+0 and -0 too), 1 between neighbours, across zero the steps on
+    both sides."""
+    a = torch.tensor([1.0, 1.0, -2.0, 0.0, 3.0], dtype=torch.bfloat16)
+    b = torch.tensor([1.0, 1.0078125, -2.015625, -0.0, -3.0], dtype=torch.bfloat16)
+    tiny = torch.tensor([2.0 ** -133, -2.0 ** -133], dtype=torch.bfloat16)
+    assert bf16_units_apart(a, b).tolist() == [0, 1, 1, 0, 2 * 0x4040]
+    assert bf16_units_apart(tiny[:1], tiny[1:]).tolist() == [2]

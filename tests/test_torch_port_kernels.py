@@ -34,8 +34,11 @@ kernel's Z within one bf16 unit of the largest Z of the baseline's (their
 fp32 sums run in other orders); dpt_post (row 13) 1e-5
 against `dpt_post_ref` (fp32 either way); the attention floors (row 3)
 1e-2 against `attention_floor_ref` on the same bf16 inputs, on either
-kernel, and the sm90 kernel's product floors 1e-2 from the mma.sync
-core's, each G > 1 call bit-identical to G = 1 of its kernel.
+kernel, and the sm90 kernel's floors 1e-2 from the baseline's, each G > 1
+call bit-identical to G = 1 of its kernel; the sm90 copy floors against
+the baseline's bits: copynr equal (one fp32 add, one rounding), copy and
+copymm at most one bf16 unit apart at any element (the same fp32
+multiply-adds, which the compiler may fuse in another way).
 """
 import math
 
@@ -44,7 +47,7 @@ import torch
 
 from dust3r_tpu_torch.models.blocks import token_positions
 from dust3r_tpu_torch.models.heads import Conv3x3, DPTOutputAdapter
-from dust3r_tpu_torch.ops.attention_floors import (MODES, SM90_CODES, attention_floor,
+from dust3r_tpu_torch.ops.attention_floors import (COPY_MODES, MODES, attention_floor,
                                                    attention_floor_ref)
 from dust3r_tpu_torch.ops.conv3x3_taps import (VARIANTS, conv3x3_taps_kernel, conv3x3_taps_ref,
                                                pack_for, tap_inputs, tap_sums)
@@ -57,8 +60,9 @@ from dust3r_tpu_torch.ops.upsample import up2x, up2x_kernel, up2x_ref
 from dust3r_tpu_torch.ops.attention_variants import (SOFTMAXES, attention_variant,
                                                      attention_variant_ref)
 from dust3r_tpu_torch.ops.fused_attention import (SUPPORTED_HEAD_DIMS, attention_ref,
-                                                  fused_attention, resolve_heads_per_program,
-                                                  route)
+                                                  fused_attention, launch_sm90,
+                                                  resolve_heads_per_program, route)
+from dust3r_tpu_torch.tools.attn_variants import bf16_units_apart
 
 pytestmark = pytest.mark.cuda
 
@@ -811,11 +815,10 @@ FLOOR_CASES = {  # name: (B, H, (hq, wq) token grid of q, (hk, wk) of k)
     (c, m) for c in sorted(FLOOR_CASES) for m in MODES
     if FLOOR_CASES[c][2] == FLOOR_CASES[c][3] or m in ("nosmax", "qkonly")])
 def test_attention_floor_matches_plain_version(card, case, mode):
-    """Each floor on its default kernel (nosmax and qkonly on the sm90
-    kernel, the copy floors on attention_floor.cu) and, for nosmax and
-    qkonly, on the mma.sync core (`core="mma"`): within 1e-2 of the plain
-    version, every G dividing the heads giving its kernel's G = 1 bits;
-    the two kernels' product floors within 1e-2 of each other."""
+    """Each floor on the sm90 kernel (the default) and on its baseline,
+    attention_floor.cu (`core="mma"`): within 1e-2 of the plain version,
+    every G dividing the heads giving its kernel's G = 1 bits; the two
+    kernels within 1e-2 of each other."""
     B, H, gq, gk = FLOOR_CASES[case]
     gen = torch.Generator(device=card).manual_seed(len(case) + MODES.index(mode))
 
@@ -828,8 +831,8 @@ def test_attention_floor_matches_plain_version(card, case, mode):
     ref = attention_floor_ref(q, k, v, pq, pk, 100.0, mode).float()
     scale = ref.abs().max().item()
     firsts = {}
-    for core in (None, "mma") if mode in SM90_CODES else (None,):
-        sm90 = core is None and mode in SM90_CODES
+    for core in (None, "mma"):
+        sm90 = core is None
         outs = []
         for G in (g for g in (1, 2, 3, 4) if H % g == 0):
             before = (attention_floor.launches, attention_floor.core_launches)
@@ -843,9 +846,35 @@ def test_attention_floor_matches_plain_version(card, case, mode):
         err = (out.float() - ref).abs().max().item() / scale
         assert err <= FLOOR_RTOL, f"{case} {mode} {core or 'sm90'}: rel err {err:.3e}"
         assert all(torch.equal(o, out) for o in outs[1:])
-    if len(firsts) == 2:
-        gap = (firsts[None].float() - firsts["mma"].float()).abs().max().item() / scale
-        assert gap <= FLOOR_RTOL, f"{case} {mode}: sm90 vs mma.sync floor {gap:.3e}"
+    gap = (firsts[None].float() - firsts["mma"].float()).abs().max().item() / scale
+    assert gap <= FLOOR_RTOL, f"{case} {mode}: sm90 vs attention_floor.cu {gap:.3e}"
+
+
+@pytest.mark.parametrize("mode", COPY_MODES)
+@pytest.mark.parametrize("case", ["self_768", "ragged_130"])
+def test_sm90_copy_floors_give_the_baselines_bits(card, case, mode):
+    """The copy floors on the sm90 kernel against attention_floor.cu, their
+    baseline, at G = 1: copynr its bits; copy and copymm its bits or at
+    most one bf16 unit apart at every element (the count of elements that
+    differ is printed)."""
+    B, H, gq, _ = FLOOR_CASES[case]
+    gen = torch.Generator(device=card).manual_seed(7 + len(case) + COPY_MODES.index(mode))
+    q, k, v = (torch.randn(B, H, gq[0] * gq[1], 64, device=card, generator=gen).to(
+        torch.bfloat16) for _ in range(3))
+    pos = token_positions(B, *gq, card)
+    before = (attention_floor.launches, attention_floor.core_launches)
+    sm90 = attention_floor(q, k, v, pos, pos, mode=mode)
+    base = attention_floor(q, k, v, pos, pos, mode=mode, core="mma")
+    torch.cuda.synchronize()
+    assert (attention_floor.launches, attention_floor.core_launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+    units = bf16_units_apart(sm90, base)
+    print(f"{case} {mode}: {int((units > 0).sum())} of {units.numel()} elements differ from "
+          f"the baseline's, at most {int(units.max())} bf16 unit(s)")
+    if mode == "copynr":
+        assert torch.equal(sm90, base)
+    else:
+        assert int(units.max()) <= 1
 
 
 def test_attention_floor_refuses_what_it_cannot_serve(card):
@@ -860,8 +889,16 @@ def test_attention_floor_refuses_what_it_cannot_serve(card):
     with pytest.raises(ValueError, match="Nk"):
         attention_floor(q, q[:, :, :48], q[:, :, :48], pos, token_positions(1, 6, 8, card),
                         mode="qkonly")
-    with pytest.raises(ValueError, match="sm90 kernel serves"):
-        attention_floor(q, q, q, pos, pos, mode="copy", core="sm90")
+    for mode in COPY_MODES:  # q + v needs Nq == Nk: the wrapper refuses first
+        with pytest.raises(ValueError, match="must agree"):
+            attention_floor(q, q[:, :, :48], q[:, :, :48], pos, token_positions(1, 6, 8, card),
+                            mode=mode, core="sm90")
     with pytest.raises(ValueError, match="not in the divisors"):
         attention_floor(q, q, q, pos, pos, mode="nosmax", heads_per_program=3)
     assert (attention_floor.launches, attention_floor.core_launches) == before
+    # and the sm90 kernel's C entry refuses it too (returns -1)
+    short = token_positions(1, 6, 8, card)
+    for code in (6, 7, 8):
+        with pytest.raises(RuntimeError, match="error -1"):
+            launch_sm90(q, q[:, :, :48], q[:, :, :48], pos, short, 100.0, None, None,
+                        softmax=code)
