@@ -57,6 +57,24 @@ Phases (each prints its lines; a failed phase raises and the exit code is 1):
      quick start on request (a)'s pairs served again on the device
      (`infer_pairs(..., to_cpu=False)`, the four kernels' launches counted
      from 0 and checked): finite, falling losses, poses and positive focals.
+  6. demo: from checkpoint files to scene files at full width. The slice's
+     model (its dec_blocks copied into dec_blocks2; its heads' last 1x1 conv
+     fitted by least squares so that the demo's images give a plane seen by
+     a camera: `fit_heads_to_a_plane`) is written as a released `.pth` lays
+     it out ({args, model}: one decoder, the DPT heads' dead
+     refinenet4.resConfUnit1, a mask_token; ~1.8 GB) and loaded with
+     `load_model`, then as a hub snapshot (model.safetensors + config.json)
+     loaded with `from_pretrained`: every tensor and one pair batch's
+     pointmaps and confidences must equal the source's bit for bit. Then the
+     demo's `get_reconstructed_scene` on the loaded model's engine at 4
+     synthetic 640x480 PNG files (512x384 views: colour ramps, a sky band on
+     top; `complete`, 100 linear iterations, point cloud, mask_sky, clean_depth),
+     at 2 (PairViewer) and at 1 (duplicated): the PLY must parse, hold the
+     masked points plus the frusta, all finite; mask_sky must zero some
+     confidence in every image; the gallery 3 entries an image; each
+     kernel's launches exactly what the run's batches imply. Prints the
+     seconds to write and load each file, of each demo stage, peak device
+     memory, and the phase's total.
 The second-to-last line is a JSON object of the kernels, with the launches
 of the slice's run (of the variants and experiments phases for theirs); the
 last line is {"ok": true, "device": {...}}. With
@@ -141,6 +159,21 @@ POST_CASE = (BATCH_SIZE, H384, W, 32)
 # attention_floor.cu (core "mma"), its baseline
 FLOOR_CASES = tuple((m, G, core) for core in (None, "mma")
                     for m in ("nosmax", "qkonly", "copy", "copynr", "copymm") for G in (1, 4))
+# the demo phase: the published arch string of the released 512_dpt file,
+# its demo scenes (images, aligner iterations) and the source images' size
+PUBLISHED_ARCH = ("AsymmetricCroCo3DStereo(pos_embed='RoPE100', "
+                  "patch_embed_cls='ManyAR_PatchEmbed', img_size=(512, 512), head_type='dpt', "
+                  "output_mode='pts3d', depth_mode=('exp', -inf, inf), "
+                  "conf_mode=('exp', 1, inf), enc_embed_dim=1024, enc_depth=24, "
+                  "enc_num_heads=16, dec_embed_dim=768, dec_depth=12, dec_num_heads=12, "
+                  "landscape_only=False)")
+DEMO_SCENES = (4, 2, 1)
+DEMO_ITERS = 100
+DEMO_PNG = (480, 640)
+# the plane the heads' last 1x1 conv is fitted to: depth (model units) and
+# focal (pixels) of a camera facing it
+PLANE_DEPTH = 2.0
+PLANE_FOCAL = 1.2 * W
 
 
 def log(msg):
@@ -908,6 +941,268 @@ def scene_phase(torch, engine, pairs):
     _align(torch, "quick start", out, None)
 
 
+def _checkpoint_files(torch, model, tmp):
+    """The released `.pth` layout and a hub snapshot of `model`'s weights:
+    yields (label, path, loader) after writing each, and deletes each file
+    once the caller has checked it."""
+    import argparse
+    import os
+
+    from dust3r_tpu_torch.checkpoint import arch_string, from_pretrained, parse_arch_string
+    from dust3r_tpu_torch.model import load_model
+    from safetensors.torch import save_file
+
+    published = parse_arch_string(PUBLISHED_ARCH)
+    if any(parse_arch_string(arch_string(model))[k] != v for k, v in published.items()
+           if k != "landscape_only"):
+        raise AssertionError(f"the source model is not {PUBLISHED_ARCH}")
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    release = {k: v for k, v in sd.items() if not k.startswith("dec_blocks2.")}
+    gen = torch.Generator().manual_seed(SEED)
+    release["mask_token"] = torch.randn(1, 1, model.enc_embed_dim, generator=gen)
+    for n in (1, 2):
+        for conv in ("conv1", "conv2"):
+            unit = f"downstream_head{n}.dpt.scratch.refinenet4.resConfUnit"
+            w = sd[f"{unit}2.{conv}.weight"]
+            release[f"{unit}1.{conv}.weight"] = 0.02 * torch.randn(w.shape, generator=gen)
+            release[f"{unit}1.{conv}.bias"] = torch.zeros(w.shape[0])
+    pth = os.path.join(tmp, "DUSt3R_ViTLarge_BaseDecoder_512_dpt.pth")
+    t0 = time.perf_counter()
+    torch.save({"args": argparse.Namespace(model=PUBLISHED_ARCH), "model": release}, pth)
+    yield ("pth", pth, time.perf_counter() - t0,
+           lambda: load_model(pth, device="cuda", dtype=torch.bfloat16, verbose=False))
+    os.remove(pth)
+    del release
+
+    snap = os.path.join(tmp, "snapshot")
+    os.makedirs(snap)
+    # as the hub mixin writes it: the constructor's kwargs, JSON infinities
+    config = dict(output_mode=model.output_mode, head_type=model.head_type,
+                  depth_mode=list(model.depth_mode), conf_mode=list(model.conf_mode),
+                  freeze="none", landscape_only=False, patch_embed_cls="ManyAR_PatchEmbed",
+                  img_size=list(model.img_size), pos_embed=model.pos_embed,
+                  **{k: getattr(model, k) for k in ("enc_embed_dim", "enc_depth",
+                                                    "enc_num_heads", "dec_embed_dim",
+                                                    "dec_depth", "dec_num_heads")})
+    t0 = time.perf_counter()
+    save_file({k: v.contiguous() for k, v in sd.items()}, os.path.join(snap, "model.safetensors"),
+              metadata={"format": "pt"})
+    with open(os.path.join(snap, "config.json"), "w") as f:
+        json.dump(config, f)
+    yield ("hub snapshot", snap, time.perf_counter() - t0,
+           lambda: from_pretrained(snap, device="cuda", dtype=torch.bfloat16, verbose=False))
+    for name in os.listdir(snap):
+        os.remove(os.path.join(snap, name))
+
+
+def demo_images(directory):
+    """The demo's PNG files: a horizontal ramp in red and a vertical ramp in
+    green over seeded noise (so the pixels carry their position), under a
+    bright, low-saturation sky band a third of the height."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED)
+    h, w = DEMO_PNG
+    files = []
+    for i in range(max(DEMO_SCENES)):
+        v, u = np.mgrid[:h, :w] / np.float32([[[h]], [[w]]])
+        img = np.stack([230 * u + 10 * i, 230 * v, 60 + 0 * u], -1)
+        img = img + rng.normal(0, 4, img.shape)
+        band = h // 3
+        img[:band] = np.stack([195 + 20 * u[:band], 205 + 20 * u[:band],
+                               235 + 0 * u[:band]], -1)
+        files.append(os.path.join(directory, f"view{i}.png"))
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(files[-1])
+    return files
+
+
+def fit_heads_to_a_plane(torch, model, files):
+    """Least squares on each DPT head's last 1x1 conv (its x, y, z rows):
+    seeded weights give pointmaps with no camera in them (PairViewer's
+    Weiszfeld focal clips to 0 and its points are not finite, as in the JAX
+    package), so the heads are fitted to map the features of the demo's
+    views (every pair of the complete graph) to a plane at PLANE_DEPTH seen
+    by a camera of focal PLANE_FOCAL, as raw outputs before the exp
+    postprocess. The confidence row stays as it was. Returns the fit's RMS
+    error in raw units."""
+    import torch.nn.functional as F
+
+    from dust3r_tpu_torch.image_pairs import make_pairs
+    from dust3r_tpu_torch.inference import InferenceEngine
+    from dust3r_tpu_torch.utils.image import load_images
+
+    views = load_images(files, size=512, verbose=False)
+    pairs = make_pairs(views, "complete", symmetrize=True)
+    H, Wd = views[0]["img"].shape[1:3]
+    v, u = torch.meshgrid(torch.arange(H, dtype=torch.float64),
+                          torch.arange(Wd, dtype=torch.float64), indexing="ij")
+    z = torch.full_like(u, PLANE_DEPTH)
+    pts = torch.stack([(u - Wd / 2) * z / PLANE_FOCAL, (v - H / 2) * z / PLANE_FOCAL, z], -1)
+    norm = pts.norm(dim=-1, keepdim=True)
+    raw = (pts / norm * torch.log1p(norm)).reshape(-1, 3)  # the exp postprocess, inverted
+    dev = next(model.parameters()).device
+    raw = raw.to(dev)
+    heads = [model.downstream_head1.dpt, model.downstream_head2.dpt]
+    # per head: A^T A, A^T t, t^T t summed and the rows, A = [features, 1]
+    normal = [[torch.zeros(33, 33, dtype=torch.float64, device=dev),
+               torch.zeros(33, 3, dtype=torch.float64, device=dev), 0.0, 0] for _ in heads]
+
+    def hook(n):
+        def accumulate(module, args, y):
+            conv2 = heads[n].head[2]
+            h = F.relu(F.conv2d(y.float(), conv2.weight, conv2.bias, padding=1))
+            a = torch.cat([h.permute(0, 2, 3, 1).reshape(-1, 32),
+                           torch.ones(h.numel() // 32, 1, device=dev)], 1).double()
+            t = raw.repeat(h.shape[0], 1)
+            normal[n][0] += a.T @ a
+            normal[n][1] += a.T @ t
+            normal[n][2] += float((t * t).sum())
+            normal[n][3] += t.numel()
+        return accumulate
+
+    handles = [hd.head[1].register_forward_hook(hook(n)) for n, hd in enumerate(heads)]
+    try:
+        InferenceEngine(model, batch_size=BATCH_SIZE).infer_pairs(pairs, to_cpu=False)
+    finally:
+        for handle in handles:
+            handle.remove()
+    rms = []
+    with torch.no_grad():
+        for hd, (ata, atb, ttt, count) in zip(heads, normal):
+            sol = torch.linalg.solve(ata + 1e-6 * torch.eye(33, dtype=ata.dtype, device=dev), atb)
+            hd.head[4].weight[:3, :, 0, 0] = sol[:32].T.float()
+            hd.head[4].bias[:3] = sol[32].float()
+            sse = ttt - 2 * float((atb * sol).sum()) + float((sol * (ata @ sol)).sum())
+            rms.append((max(sse, 0.0) / count) ** 0.5)
+    return rms
+
+
+def _read_ply(path):
+    """(vertex count in the header, (n,) records of xyz float32 and rgb)."""
+    import numpy as np
+
+    with open(path, "rb") as f:
+        raw = f.read()
+    header, body = raw.split(b"end_header\n", 1)
+    lines = header.decode().splitlines()
+    if lines[:2] != ["ply", "format binary_little_endian 1.0"]:
+        raise AssertionError(f"{path}: not a binary PLY ({lines[:2]})")
+    n = int(next(ln for ln in lines if ln.startswith("element vertex")).split()[-1])
+    rec = np.frombuffer(body, dtype=[("xyz", "<f4", 3), ("rgb", "u1", 3)])
+    if len(rec) != n:
+        raise AssertionError(f"{path}: {len(rec)} vertices in the body, {n} in the header")
+    return n, rec
+
+
+def demo_phase(torch, model, pairs):
+    """From checkpoint files to scene files (phase 6 of the module's
+    docstring). `model` is the slice's; `pairs` request (a)'s, whose first
+    BATCH_SIZE pairs are the pair batch held bit for bit."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from dust3r_tpu_torch.demo import get_reconstructed_scene
+    from dust3r_tpu_torch.inference import InferenceEngine
+
+    t_phase = time.perf_counter()
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    loaded = None
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        files = demo_images(tmp)
+        model.dec_blocks2.load_state_dict(model.dec_blocks.state_dict())  # a one-decoder file
+        t0 = time.perf_counter()
+        rms = fit_heads_to_a_plane(torch, model, files)
+        log(f"[demo] the heads' last 1x1 conv fitted to a plane at depth {PLANE_DEPTH:g}, "
+            f"focal {PLANE_FOCAL:g} px, over the demo's {len(files)} views' pairs in "
+            f"{time.perf_counter() - t0:.3f} s: RMS error of the raw x, y, z {rms[0]:.4g} "
+            f"(head 1), {rms[1]:.4g} (head 2)")
+        source = model.state_dict()
+        batch = pairs[:BATCH_SIZE]
+        want = InferenceEngine(model, batch_size=BATCH_SIZE).infer_pairs(batch, to_cpu=False)
+        for label, path, write_s, load in _checkpoint_files(torch, model, tmp):
+            size = sum(os.path.getsize(os.path.join(root, n)) for root, _, names in
+                       os.walk(path) for n in names) if os.path.isdir(path) \
+                else os.path.getsize(path)
+            del loaded
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loaded = load()
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            got = loaded.state_dict()
+            differ = [k for k, v in source.items() if not torch.equal(got[k], v)]
+            if sorted(got) != sorted(source) or differ:
+                raise AssertionError(f"{label}: tensors differ from the source: {differ[:5]}")
+            out = InferenceEngine(loaded, batch_size=BATCH_SIZE).infer_pairs(batch, to_cpu=False)
+            same = all(torch.equal(out[side][key], want[side][key]) for side, key in
+                       (("pred1", "pts3d"), ("pred1", "conf"),
+                        ("pred2", "pts3d_in_other_view"), ("pred2", "conf")))
+            log(f"[demo] {label}: {size} bytes written in {write_s:.3f} s, loaded to the card "
+                f"in {load_s:.3f} s ({size / load_s / 1e9:.2f} GB/s); {len(got)} tensors "
+                f"bit-identical to the source; one pair batch ({len(batch)} pairs) of "
+                f"pointmaps and confidences bit-identical: {same}")
+            if not same:
+                raise AssertionError(f"{label}: the loaded model's outputs differ")
+
+        engine = InferenceEngine(loaded, batch_size=BATCH_SIZE)
+        for n_images in DEMO_SCENES:
+            outdir = os.path.join(tmp, f"scene{n_images}")
+            os.makedirs(outdir)
+            batches = (engine.encoder_batches, engine.pair_batches)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            scene, outfile, gallery = get_reconstructed_scene(
+                outdir, engine, "cuda", True, 512, files[:n_images], schedule="linear",
+                niter=DEMO_ITERS, min_conf_thr=3.0, as_pointcloud=True, mask_sky=True,
+                clean_depth=True, transparent_cams=False, cam_size=0.05,
+                scenegraph_type="complete", winsize=1, refid=0)
+            total = time.perf_counter() - t0
+            launches = read_launches()
+            peak = torch.cuda.max_memory_allocated()
+            expected = expected_launches(loaded, engine.encoder_batches - batches[0],
+                                         engine.pair_batches - batches[1])
+            n_verts, rec = _read_ply(outfile)
+            masked = scene.mask_sky()
+            masked.min_conf_thr = float(scene.conf_trf(torch.tensor(3.0)))
+            n_masked = int(sum(m.sum() for m in masked.get_masks()))
+            sky = [int((a == 0).sum() - (b == 0).sum()) for a, b in
+                   zip(masked.im_conf, scene.im_conf)]
+            stages = ", ".join(f"{k} {v:.3f} s" for k, v in scene.demo_seconds.items())
+            log(f"[demo] {n_images} image(s): {type(scene).__name__}, {scene.n_imgs} images "
+                f"{scene.imshapes[0]}, {scene.n_edges} edges; {stages}"
+                + (f" (init {scene.seconds['init']:.3f} s, {DEMO_ITERS} iterations "
+                   f"{scene.seconds['align']:.3f} s)" if hasattr(scene, "seconds") else "")
+                + f"; focals {[round(float(f), 2) for f in scene.get_focals().ravel()]} px"
+                f"; {total:.3f} s in all; {os.path.basename(outfile)} {n_verts} vertices "
+                f"({n_masked} masked points + {scene.n_imgs} x 128 frustum points); sky "
+                f"zeroed {sky} confidences; gallery {len(gallery)}; launches {launches} "
+                f"(expected {expected}); peak device memory {peak} bytes "
+                f"({peak / 2**30:.3f} GiB)")
+            if not outfile.endswith(".ply") or n_verts != n_masked + scene.n_imgs * 8 * 16:
+                raise AssertionError(f"{n_images} images: {n_verts} vertices, not {n_masked} "
+                                     f"masked points + the frusta")
+            if not np.isfinite(rec["xyz"]).all():
+                raise AssertionError(f"{n_images} images: non-finite vertices")
+            if min(sky) < 1:
+                raise AssertionError(f"{n_images} images: mask_sky zeroed nothing in some "
+                                     f"image ({sky})")
+            if len(gallery) != 3 * scene.n_imgs:
+                raise AssertionError(f"{n_images} images: {len(gallery)} gallery entries")
+            if launches != expected:
+                raise AssertionError(f"{n_images} images: launches {launches} != {expected}: "
+                                     f"some call of the demo's path bypassed its kernel")
+            del scene, masked
+    log(f"[demo] phase: {time.perf_counter() - t_phase:.3f} s")
+
+
 def main(argv):
     if not (ROOT / "dust3r_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repo (dust3r_tpu_torch/ missing)",
@@ -930,6 +1225,7 @@ def main(argv):
         return 0
     launches, engine, pairs = slice_phase(torch)
     scene_phase(torch, engine, pairs)
+    demo_phase(torch, engine.model, pairs)
     # attention: the encoder's self-attention shape, read from the qkv
     # projection, on the sm90 kernel; its mma.sync core (the baseline) at
     # the same call; its grouped form: the variants phase's G = 2, 4 and 8

@@ -34,7 +34,8 @@ def __getattr__(name):
     homes = {"InferenceEngine": ".inference",
              "make_pairs": ".image_pairs", "load_images": ".utils.image",
              "views_from_arrays": ".utils.image", "global_aligner": ".cloud_opt",
-             "GlobalAlignerMode": ".cloud_opt"}
+             "GlobalAlignerMode": ".cloud_opt", "from_pretrained": ".model",
+             "load_model": ".model"}
     if name not in homes:
         raise AttributeError(name)
     return getattr(importlib.import_module(homes[name], __name__), name)

@@ -1,23 +1,307 @@
-"""Weight bridge: JAX (flax) parameter trees to the port's state dict.
+"""Checkpoint I/O: the reference's `.pth` files, hub snapshots, and the
+bridge from JAX (flax) parameter trees.
+
+Counterpart of `dust3r_tpu/checkpoint.py`'s loaders, on torch tensors under
+their own names (no flax tree in between):
+
+* `parse_arch_string` / `model_from_arch_string`: the reference's
+  `args.model` string, parsed with `ast` (never `eval`);
+* `model_from_hub_config`: a hub mixin's `config.json` (JSON-mangled
+  infinities restored, nested `croco_kwargs` flattened, keys the
+  constructor does not take dropped);
+* `load_torch_checkpoint` (a `{args | arch, model}` `.pth`),
+  `load_hub_checkpoint` (`model.safetensors`, a legacy `pytorch_model.bin`,
+  a `.bin` that is a full reference checkpoint, a training-style
+  `{model: sd}` wrapper) and `from_pretrained` (a file, a snapshot
+  directory, or a hub repo id through `huggingface_hub`), each returning
+  the loaded module;
+* `save_torch_checkpoint`: `{"arch": <string>, "model": state_dict}`.
+
+The tensors go through what `convert_torch_state_dict` does to them
+(`convert_state_dict`): `dec_blocks.*` copied into `dec_blocks2.*` when a
+checkpoint holds one decoder, bf16 upcast to fp32, the `scratch.layer_rn.{k}`
+spelling of the DPT reassembly convs renamed, and the tensors the JAX
+converter leaves unconsumed (`mask_token`, rope buffers, ...) dropped, with
+the dead `refinenet4.resConfUnit1` the port does not build; then
+`load_state_dict(strict=True)`. Constructor overrides (`dtype`, `device`,
+`attn_impl`, `conv_impl`) pass through; with no `device` the model lands on
+the CUDA card (it raises without one: pass device="cpu").
+
+Two deliberate divergences from the JAX loaders: `landscape_only=True` (the
+ManyAR portrait flags) raises, since the port's forward is the
+`landscape_only=False` case; and an orbax directory raises, since it holds
+JAX trees the port cannot read without JAX.
 
 `state_dict_from_jax` reproduces `dust3r_tpu/checkpoint.py::to_torch_state_dict`
 name for name, in numpy: Dense `kernel.T` becomes `weight`; conv HWIO
 becomes OIHW; the `_PatchExpand` kernel (in, out, s, s) is already the
 `ConvTranspose2d` layout; LayerNorm `ln.scale` / `ln.bias` become `weight` /
-`bias`. Its output loads into `AsymmetricCroCo3DStereo` with
-`load_state_dict(sd, strict=True)`.
-
-A flax DPT init has no `refinenet4.resConfUnit1` (that unit never receives
-an input), and the port's refinenet4 does not build one; a tree converted
-from torch does carry it, and the bridge drops it. A released torch
-checkpoint carries those tensors too: its loader is to drop the
-`*.refinenet4.resConfUnit1.*` keys before `load_state_dict`.
+`bias`. A flax DPT init has no `refinenet4.resConfUnit1` (that unit never
+receives an input) and the port does not build one; a tree converted from
+torch does carry it, and the bridge drops it.
 """
 from __future__ import annotations
+
+import ast
+import inspect
+import json
+import math
+import os
+import re
 
 import numpy as np
 import torch
 
+# what the port's constructor takes from an arch string or a hub config;
+# the rest of its arguments (dtype, device, ...) are the caller's overrides
+_OVERRIDES = ("dtype", "attn_impl", "conv_impl", "device", "seed")
+_HUB_WEIGHT_NAMES = ("model.safetensors", "pytorch_model.bin")
+# the DPT head's dead unit: real checkpoints carry it, nothing reads it
+_DEAD_UNIT = re.compile(r"^downstream_head[12]\.dpt\.scratch\.refinenet4\.resConfUnit1\.")
+_LAYER_RN = re.compile(r"^(downstream_head[12]\.dpt\.scratch)\.layer_rn\.(\d+)\.")
+
+
+# ---------------------------------------------------------------------- #
+# architecture strings and hub configs
+# ---------------------------------------------------------------------- #
+
+def parse_arch_string(arch):
+    """'AsymmetricCroCo3DStereo(a=1, b=(2, 3), ...)' -> kwargs dict.
+
+    The reference evals this string (dust3r/model.py:27-43); here it is
+    parsed: constants, tuples, lists, unary minus, `inf` and `float(...)`.
+    `patch_embed_cls` is dropped (one patch embed)."""
+    m = re.match(r"\s*(\w+)\((.*)\)\s*$", arch, re.S)
+    if not m:
+        raise ValueError(f"cannot parse arch string: {arch!r}")
+    name, argstr = m.groups()
+    if name != "AsymmetricCroCo3DStereo":
+        raise ValueError(f"unknown architecture {name}")
+    argstr = re.sub(r"(?<![\w.])inf(?![\w.])", "float('inf')", argstr)
+    tree = ast.parse(f"dict({argstr})", mode="eval")
+
+    def ev(node):
+        if isinstance(node, ast.Call):
+            if getattr(node.func, "id", None) == "dict":
+                return {kw.arg: ev(kw.value) for kw in node.keywords}
+            if getattr(node.func, "id", None) == "float":
+                return float(ev(node.args[0]))
+            raise ValueError(f"unsupported call in arch string: {ast.dump(node)}")
+        if isinstance(node, ast.Constant):
+            return node.value
+        if isinstance(node, ast.Tuple):
+            return tuple(ev(e) for e in node.elts)
+        if isinstance(node, ast.List):
+            return [ev(e) for e in node.elts]
+        if isinstance(node, ast.UnaryOp) and isinstance(node.op, ast.USub):
+            return -ev(node.operand)
+        if isinstance(node, ast.Name) and node.id == "inf":
+            return math.inf
+        raise ValueError(f"unsupported node in arch string: {ast.dump(node)}")
+
+    kwargs = ev(tree.body)
+    kwargs.pop("patch_embed_cls", None)
+    return kwargs
+
+
+def _check_landscape_only(landscape_only):
+    if landscape_only:
+        raise NotImplementedError(
+            "landscape_only=True (the ManyAR portrait flags) is not ported: the port's "
+            "forward is the landscape_only=False case (ROADMAP.md, queue A item 8)")
+
+
+def _build(kwargs, landscape_only, overrides):
+    from .models.model import AsymmetricCroCo3DStereo
+
+    _check_landscape_only(landscape_only)
+    kwargs.pop("landscape_only", None)  # the loaders' own argument decides
+    kwargs.update(overrides)
+    if isinstance(kwargs.get("img_size"), int):
+        kwargs["img_size"] = (kwargs["img_size"], kwargs["img_size"])
+    return AsymmetricCroCo3DStereo(**kwargs)
+
+
+def model_from_arch_string(arch, landscape_only=False, **overrides):
+    """The module an arch string describes, with random weights."""
+    return _build(parse_arch_string(arch), landscape_only, overrides)
+
+
+def model_from_hub_config(cfg, landscape_only=False, **overrides):
+    """The module a hub mixin's `config.json` dict describes (the
+    reference's `__init__` kwargs, dust3r/model.py:47-52), with random
+    weights."""
+    from .models.model import AsymmetricCroCo3DStereo
+
+    cfg = dict(cfg)
+    nested = cfg.pop("croco_kwargs", None)  # some mixin versions group them
+    if isinstance(nested, dict):
+        cfg.update(nested)
+    taken = set(inspect.signature(AsymmetricCroCo3DStereo.__init__).parameters)
+    taken -= {"self", *_OVERRIDES}
+
+    def fix_inf(x):
+        if isinstance(x, str) and x.lstrip("+-") in ("inf", "Infinity"):
+            return -math.inf if x.startswith("-") else math.inf
+        return x
+
+    kwargs = {}
+    for k, v in cfg.items():
+        if k not in taken:
+            continue
+        if isinstance(v, (list, tuple)):
+            v = tuple(fix_inf(x) for x in v)
+        kwargs[k] = v
+    return _build(kwargs, landscape_only, overrides)
+
+
+def arch_string(model):
+    """The reference's `args.model` string of a port module (the fields
+    `dust3r_tpu.checkpoint.save_torch_checkpoint` writes)."""
+    conf = tuple(model.conf_mode) if model.conf_mode else None
+    return (f"AsymmetricCroCo3DStereo(pos_embed={model.pos_embed!r}, "
+            f"img_size={tuple(model.img_size)}, patch_size={model.patch_size}, "
+            f"head_type={model.head_type!r}, output_mode={model.output_mode!r}, "
+            f"depth_mode={tuple(model.depth_mode)}, conf_mode={conf}, "
+            f"enc_embed_dim={model.enc_embed_dim}, enc_depth={model.enc_depth}, "
+            f"enc_num_heads={model.enc_num_heads}, dec_embed_dim={model.dec_embed_dim}, "
+            f"dec_depth={model.dec_depth}, dec_num_heads={model.dec_num_heads}, "
+            f"mlp_ratio={model.mlp_ratio})")
+
+
+# ---------------------------------------------------------------------- #
+# state dicts
+# ---------------------------------------------------------------------- #
+
+def convert_state_dict(sd, model_keys, verbose=False):
+    """A checkpoint's {name: tensor} -> the tensors the port's module takes
+    (names in `model_keys`), as the JAX converter reads them: a single
+    decoder copied into `dec_blocks2`, bf16 upcast to fp32,
+    `scratch.layer_rn.{k-1}` renamed `scratch.layer{k}_rn`. Tensors the
+    module does not take are dropped; with `verbose` those the JAX
+    converter leaves unconsumed too are reported as it reports them (the
+    dead `refinenet4.resConfUnit1`, which it does read, is dropped
+    quietly)."""
+    sd = {k: v.float() if v.dtype == torch.bfloat16 else v for k, v in sd.items()}
+    sd = {_LAYER_RN.sub(lambda m: f"{m[1]}.layer{int(m[2]) + 1}_rn.", k): v
+          for k, v in sd.items()}
+    if not any(k.startswith("dec_blocks2") for k in sd):
+        sd.update({"dec_blocks2." + k[len("dec_blocks."):]: v for k, v in sd.items()
+                   if k.startswith("dec_blocks.")})
+    model_keys = set(model_keys)
+    if verbose:
+        leftovers = sorted(k for k in sd if k not in model_keys and not _DEAD_UNIT.match(k)
+                           and not k.endswith("num_batches_tracked"))
+        if leftovers:
+            print(f"converter: {len(leftovers)} unused checkpoint tensors "
+                  f"(expected for mask_token/rope buffers): {leftovers[:10]}"
+                  + (" ..." if len(leftovers) > 10 else ""))
+    return {k: v for k, v in sd.items() if k in model_keys}
+
+
+def _load_weights(model, sd, verbose):
+    model.load_state_dict(convert_state_dict(sd, model.state_dict().keys(), verbose),
+                          strict=True)
+    return model
+
+
+def _load_wrapped_ckpt(ckpt, verbose=True, landscape_only=False, **overrides):
+    """An already-loaded {args | arch, model} checkpoint -> the module."""
+    args = ckpt.get("args", None)
+    arch = args.model if hasattr(args, "model") else ckpt.get("arch")
+    if not arch:
+        raise ValueError("checkpoint missing architecture string")
+    if verbose:
+        print(f"instantiating from arch string: {arch}")
+    model = model_from_arch_string(arch, landscape_only, **overrides)
+    return _load_weights(model, ckpt["model"], verbose)
+
+
+def load_torch_checkpoint(path, verbose=True, landscape_only=False, **overrides):
+    """A reference `.pth` ({args | arch, model}) -> the loaded module (the
+    reference's load_model, dust3r/model.py:27-43, with the arch string
+    parsed)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False, mmap=True)
+    return _load_wrapped_ckpt(ckpt, verbose, landscape_only, **overrides)
+
+
+def load_hub_checkpoint(weights_path, config_path=None, verbose=True, landscape_only=False,
+                        **overrides):
+    """A hub mixin snapshot -> the loaded module. The weights are a bare
+    state dict (`model.safetensors`, or `pytorch_model.bin` in older
+    snapshots) with the architecture in `config.json`; a `.bin` that is a
+    full reference checkpoint goes through its arch string, and a
+    training-style {model: sd, ...} wrapper gives its inner state dict."""
+    if weights_path.endswith(".safetensors"):
+        from safetensors.torch import load_file
+
+        sd = load_file(weights_path)
+    else:
+        ckpt = torch.load(weights_path, map_location="cpu", weights_only=False, mmap=True)
+        if isinstance(ckpt, dict) and "model" in ckpt and ("args" in ckpt or "arch" in ckpt):
+            return _load_wrapped_ckpt(ckpt, verbose, landscape_only, **overrides)
+        sd = ckpt["model"] if isinstance(ckpt, dict) and isinstance(ckpt.get("model"),
+                                                                    dict) else ckpt
+    if not config_path:
+        raise ValueError("hub checkpoint has no architecture string; config.json required")
+    with open(config_path) as f:
+        cfg = json.load(f)
+    if verbose:
+        print(f"instantiating from hub config: {config_path}")
+    model = model_from_hub_config(cfg, landscape_only, **overrides)
+    return _load_weights(model, sd, verbose)
+
+
+def _sibling_config(path):
+    cpath = os.path.join(os.path.dirname(os.path.abspath(path)), "config.json")
+    return cpath if os.path.isfile(cpath) else None
+
+
+def from_pretrained(name_or_path, verbose=True, **overrides):
+    """A local `.pth`, a hub snapshot (file or directory), or a hub repo id
+    (downloaded through `huggingface_hub`) -> the loaded module. A sibling
+    `config.json` is read only next to hub-named weights, so an unrelated
+    neighbour cannot define the architecture."""
+    if os.path.isfile(name_or_path):
+        if name_or_path.endswith(".safetensors") or \
+                os.path.basename(name_or_path) in _HUB_WEIGHT_NAMES:
+            return load_hub_checkpoint(name_or_path, _sibling_config(name_or_path),
+                                       verbose=verbose, **overrides)
+        return load_torch_checkpoint(name_or_path, verbose=verbose, **overrides)
+    if os.path.isdir(name_or_path):
+        for name in _HUB_WEIGHT_NAMES:
+            wpath = os.path.join(name_or_path, name)
+            if os.path.isfile(wpath):
+                return load_hub_checkpoint(wpath, _sibling_config(wpath), verbose=verbose,
+                                           **overrides)
+        raise NotImplementedError(
+            f"{name_or_path} holds no {' or '.join(_HUB_WEIGHT_NAMES)}: an orbax checkpoint "
+            f"directory holds JAX trees the port cannot read without JAX. Export it with "
+            f"dust3r_tpu.checkpoint.save_torch_checkpoint and load that .pth")
+    from huggingface_hub import hf_hub_download
+    from huggingface_hub.utils import EntryNotFoundError
+
+    try:
+        wpath = hf_hub_download(repo_id=name_or_path, filename="model.safetensors")
+    except EntryNotFoundError:
+        wpath = hf_hub_download(repo_id=name_or_path, filename="pytorch_model.bin")
+    try:
+        cpath = hf_hub_download(repo_id=name_or_path, filename="config.json")
+    except EntryNotFoundError:
+        cpath = None
+    return load_hub_checkpoint(wpath, cpath, verbose=verbose, **overrides)
+
+
+def save_torch_checkpoint(path, model, extra=None):
+    """Write {"arch": <string>, "model": state_dict} (host fp32 tensors),
+    loadable by this module's loaders and the JAX package's."""
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    torch.save(dict(arch=arch_string(model), model=sd, **(extra or {})), path)
+
+
+# ---------------------------------------------------------------------- #
+# the JAX bridge
+# ---------------------------------------------------------------------- #
 
 def state_dict_from_jax(variables, enc_depth=24, dec_depth=12, head_type="linear"):
     """flax `{"params": ...}` tree with numpy leaves -> {name: fp32 tensor}."""

@@ -4,8 +4,14 @@ Counterpart of `dust3r_tpu/cloud_opt/base_opt.py`, with the card's layout
 of the observations: one row per edge. `pred_i`/`pred_j` are (E, A, 3)
 and `w_i`/`w_j` (E, A) in `obs_dtype` (bf16 by default, as in the JAX
 package), A the largest image area, zero-padded with zero weights for
-smaller images. The loss gathers each edge's world points by image index
-and applies the edge's sim(3) to all of them at once (`rigid_apply`);
+smaller images. With `obs_dtype="int8"` they are stored as the JAX package
+stores them (symmetric max-abs scales: one a coordinate plane and edge for
+the predictions, one an edge for the weights; `rint`, clipped to ±127),
+with the same q and scales for every edge, and the loss dequantizes
+`edge_chunk` edges at a time under activation checkpointing, so its fp32
+temporaries, forward and backward, never exceed one chunk. The loss
+gathers each edge's world points by image index and applies the edge's
+sim(3) to all of them at once (`rigid_apply`);
 distances are fp32 either way. It computes the JAX package's loss; the
 JAX package's TPU layout (coordinate-planar observations grouped by image,
 the edge-chunk scan) is not carried over: at 512x384, a few thousand edges
@@ -21,14 +27,17 @@ are host numpy.
 """
 from __future__ import annotations
 
+import copy
 import math
 import time
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..utils.device import default_device
 from ..utils.geometry import geotrf, inv
+from ..utils.image import rgb
 from ..utils.pose import matrix_to_pose_vec, pose_vec_to_matrix
 from .commons import (ALL_DISTS, compute_edge_scores, edge_str, get_conf_trf,
                       get_conf_trf_np, get_imshapes)
@@ -54,6 +63,25 @@ def _per_edge(x, n):
         return rows, [host[k] for k in range(n)]
     return rows, [r.detach().float().cpu().numpy() if isinstance(r, torch.Tensor)
                   else np.asarray(r, np.float32) for r in rows]
+
+
+def quantize_int8(rows, A):
+    """Host float32 rows ((H, W, ...) each) -> (q int8 (E, A, ...), scale
+    float32 (E, ...)): zero-padded to A, symmetric max-abs scales over A
+    (one a coordinate plane for (H, W, 3) rows), `rint`, clipped to ±127;
+    the JAX package's arithmetic (`dust3r_tpu/cloud_opt/base_opt.py:526-531`),
+    so q and scales agree with its own for every edge. Non-negative rows
+    (the weights) are quantized symmetrically too, as there."""
+    g = np.stack([_ravel_pad(r, A) for r in rows])
+    g = np.moveaxis(g, 1, -1)  # A last, as the JAX planes hold it
+    s = np.maximum(np.abs(g).max(axis=-1), 1e-12) / 127.0
+    q = np.rint(g / s[..., None]).clip(-127, 127).astype(np.int8)
+    return np.ascontiguousarray(np.moveaxis(q, -1, 1)), s.astype(np.float32)
+
+
+def dequantize(q, scale):
+    """int8 (B, A, ...) times its scales (B, ...) -> float32."""
+    return q.float() * scale.unsqueeze(1)
 
 
 def rigid_apply(R, t, pts):
@@ -89,17 +117,20 @@ class BasePCOptimizer:
 
     def __init__(self, view1, view2, pred1, pred2, dist="l1", conf="log", min_conf_thr=3,
                  base_scale=0.5, allow_pw_adaptors=False, pw_break=20, rand_pose=None,
-                 seed=0, verbose=True, obs_dtype=torch.bfloat16, device=None, mesh=None,
-                 **_ignored):
+                 seed=0, verbose=True, obs_dtype=torch.bfloat16, edge_chunk=64, device=None,
+                 mesh=None, **_ignored):
         if mesh is not None:
             raise NotImplementedError("the aligner's mesh path is not ported "
-                                      "(ROADMAP.md, queue A item 4)")
-        if obs_dtype not in (torch.bfloat16, torch.float32):
-            raise NotImplementedError(f"obs_dtype {obs_dtype}: the port stores "
-                                      f"observations in bf16 or fp32 (int8: ROADMAP.md, "
-                                      f"queue A item 4)")
+                                      "(ROADMAP.md, queue A item 10)")
+        if obs_dtype in ("int8", torch.int8):
+            obs_dtype = torch.int8
+        elif obs_dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"obs_dtype {obs_dtype}: observations are stored in bf16, fp32 "
+                             f"or int8")
         self.verbose = verbose
         self.obs_dtype = obs_dtype
+        self.obs_quant = obs_dtype == torch.int8
+        self.edge_chunk = edge_chunk  # edges a dequantized chunk of int8 observations
         self.min_conf_thr = min_conf_thr
         self.base_scale = base_scale
         self.pw_break = pw_break
@@ -145,10 +176,22 @@ class BasePCOptimizer:
                 out[e, :r.shape[0] * r.shape[1]] = r.flatten(0, 1)
             return out
 
-        self.obs_pred_i = padded(pred_i)
-        self.obs_pred_j = padded(pred_j)
-        self.obs_w_i = padded(conf_i, self.conf_trf)
-        self.obs_w_j = padded(conf_j, self.conf_trf)
+        self.obs_scale = {}
+        if self.obs_quant:
+            # quantized on the host from host copies, as the JAX package does,
+            # the weights through the numpy confidence transform
+            w_i = [self.conf_trf_np(c) for c in host_conf_i]
+            w_j = [self.conf_trf_np(c) for c in host_conf_j]
+            for name, rows in (("pred_i", host_pred_i), ("pred_j", host_pred_j),
+                               ("w_i", w_i), ("w_j", w_j)):
+                q, scale = quantize_int8(rows, A)
+                setattr(self, "obs_" + name, torch.from_numpy(q).to(dev))
+                self.obs_scale[name] = torch.from_numpy(scale).to(dev)
+        else:
+            self.obs_pred_i = padded(pred_i)
+            self.obs_pred_j = padded(pred_j)
+            self.obs_w_i = padded(conf_i, self.conf_trf)
+            self.obs_w_j = padded(conf_j, self.conf_trf)
         self.idx_i = torch.tensor(idx1, device=dev)
         self.idx_j = torch.tensor(idx2, device=dev)
         self.total_area_i = float(sum(self.im_areas[i] for i, j in self.edges))
@@ -172,6 +215,17 @@ class BasePCOptimizer:
             "pw_adaptors": np.full((E, 2), float(allow_pw_adaptors), np.float32),
         }
 
+        # the display images ([0, 1] host numpy), where the views carry them
+        self.imgs = None
+        if "img" in view1 and "img" in view2:
+            imgs = [None] * self.n_imgs
+            _, host_img1 = _per_edge(view1["img"], E)
+            _, host_img2 = _per_edge(view2["img"], E)
+            for e in range(E):
+                imgs[idx1[e]] = host_img1[e]
+                imgs[idx2[e]] = host_img2[e]
+            self.imgs = [rgb(im) for im in imgs]
+
     # ------------------------------------------------------------------ #
     # basic graph properties
     # ------------------------------------------------------------------ #
@@ -191,8 +245,10 @@ class BasePCOptimizer:
             return {k: v.detach().cpu().numpy() for k, v in self.params.items()}
         obs = dict(pred_i=self.obs_pred_i, pred_j=self.obs_pred_j, w_i=self.obs_w_i,
                    w_j=self.obs_w_j)
-        return dict(obs={k: v.float().cpu().numpy() for k, v in obs.items()},
-                    im_conf=[np.asarray(c) for c in self.im_conf])
+        obs = {k: v.cpu().numpy() if self.obs_quant else v.float().cpu().numpy()
+               for k, v in obs.items()}
+        obs.update({k + "_scale": v.cpu().numpy() for k, v in self.obs_scale.items()})
+        return dict(obs=obs, im_conf=[np.asarray(c) for c in self.im_conf])
 
     def load_state_dict(self, data):
         for k, v in data.items():
@@ -312,13 +368,43 @@ class BasePCOptimizer:
         adapt = self.get_adaptors(params)
         proj = self.depth_to_pts3d(params)  # (N, A, 3)
 
-        def side(pred, w, idx, total):
+        def term(poses, adapt, proj, pred, w, idx):
             aligned = rigid_apply(poses[:, :3, :3], poses[:, :3, 3],
                                   adapt[:, None, :] * pred.float())
-            return self.dist(proj.index_select(0, idx), aligned, w.float()).sum() / total
+            return self.dist(proj.index_select(0, idx), aligned, w.float()).sum()
 
-        return (side(self.obs_pred_i, self.obs_w_i, self.idx_i, self.total_area_i)
-                + side(self.obs_pred_j, self.obs_w_j, self.idx_j, self.total_area_j))
+        def side(name, idx, total):
+            pred, w = getattr(self, "obs_pred_" + name), getattr(self, "obs_w_" + name)
+            if not self.obs_quant:
+                return term(poses, adapt, proj, pred, w, idx) / total
+            return self._chunked_term(term, poses, adapt, proj, pred, w, idx,
+                                      self.obs_scale["pred_" + name],
+                                      self.obs_scale["w_" + name]) / total
+
+        return (side("i", self.idx_i, self.total_area_i)
+                + side("j", self.idx_j, self.total_area_j))
+
+    def _chunked_term(self, term, poses, adapt, proj, q_pred, q_w, idx, s_pred, s_w):
+        """The sum of `term` over edge chunks of int8 observations, each
+        dequantized alone; under autograd each chunk is checkpointed (its
+        dequantized observations and temporaries are recomputed in the
+        backward, not kept), so the fp32 temporaries never exceed one
+        chunk's."""
+        def chunk(poses, adapt, proj, q_pred, q_w, idx, s_pred, s_w):
+            return term(poses, adapt, proj, self.dequantize(q_pred, s_pred),
+                        self.dequantize(q_w, s_w), idx)
+
+        total = 0.0
+        for a in range(0, self.n_edges, self.edge_chunk):
+            e = slice(a, a + self.edge_chunk)
+            args = (poses[e], adapt[e], proj, q_pred[e], q_w[e], idx[e], s_pred[e], s_w[e])
+            if torch.is_grad_enabled():
+                total = total + checkpoint(chunk, *args, use_reentrant=False)
+            else:
+                total = total + chunk(*args)
+        return total
+
+    dequantize = staticmethod(dequantize)
 
     @torch.no_grad()
     def forward(self):
@@ -358,6 +444,27 @@ class BasePCOptimizer:
     # ------------------------------------------------------------------ #
     # post-processing
     # ------------------------------------------------------------------ #
+
+    def mask_sky(self):
+        """A shallow copy whose confidence maps are zero on the sky
+        (`viz.segment_sky` of each image); the observations are shared."""
+        from ..viz import segment_sky
+
+        if self.imgs is None:
+            raise ValueError("mask_sky needs the scene's images (views with 'img')")
+        res = copy.copy(self)
+        res.im_conf = [np.array(c, copy=True) for c in self.im_conf]
+        for i in range(self.n_imgs):
+            res.im_conf[i] = np.where(segment_sky(self.imgs[i]), 0.0, res.im_conf[i])
+        return res
+
+    def get_dense_pts3d(self):
+        """(pointmaps, depthmaps, confidence maps) per image."""
+        return self.get_pts3d(), self.get_depthmaps(), [np.asarray(c) for c in self.im_conf]
+
+    def show(self, **kw):
+        raise NotImplementedError("show needs trimesh, which the port does not carry "
+                                  "(ROADMAP.md, queue A item 4)")
 
     def clean_pointcloud(self, tol=0.001, bad_conf=0, max_bad_conf=None):
         """Lower the confidence of points occluded by more confident geometry

@@ -167,6 +167,8 @@ def fast_pnp(pts3d, focal, msk, pp=None, niter_PnP=10):
     rng = np.random.default_rng(PNP_SEED)
     best = (0, None, None, None)
     for f in tentative_focals:
+        if not (np.isfinite(f) and f != 0):  # a singular K: cv2 finds no pose either
+            continue
         K = np.array([(f, 0, pp[0]), (0, f, pp[1]), (0, 0, 1)], np.float64)
         n_inl, R, T = _pnp_ransac(X, px, K, niter_PnP, rng)
         if n_inl > best[0]:

@@ -255,8 +255,53 @@ def global_alignment_loop(scene, lr=0.01, niter=300, schedule="cosine", lr_min=1
 
 
 class ModularPointCloudOptimizer(PointCloudOptimizer):
-    """Not ported yet (ROADMAP.md, queue A item 4)."""
+    """The preset-friendly variant (reference modular_optimizer.py:17-145):
+    presets need not cover every image and freeze only the images they
+    assign; norm_pw_scale follows the count of known poses over every
+    preset call; `fx_and_fy` keeps two focals an image; the focal scale is
+    named `focal_brake`, as in the reference."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("ModularPointCloudOptimizer is not ported yet "
-                                  "(ROADMAP.md, queue A item 4)")
+    def __init__(self, *args, optimize_pp=False, fx_and_fy=False, focal_brake=20, **kwargs):
+        super().__init__(*args, optimize_pp=optimize_pp, focal_break=focal_brake,
+                         fx_and_fy=fx_and_fy, **kwargs)
+
+    def preset_intrinsics(self, known_intrinsics, msk=None):
+        known_K = np.asarray(known_intrinsics)
+        if known_K.ndim == 2:
+            known_K = known_K[None]
+        if self.n_focals == 2:
+            self.preset_focal([K.diagonal()[:2] for K in known_K], msk)
+        else:
+            self.preset_focal([K.diagonal()[:2].mean() for K in known_K], msk)
+        self.preset_principal_point([K[:2, 2] for K in known_K], msk)
+
+    def preset_pose(self, known_poses, pose_msk=None):
+        known_poses = np.asarray(known_poses)
+        if known_poses.ndim == 2:
+            known_poses = known_poses[None]
+        idxs = list(self._get_msk_indices(pose_msk))[:len(known_poses)]
+        for idx, pose in zip(idxs, known_poses):
+            if self.verbose:
+                print(f" (setting pose #{idx} = {pose[:3, 3]})")
+            self._set_pose("im_poses", idx, pose, force=True)
+        self._freeze("im_poses", idxs)
+        # the known poses over every preset call so far
+        n_known = int(self.n_imgs - self.masks["im_poses"].any(axis=1).sum())
+        self.norm_pw_scale = n_known <= 1
+
+    def preset_focal(self, known_focals, msk=None):
+        idxs = list(self._get_msk_indices(msk))[:len(known_focals)]
+        for idx, focal in zip(idxs, known_focals):
+            if self.verbose:
+                print(f" (setting focal #{idx} = {focal})")
+            self._set_focal(idx, focal, force=True)
+        self._freeze("im_focals", idxs)
+
+    def preset_principal_point(self, known_pp, msk=None):
+        known_pp = np.asarray(known_pp).reshape(-1, 2)
+        idxs = list(self._get_msk_indices(msk))[:len(known_pp)]
+        for idx, pp in zip(idxs, known_pp):
+            if self.verbose:
+                print(f" (setting principal point #{idx} = {pp})")
+            self._set_principal_point(idx, pp, force=True)
+        self._freeze("im_pp", idxs)

@@ -46,9 +46,16 @@ class AsymmetricCroCo3DStereo(nn.Module):
                   else default_device(type(self).__name__))
         self.img_size = tuple(img_size)
         self.patch_size = patch_size
-        self.enc_depth = enc_depth
-        self.dec_depth = dec_depth
+        self.enc_embed_dim, self.enc_depth, self.enc_num_heads = (enc_embed_dim, enc_depth,
+                                                                  enc_num_heads)
+        self.dec_embed_dim, self.dec_depth, self.dec_num_heads = (dec_embed_dim, dec_depth,
+                                                                  dec_num_heads)
+        self.mlp_ratio = mlp_ratio
+        self.pos_embed = pos_embed
+        self.output_mode = output_mode
         self.head_type = head_type
+        self.depth_mode = tuple(depth_mode)
+        self.conf_mode = tuple(conf_mode) if conf_mode else conf_mode
         self.dtype = dtype
         rope_base = float(pos_embed[len("RoPE"):])
         self.rope_base = rope_base

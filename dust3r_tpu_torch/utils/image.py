@@ -9,6 +9,11 @@ imports where PIL is missing; `views_from_arrays` needs no PIL at all.
 
 Each view dict: {img: (1, H, W, 3) float32 NHWC in [-1, 1], true_shape:
 int32 [[H, W]], idx, instance}.
+
+For display: `rgb` (the inverse of the normalization), `img_to_arr`, and
+`jet`, a numpy copy of matplotlib's "jet" colormap (its 256-entry table,
+indexed as a `Colormap` call indexes it) for the demo's confidence gallery.
+`imread_cv2` is not carried: it needs cv2.
 """
 from __future__ import annotations
 
@@ -23,6 +28,84 @@ _HEIF_EXTS = (".heic", ".heif")
 def normalize_img(arr):
     """uint8 HWC -> float32 HWC in [-1, 1] (ImgNorm: mean=std=0.5)."""
     return (np.asarray(arr, dtype=np.float32) / 255.0 - 0.5) / 0.5
+
+
+def img_to_arr(img):
+    """An image array passes through; a path would go through `imread_cv2`,
+    which needs cv2 and is not carried."""
+    if isinstance(img, str):
+        raise NotImplementedError("img_to_arr of a path needs imread_cv2, which needs cv2 "
+                                  "(not carried by the port): pass the image array")
+    return img
+
+
+def rgb(ftensor, true_shape=None):
+    """Undo the normalization for display: float NHWC / HWC in [-1, 1] ->
+    [0, 1] (uint8 input: / 255); channel-first layouts are moved last."""
+    if isinstance(ftensor, list):
+        return [rgb(x, true_shape=true_shape) for x in ftensor]
+    arr = ftensor.detach().cpu().numpy() if hasattr(ftensor, "detach") else np.asarray(ftensor)
+    if arr.ndim == 3 and arr.shape[0] == 3:
+        arr = np.moveaxis(arr, 0, -1)
+    elif arr.ndim == 4 and arr.shape[1] == 3:
+        arr = np.moveaxis(arr, 1, -1)
+    if true_shape is not None:
+        arr = arr[: true_shape[0], : true_shape[1]]
+    if arr.dtype == np.uint8:
+        return (arr / np.float32(255)).clip(0, 1)
+    return (arr * 0.5 + 0.5).clip(0, 1)
+
+
+# matplotlib's "jet" segment data (matplotlib/_cm.py): (x, y0, y1) per channel
+_JET_DATA = {
+    "red": ((0.0, 0, 0), (0.35, 0, 0), (0.66, 1, 1), (0.89, 1, 1), (1.0, 0.5, 0.5)),
+    "green": ((0.0, 0, 0), (0.125, 0, 0), (0.375, 1, 1), (0.64, 1, 1), (0.91, 0, 0),
+              (1.0, 0, 0)),
+    "blue": ((0.0, 0.5, 0.5), (0.11, 1, 1), (0.34, 1, 1), (0.65, 0, 0), (1.0, 0, 0)),
+}
+
+
+def _lookup_table(n, data):
+    """matplotlib's `_create_lookup_table` at gamma 1: piecewise-linear
+    samples of one channel at n evenly spaced points, clipped to [0, 1]."""
+    adata = np.array(data)
+    x, y0, y1 = adata[:, 0] * (n - 1), adata[:, 1], adata[:, 2]
+    xind = (n - 1) * np.linspace(0, 1, n) ** 1.0
+    ind = np.searchsorted(x, xind)[1:-1]
+    distance = (xind[1:-1] - x[ind - 1]) / (x[ind] - x[ind - 1])
+    lut = np.concatenate([[y1[0]], distance * (y0[ind] - y1[ind - 1]) + y1[ind - 1],
+                          [y0[-1]]])
+    return np.clip(lut, 0.0, 1.0)
+
+
+def _jet_lut(n=256):
+    """matplotlib's (n + 3, 4) table: n colours, then under, over, bad."""
+    lut = np.ones((n + 3, 4))
+    for c, name in enumerate(("red", "green", "blue")):
+        lut[:-3, c] = _lookup_table(n, _JET_DATA[name])
+    lut[n], lut[n + 1], lut[n + 2] = lut[0], lut[n - 1], 0.0
+    return lut
+
+
+_JET_LUT = _jet_lut()
+
+
+def jet(x):
+    """RGBA float64 of values in [0, 1], as `matplotlib.pyplot.get_cmap("jet")(x)`
+    gives them for float input: x * 256 truncated to a row of the table (x
+    == 1 the last row; below 0 the first, above 1 the last; NaN
+    transparent black)."""
+    n = len(_JET_LUT) - 3
+    xa = np.array(x, copy=True)
+    if xa.dtype.kind != "f":
+        raise TypeError("jet takes floating values in [0, 1]")
+    xa *= n
+    xa[xa == n] = n - 1
+    under, over, bad = xa < 0, xa >= n, np.isnan(xa)
+    with np.errstate(invalid="ignore"):
+        xa = xa.astype(int)
+    xa[under], xa[over], xa[bad] = n, n + 1, n + 2
+    return _JET_LUT.take(xa, axis=0, mode="clip")
 
 
 def _resize_long_edge(img, long_edge_size):

@@ -72,18 +72,31 @@ def _rel(ours, theirs):
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("G,mode", CASES)
-def test_row3_floor_matches_the_tpu_kernel(row3, G, mode, dtype):
+def test_row3_floor_matches_the_tpu_kernel(row3, G, mode, dtype, monkeypatch):
+    """The wrapper on CPU tensors returns what its plain version returns:
+    a spy on `attention_floor_ref` records its one call, and the wrapper's
+    output is that call's result (the CPU fp32 matmul is not bit-stable
+    from one call to the next under load, so a second call is no witness).
+    That result is held to the TPU kernel."""
+    from dust3r_tpu_torch.ops import attention_floors
+
     (jq, jk, jv), (tq, tk, tv) = _inputs(30 + MODES.index(mode), dtype)
     pos = _grid_positions()
     with pltpu.force_tpu_interpret_mode():
         out = row3.attn_g(jq, jk, jv, jnp.asarray(pos), jnp.asarray(pos), G, mode=mode)
     tpos = torch.from_numpy(pos)
+    calls = []
+
+    def spy(*args):
+        calls.append(attention_floor_ref(*args))
+        return calls[-1]
+
+    monkeypatch.setattr(attention_floors, "attention_floor_ref", spy)
     before = attention_floor.launches
     ours = attention_floor(tq, tk, tv, tpos, tpos, mode=mode, heads_per_program=G)
     assert attention_floor.launches == before  # CPU tensors: the plain version
-    ref = attention_floor_ref(tq, tk, tv, tpos, tpos, 100.0, mode)
-    assert torch.equal(ours, ref) and ours.dtype == tv.dtype
-    assert _rel(ref, out) <= TOL[dtype]
+    assert len(calls) == 1 and ours is calls[0] and ours.dtype == tv.dtype
+    assert _rel(ours, out) <= TOL[dtype]
 
 
 def test_rot_matrix_is_the_scripts(row3):

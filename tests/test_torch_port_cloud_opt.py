@@ -27,11 +27,13 @@ from dust3r_tpu import post_process as jpost  # noqa: E402
 from dust3r_tpu.cloud_opt import GlobalAlignerMode as JaxMode  # noqa: E402
 from dust3r_tpu.cloud_opt import global_aligner as jax_global_aligner  # noqa: E402
 from dust3r_tpu.cloud_opt import init_im_poses as jinit  # noqa: E402
+from dust3r_tpu.cloud_opt import ModularPointCloudOptimizer as JaxModular  # noqa: E402
 from dust3r_tpu.cloud_opt.base_opt import alignment_value_and_grad  # noqa: E402
 from dust3r_tpu.utils import geometry as jgeo  # noqa: E402
 from dust3r_tpu.utils import pose as jpose  # noqa: E402
 from dust3r_tpu_torch import post_process  # noqa: E402
-from dust3r_tpu_torch.cloud_opt import GlobalAlignerMode, global_aligner  # noqa: E402
+from dust3r_tpu_torch.cloud_opt import (GlobalAlignerMode, ModularPointCloudOptimizer,  # noqa: E402
+                                        global_aligner)
 from dust3r_tpu_torch.cloud_opt import init_im_poses  # noqa: E402
 from dust3r_tpu_torch.cloud_opt.commons import make_lr_schedule  # noqa: E402
 from dust3r_tpu_torch.cloud_opt.optimizer import adam_step  # noqa: E402
@@ -430,17 +432,329 @@ def test_device_tensor_predictions_build_the_same_scene():
 
 
 def test_not_ported_paths_raise():
-    from dust3r_tpu_torch.cloud_opt import ModularPointCloudOptimizer
-
+    """The mesh path (several cards) and `show` (trimesh) are not ported and
+    say which queue item holds them; an observation type the JAX package
+    does not store is refused."""
     out, *_ = make_synthetic_scene(n_imgs=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        global_aligner(out, mode=GlobalAlignerMode.ModularPointCloudOptimizer, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ModularPointCloudOptimizer(out["view1"], out["view2"], out["pred1"], out["pred2"])
-    with pytest.raises(NotImplementedError, match="int8"):
-        global_aligner(out, obs_dtype=torch.int8, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(NotImplementedError, match="queue A item 10"):
         global_aligner(out, mesh=object(), device="cpu")
+    scene = global_aligner(out, device="cpu", verbose=False)
+    with pytest.raises(NotImplementedError, match="trimesh"):
+        scene.show()
+    with pytest.raises(ValueError, match="int8"):
+        global_aligner(out, obs_dtype=torch.float16, device="cpu")
+
+
+# ---------------------------------------------------------------------- #
+# the aligner's options (tolerances of the scratch check recorded in
+# ROADMAP.md §C: loss 1e-6 relative, gradients 1e-6 of max |grad|, every
+# parameter after 40 iterations within 1e-6)
+# ---------------------------------------------------------------------- #
+
+# every option away from its default in one of three scenes (each scene is a
+# compile of the JAX loop): dist, conf, the adaptors, the principal points,
+# base_scale, min_conf_thr, focal_break, pw_break and the schedule. The l2
+# distance (a square root, steep near 0) has a scene of its own
+OPTIONS = {
+    "dist_l2": (dict(dist="l2"), "cosine"),
+    "sqrt_adaptors_base_scale": (dict(conf="sqrt", allow_pw_adaptors=True, base_scale=0.3),
+                                 "cosine"),
+    "none_pp_thr_breaks_linear": (dict(conf="none", optimize_pp=True, min_conf_thr=4.0,
+                                       focal_break=12, pw_break=9), "linear"),
+}
+
+
+def assert_grads_match(tgrads, grads, names, tol=1e-6):
+    for k, g in zip(names, tgrads):
+        want = np.asarray(grads[k])
+        scale = max(float(np.abs(want).max()), 1e-12)
+        np.testing.assert_allclose(_np(g) / scale, want / scale, rtol=0, atol=tol, err_msg=k)
+
+
+def loss_and_grads(js, ts):
+    loss, grads = alignment_value_and_grad(js.pts3d_fn, js.loss_spec, js.params, js.consts)
+    params = {k: v.clone().requires_grad_(True) for k, v in ts.params.items()}
+    tloss = ts.loss_fn(params)
+    return float(loss), grads, tloss.item(), torch.autograd.grad(tloss, list(params.values()))
+
+
+@pytest.mark.parametrize("option", sorted(OPTIONS))
+def test_aligner_options_match_jax(option):
+    """Loss and gradients at the seeded random start, then 40 Adam
+    iterations from it, fp32 observations, against the JAX aligner."""
+    kw, schedule = OPTIONS[option]
+    out = make_synthetic_scene(n_imgs=4, seed=3)[0]
+    js, ts = _scenes(out, **kw)
+    loss, grads, tloss, tgrads = loss_and_grads(js, ts)
+    assert tloss == pytest.approx(loss, rel=1e-6)
+    assert_grads_match(tgrads, grads, list(ts.params))
+    for s in (js, ts):
+        s.compute_global_alignment(init=None, niter=40, schedule=schedule, lr=0.01)
+    np.testing.assert_allclose(ts.last_losses, np.asarray(js.last_losses), rtol=1e-6)
+    for k in ts.params:  # within 1e-6 of the largest |value| of each parameter
+        want = np.asarray(js.params[k])
+        scale = max(float(np.abs(want).max()), 1.0)
+        np.testing.assert_allclose(_np(ts.params[k]) / scale, want / scale, rtol=0, atol=1e-6,
+                                   err_msg=k)
+
+
+# ---------------------------------------------------------------------- #
+# ModularPointCloudOptimizer (tests/test_cloud_opt.py:218-343)
+# ---------------------------------------------------------------------- #
+
+def _modular(out, **kw):
+    args = (out["view1"], out["view2"], out["pred1"], out["pred2"])
+    return (JaxModular(*args, verbose=False, **kw),
+            ModularPointCloudOptimizer(*args, verbose=False, device="cpu",
+                                       obs_dtype=torch.bfloat16, **kw))
+
+
+def _same_state(js, ts, tol=TOL):
+    for k in ts.masks:
+        np.testing.assert_array_equal(ts.masks[k], np.asarray(js.masks[k]), err_msg=k)
+    for k in ts.params:
+        np.testing.assert_allclose(_np(ts.params[k]), np.asarray(js.params[k]), **tol,
+                                   err_msg=k)
+    assert ts.norm_pw_scale == js.norm_pw_scale
+
+
+def test_modular_partial_presets_match_jax():
+    """Partial presets freeze only the images they assign; norm_pw_scale
+    follows the cumulative count of known poses; an empty preset is a
+    no-op; the global_aligner mode builds the same scene."""
+    out, poses, depths, focal = make_synthetic_scene(n_imgs=3)
+    js, ts = _modular(out)
+    _same_state(js, ts)
+    steps = [("preset_pose", ([poses[0]],), {}),
+             ("preset_pose", ([poses[1]],), dict(pose_msk=[1])),
+             ("preset_focal", ([focal],), {}),
+             ("preset_principal_point", ([[15.0, 11.0]],), dict(msk=[2])),
+             ("preset_pose", (np.zeros((0, 4, 4)),), dict(pose_msk=[])),
+             ("preset_focal", ([],), {})]
+    norm = []
+    for name, args, kw in steps:
+        for s in (js, ts):
+            getattr(s, name)(*args, **kw)
+        _same_state(js, ts)
+        norm.append(ts.norm_pw_scale)
+    assert norm == [True, False, False, False, False, False]
+    assert not ts.masks["im_poses"][:2].any() and ts.masks["im_poses"][2].all()
+    assert not ts.masks["im_focals"][0].any() and ts.masks["im_focals"][1:].all()
+    np.testing.assert_allclose(_np(ts.get_focals())[0, 0], focal, rtol=1e-5)
+    via_mode = global_aligner(out, mode=GlobalAlignerMode.ModularPointCloudOptimizer,
+                              device="cpu", verbose=False, obs_dtype=torch.bfloat16)
+    assert isinstance(via_mode, ModularPointCloudOptimizer)
+    with pytest.raises(AssertionError, match="incomplete mask"):  # the dense optimizer's rule
+        global_aligner(out, device="cpu", verbose=False).preset_pose([poses[0]], pose_msk=[0])
+
+
+def test_modular_fx_and_fy_and_focal_brake_match_jax():
+    """Two focals an image, preset from intrinsics with fx != fy; the
+    known-focal average; `focal_brake` as the focal scale; loss and
+    gradients against the JAX aligner; then 10 MST-initialised iterations
+    run (finite, the preset focals kept)."""
+    from dust3r_tpu.cloud_opt.init_im_poses import get_known_focals as jax_known
+
+    out, poses, depths, focal = make_synthetic_scene(n_imgs=3)
+    js, ts = _modular(out, fx_and_fy=True, focal_brake=15)
+    assert ts.focal_break == js.focal_break == 15 and _np(ts.get_focals()).shape == (3, 2)
+    K = np.eye(3, dtype=np.float32)
+    K[0, 0], K[1, 1], K[0, 2], K[1, 2] = 42.0, 37.0, 16.0, 12.0
+    for s in (js, ts):
+        s.preset_intrinsics([K] * 3)
+    _same_state(js, ts)
+    np.testing.assert_allclose(_np(ts.get_intrinsics()), np.asarray(js.get_intrinsics()),
+                               **TOL)
+    n, msk, focals = init_im_poses.get_known_focals(ts)
+    jn, jmsk, jfocals = jax_known(js)
+    assert n == jn == 3 and focals.shape == (3,)
+    np.testing.assert_array_equal(msk, jmsk)
+    np.testing.assert_allclose(focals, np.asarray(jfocals), rtol=1e-6)
+    loss, grads, tloss, tgrads = loss_and_grads(js, ts)
+    assert tloss == pytest.approx(loss, rel=1e-5)
+    assert_grads_match(tgrads, grads, list(ts.params), tol=1e-5)
+    assert np.isfinite(ts.compute_global_alignment(init="mst", niter=10, lr=0.01))
+    np.testing.assert_allclose(_np(ts.get_focals()), np.asarray(js.get_focals()), rtol=1e-5)
+
+
+def test_modular_known_poses_init_fx_and_fy_matches_jax():
+    out, poses, depths, focal = make_synthetic_scene(n_imgs=3)
+    js, ts = _modular(out, fx_and_fy=True)
+    H, W = ts.imshapes[0]
+    K = np.eye(3, dtype=np.float32)
+    K[0, 0] = K[1, 1] = focal
+    K[0, 2], K[1, 2] = W / 2, H / 2
+    for s in (js, ts):
+        s.preset_pose(list(poses))
+        s.preset_intrinsics([K] * 3)
+    jinit.init_from_known_poses(js, min_conf_thr=js.min_conf_thr)
+    init_im_poses.init_from_known_poses(ts, min_conf_thr=ts.min_conf_thr)
+    _same_state(js, ts, dict(rtol=1e-4, atol=1e-4))
+    loss = ts.compute_global_alignment(init=None, niter=50, lr=0.01)
+    assert np.isfinite(loss) and loss < 0.05
+    np.testing.assert_allclose(_np(ts.get_im_poses()), np.stack(poses), atol=1e-4)
+
+
+# ---------------------------------------------------------------------- #
+# int8 observations
+# ---------------------------------------------------------------------- #
+
+INT8_GRAPHS = {  # complete (one row an image, no padding) and a star with padded rows
+    "complete": None,
+    "star": [(0, 1), (1, 0), (0, 2), (2, 0), (0, 3), (3, 0), (1, 2), (2, 1)],
+}
+
+
+def _int8_scenes(graph, **kw):
+    out = make_synthetic_scene(n_imgs=4, seed=4, edges=INT8_GRAPHS[graph])[0]
+    js = jax_global_aligner(out, mode=JaxMode.PointCloudOptimizer, verbose=False,
+                            obs_dtype="int8")
+    ts = global_aligner(out, device="cpu", verbose=False, obs_dtype="int8", **kw)
+    return out, js, ts
+
+
+@pytest.mark.parametrize("graph", sorted(INT8_GRAPHS))
+def test_int8_q_and_scales_are_the_jax_packages(graph):
+    """The stored q and scales of every edge against the JAX package's
+    image-grouped planes: edge e's slot is its rank among the edges of its
+    image on that side."""
+    _, js, ts = _int8_scenes(graph)
+    assert ts.obs_pred_i.dtype == torch.int8 and js._n_img_groups[0] == 1
+    assert "group_img_i" not in js.consts  # rows are images
+    for side, idx in (("i", ts.idx_i.tolist()), ("j", ts.idx_j.tolist())):
+        q_pred, q_w = _np(getattr(ts, "obs_pred_" + side)), _np(getattr(ts, "obs_w_" + side))
+        s_pred, s_w = _np(ts.obs_scale["pred_" + side]), _np(ts.obs_scale["w_" + side])
+        jp, jw = (np.asarray(js.consts[f"group_{k}_{side}"])[0] for k in ("pred", "w"))
+        jps, jws = (np.asarray(js.consts[f"group_{k}_{side}_scale"])[0] for k in ("pred", "w"))
+        for e, n in enumerate(idx):
+            slot = idx[:e].count(n)
+            np.testing.assert_array_equal(q_pred[e], jp[:, n, slot].T)
+            np.testing.assert_array_equal(s_pred[e], jps[:, n, slot])
+            np.testing.assert_array_equal(q_w[e], jw[n, slot])
+            np.testing.assert_array_equal(s_w[e], jws[n, slot])
+        assert q_w.min() >= 0  # symmetric int8 on non-negative weights, as there
+
+
+@pytest.mark.parametrize("graph", sorted(INT8_GRAPHS))
+def test_int8_loss_and_grads_match_jax(graph):
+    """Loss within 1e-6 relative and gradients within 1e-6 of max |grad|
+    of the JAX int8 scene's, the port dequantizing 3 edges at a time."""
+    _, js, ts = _int8_scenes(graph, edge_chunk=3)
+    loss, grads, tloss, tgrads = loss_and_grads(js, ts)
+    assert tloss == pytest.approx(loss, rel=1e-6)
+    assert_grads_match(tgrads, grads, list(ts.params))
+    assert ts.forward() == pytest.approx(js.forward(), rel=1e-6)
+
+
+def test_int8_temporaries_stay_within_one_chunk():
+    """Every dequantized tensor spans at most one chunk of edges, and the
+    edge loop keeps for the backward no more fp32 than the world points and
+    one chunk (the chunks are checkpointed: recomputed in the backward, one
+    at a time), where the unchunked fp32 loss keeps several copies of the
+    whole set; the gradients equal those of one unchunked pass."""
+    out, _, ts = _int8_scenes("complete", edge_chunk=3)
+    A, E = ts.max_area, ts.n_edges
+    spans = []
+    real = ts.dequantize
+
+    def spy(q, scale):
+        spans.append(q.shape[0])
+        return real(q, scale)
+
+    def kept(fn):
+        """fp32 storages (their sizes) that autograd keeps for the backward."""
+        saved = {}
+
+        def pack(t):
+            if t.dtype == torch.float32:
+                saved[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes() // 4
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            out = fn()
+        return out, saved
+
+    params = {k: v.clone().requires_grad_(True) for k, v in ts.params.items()}
+    _, base = kept(lambda: (ts.depth_to_pts3d(params), ts.get_pw_poses(params),
+                            ts.get_adaptors(params)))
+    ts.dequantize = spy
+    loss, saved = kept(lambda: ts.loss_fn(params))
+    grads = torch.autograd.grad(loss, list(params.values()))
+    ts.dequantize = real
+    extra = sum(saved.values()) - sum(base.values())  # the edge loop's, after the points'
+    assert spans and max(spans) <= 3
+    assert len(spans) >= 4 * 2 * -(-E // 3)  # each side's chunks, forward and backward
+    # the checkpoints hold the world points (N, A, 3) as their input, and
+    # the chunks' small scales; nothing of an edge's observations
+    assert extra <= (ts.n_imgs + 3) * A * 3 < E * A * 3, (extra, E * A * 3)
+    fp32 = global_aligner(out, device="cpu", verbose=False, obs_dtype=torch.float32)
+    _, flat = kept(lambda: fp32.loss_fn({k: v.clone().requires_grad_(True)
+                                         for k, v in fp32.params.items()}))
+    assert sum(flat.values()) - sum(base.values()) >= 2 * E * A * 3  # what chunks avoid
+    ts.edge_chunk = E  # one pass
+    whole = torch.autograd.grad(ts.loss_fn(params), list(params.values()))
+    for a, b in zip(grads, whole):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+def test_int8_recovers_the_scene_as_the_jax_package_requires():
+    """tests/test_cloud_opt.py::TestInt8ObsAccuracyDelta on the port: int8
+    against fp32 observations, MST init, 150 cosine iterations."""
+    out, poses, depths, focal = make_synthetic_scene(n_imgs=4, seed=2)
+    res = {}
+    for dt in (torch.float32, "int8"):
+        scene = global_aligner(out, device="cpu", verbose=False, obs_dtype=dt)
+        loss = scene.compute_global_alignment(init="mst", niter=150, schedule="cosine",
+                                              lr=0.01)
+        est = _np(scene.get_im_poses())
+        res[str(dt)] = dict(
+            loss=loss, focal_err=np.abs(_np(scene.get_focals()).ravel() - focal).max() / focal,
+            pose_err=max(angular_error_deg(relpose(poses[0], poses[k])[:3, :3],
+                                           relpose(est[0], est[k])[:3, :3])
+                         for k in range(1, 4)))
+    a, b = res[str(torch.float32)], res["int8"]
+    assert b["loss"] < 0.03
+    assert b["focal_err"] <= a["focal_err"] + 0.01
+    assert b["pose_err"] <= a["pose_err"] + 0.3
+
+
+# ---------------------------------------------------------------------- #
+# mask_sky, get_dense_pts3d
+# ---------------------------------------------------------------------- #
+
+def sky_scene(n_imgs=3):
+    """The synthetic scene with images: a bright, low-saturation band on
+    top (sky) over seeded noise."""
+    out, *_ = make_synthetic_scene(n_imgs=n_imgs)
+    rng = np.random.default_rng(8)
+    H, W = out["pred1"]["conf"].shape[1:]
+    imgs = rng.uniform(-1, 0.2, (n_imgs, H, W, 3)).astype(np.float32)
+    imgs[:, :H // 3] = np.float32([0.75, 0.8, 0.9])
+    for side in ("view1", "view2"):
+        out[side]["img"] = imgs[np.asarray(out[side]["idx"])]
+    return out
+
+
+def test_mask_sky_and_dense_pts3d_match_jax():
+    out = sky_scene()
+    js, ts = _scenes(out)
+    for a, b in zip(ts.imgs, js.imgs):
+        np.testing.assert_array_equal(a, b)
+    js.compute_global_alignment(init="mst", niter=10, lr=0.01)
+    ts.load_state_dict(js.state_dict())
+    jm, tm = js.mask_sky(), ts.mask_sky()
+    assert tm is not ts and tm.obs_pred_i is ts.obs_pred_i  # shallow: observations shared
+    for got, want, before in zip(tm.im_conf, jm.im_conf, ts.im_conf):
+        np.testing.assert_array_equal(got, want)
+        assert (got == 0).any() and not (before == 0).any()  # the sky, and only the copy
+    pts, depths, confs = ts.get_dense_pts3d()
+    jpts, jdepths, jconfs = js.get_dense_pts3d()
+    for a, b in zip(pts, jpts):
+        np.testing.assert_allclose(_np(a), np.asarray(b), rtol=1e-5, atol=1e-4)
+    for a, b in zip(depths, jdepths):
+        np.testing.assert_allclose(_np(a), np.asarray(b), rtol=1e-5, atol=1e-4)
+    for a, b in zip(confs, jconfs):
+        np.testing.assert_array_equal(a, b)
 
 
 # ---------------------------------------------------------------------- #
@@ -504,6 +818,21 @@ def test_pnp_gives_up_like_cv2():
     few[0, :3] = True
     assert init_im_poses.fast_pnp(X, 10.0, few) is None
     assert jinit.fast_pnp(X, 10.0, few) is None
+
+
+@pytest.mark.parametrize("focal", [0.0, float("nan"), float("inf"), -10.0])
+def test_pnp_takes_a_degenerate_focal_like_cv2(focal):
+    """A focal estimated from a degenerate pointmap can be 0 (or not
+    finite): cv2 then finds no pose, and the port's solver gives up too
+    instead of inverting a singular K; a negative focal is a camera for
+    both."""
+    X, _ = pnp_scene(16, 32, 20.0, 3)
+    msk = np.ones((16, 32), bool)
+    want = jinit.fast_pnp(X, focal, msk)
+    got = init_im_poses.fast_pnp(X, focal, msk)
+    assert (got is None) == (want is None) == (not np.isfinite(focal) or focal == 0)
+    if want is not None:
+        assert got[0] == want[0] == focal
 
 
 def test_chip_smoke_scene_is_the_tests_scene():

@@ -8,6 +8,7 @@ are compared at rtol = atol = 1e-4 on values scaled by their mean |x|.
 """
 import os
 import os.path as osp
+import re
 import shutil
 import subprocess
 import sys
@@ -209,6 +210,19 @@ def test_port_imports_no_jax_pil_or_triton():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_port_sources_name_no_jax_import():
+    """No line of the port's modules or of chip_smoke.py imports JAX, flax,
+    optax or the JAX package, not even inside a function (which the import
+    check above cannot see)."""
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|dust3r_tpu)(\.|\s|$)")
+    files = [osp.join(REPO, "chip_smoke.py")] + [
+        osp.join(root, name) for root, _, names in os.walk(osp.join(REPO, "dust3r_tpu_torch"))
+        for name in names if name.endswith(".py")]
+    hits = [f"{path}:{n}" for path in files
+            for n, line in enumerate(open(path, encoding="utf-8"), 1) if pattern.match(line)]
+    assert len(files) > 30 and not hits, hits
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])
