@@ -75,7 +75,25 @@ Phases (each prints its lines; a failed phase raises and the exit code is 1):
      kernel's launches exactly what the run's batches imply. Prints the
      seconds to write and load each file, of each demo stage, peak device
      memory, and the phase's total.
-The second-to-last line is a JSON object of the kernels, with the launches
+  7. visloc: three synthetic COLMAP scenes (`tools/visloc_scenes.py`):
+     Cambridge-like 1920x1080 SIMPLE_RADIAL queries and maps (the 512x288
+     grid), InLoc-like 1200x1600 portrait queries against 1600x1200 maps
+     (384x512 beside 512x384 in one pair), and an exact plane; each a
+     textured height field, its map dense at the bucket's grid. (a) An
+     oracle of exact pointmaps drives the port's loop
+     (`visloc.cli.localize_dataset`: matching, undistortion, `to_orig`,
+     the numpy RANSAC-PnP at up to 100k points): every query within 0.01
+     units and 0.2 degrees. (b) The slice's model on the card through the
+     same loop, the first query of each scene (confidence threshold 1: the
+     seeded weights give conf < 3 everywhere): each map view's launches
+     exactly 96 / 38 / 10 / 2 (one pair at batch 1: two encoder batches),
+     its pointmaps within the 1e-2 RMSE of the fp32 plain forward per grid;
+     poses printed, not gated. (c) The PnP's worst case on the host:
+     100k correspondences, 1 % inliers. Prints the host seconds of
+     inference, matching and PnP, matches, inliers, RANSAC iterations and
+     peak memory per query, then its JSON line {"visloc": ...}.
+The visloc phase's JSON line comes before the kernels' line. The
+second-to-last line is a JSON object of the kernels, with the launches
 of the slice's run (of the variants and experiments phases for theirs); the
 last line is {"ok": true, "device": {...}}. With
 `--kernels-only` neither line is printed. Without a CUDA device, or outside
@@ -174,6 +192,18 @@ DEMO_PNG = (480, 640)
 # focal (pixels) of a camera facing it
 PLANE_DEPTH = 2.0
 PLANE_FOCAL = 1.2 * W
+# the visloc phase: each scene of `tools/visloc_scenes.SCENES` against its
+# top-k map images; the oracle's limits (tests/test_visloc_colmap_e2e.py's);
+# the model run's confidence threshold: the seeded weights give conf < 3 at
+# every pixel, so the CLI's 3.0 would leave nothing to match; each map view
+# is one pair at batch 1, as the root visloc.py runs it, so its two images are
+# two encoder batches: 2 x 24 + 4 x 12 attention launches, 2 x 19 conv3x3,
+# 2 x 5 up2x, 2 dpt_tail
+VISLOC_TOPK = 2
+VISLOC_TE, VISLOC_AE = 0.01, 0.2
+VISLOC_MODEL_CONF = 1.0
+VISLOC_MAX_POINTS = 100_000  # the CLI's --pnp_max_points
+VISLOC_PER_MAP_VIEW = dict(fused_attention=96, conv3x3=38, up2x=10, dpt_tail=2)
 
 
 def log(msg):
@@ -1203,6 +1233,158 @@ def demo_phase(torch, model, pairs):
     log(f"[demo] phase: {time.perf_counter() - t_phase:.3f} s")
 
 
+class _CountedEngine:
+    """The visloc loop's engine on the card: each `infer_pairs` call (one
+    map view) runs the InferenceEngine with every launch count set to 0
+    just before and read just after, and keeps the pair and its output for
+    the parity check that follows the loop."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.calls = []  # (pairs, output, launches)
+
+    def infer_pairs(self, pairs, verbose=False):
+        batches = (self.engine.encoder_batches, self.engine.pair_batches)
+        reset_launches()
+        out = self.engine.infer_pairs(pairs, verbose=verbose)
+        launches = read_launches()
+        expected = expected_launches(self.engine.model, self.engine.encoder_batches - batches[0],
+                                     self.engine.pair_batches - batches[1])
+        if launches != expected or {k: v for k, v in launches.items() if v} != \
+                VISLOC_PER_MAP_VIEW:
+            raise AssertionError(f"a visloc map view launched {launches}, not {expected} "
+                                 f"({VISLOC_PER_MAP_VIEW}): some call bypassed its kernel")
+        self.calls.append((pairs, out, launches))
+        return out
+
+
+def visloc_phase(torch):
+    """Visual localization from COLMAP maps to poses (phase 7 of the module's
+    docstring). Returns the phase's report, printed as its JSON line."""
+    import os
+    import random
+    import tempfile
+
+    import numpy as np
+
+    from dust3r_tpu_torch.inference import InferenceEngine, inference
+    from dust3r_tpu_torch.model import dust3r_512_dpt
+    from dust3r_tpu_torch.tools.visloc_scenes import (SCENES, OracleEngine,
+                                                      SyntheticColmapDataset, write_scene)
+    from dust3r_tpu_torch.visloc.cli import localize_dataset
+    from dust3r_tpu_torch.visloc.localization import ransac_pnp, run_pnp
+
+    t_phase = time.perf_counter()
+    model = dust3r_512_dpt(dtype=torch.bfloat16, device="cuda", seed=SEED)
+    engine = _CountedEngine(InferenceEngine(model, batch_size=1))
+    report = dict(oracle=[], model=[], parity={}, per_map_view=VISLOC_PER_MAP_VIEW)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+
+    def row(scene, rows, on_card):
+        def on_query(name, success, pose, stats):
+            rows.append(dict(scene=scene, query=name, success=bool(success), **stats))
+            if on_card:
+                rows[-1]["peak_bytes"] = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+        return on_query
+
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        for spec in SCENES:
+            t0 = time.perf_counter()
+            root = os.path.join(tmp, spec.name)
+            cams, surface, queries = write_scene(root, spec, seed=SEED)
+            t1 = time.perf_counter()
+            dataset = SyntheticColmapDataset(root, cams, queries, topk=VISLOC_TOPK)
+            dataset.set_resolution(model)
+            oracle = OracleEngine(cams, surface, maxdim=dataset.maxdim)
+            oracle.register(dataset)
+            n_points = len(dataset.points3D)
+            log(f"[visloc] {spec.name}: {len(queries)} queries {spec.query_size[0]}x"
+                f"{spec.query_size[1]} ({spec.query_model}, k1 {spec.query_k1:g}), "
+                f"{spec.n_maps} map images {spec.map_size[0]}x{spec.map_size[1]}, relief "
+                f"{spec.relief:g}, {n_points} map points; written in {t1 - t0:.3f} s, read "
+                f"in {time.perf_counter() - t1:.3f} s")
+
+            # (a) the oracle's exact pointmaps through the port's loop
+            rows = []
+            random.seed(SEED)
+            _, _, te, ae = localize_dataset(oracle, dataset,
+                                            on_query=row(spec.name, rows, on_card=False))
+            for r, t, a in zip(rows, te, ae):
+                r.update(te=t, ae=a)
+                log(f"[visloc] oracle {spec.name} {r['query']}: pose error {t:.3e} units, "
+                    f"{a:.4f} deg (limits {VISLOC_TE:g}, {VISLOC_AE:g}); {r['matches']} "
+                    f"matches, {r.get('inliers', 0)} inliers after {r.get('iterations', 0)} "
+                    f"RANSAC iterations; host seconds: matching {r['matching']:.3f}, PnP "
+                    f"{r['pnp']:.3f} (the oracle's ray casting {r['inference']:.3f})")
+                if not (r["success"] and t < VISLOC_TE and a < VISLOC_AE):
+                    raise AssertionError(f"oracle {spec.name} {r['query']}: not localized "
+                                         f"({t}, {a} deg)")
+            report["oracle"] += rows
+
+            # (b) the network on the card, its first query
+            rows = []
+            random.seed(SEED)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            first = len(engine.calls)
+            _, _, te, ae = localize_dataset(engine, dataset, conf_thr=VISLOC_MODEL_CONF,
+                                            queries=[0], on_query=row(spec.name, rows, True))
+            r = rows[0]
+            r.update(te=te[0] if np.isfinite(te[0]) else None,
+                     ae=ae[0] if np.isfinite(ae[0]) else None)
+            grids = sorted({"|".join("x".join(map(str, v["img"].shape[1:3])) for v in p[0])
+                            for p, _, _ in engine.calls[first:]})
+            r.update(grids=grids, map_views=len(engine.calls) - first)
+            log(f"[visloc] model {spec.name} {r['query']}: grids {grids}, {r['map_views']} map "
+                f"views, launches per view {VISLOC_PER_MAP_VIEW}; host seconds: inference "
+                f"{r['inference']:.3f}, matching {r['matching']:.3f}, PnP {r['pnp']:.3f}; "
+                f"{r['matches']} matches, {r.get('inliers', 0)} inliers after "
+                f"{r.get('iterations', 0)} RANSAC iterations, success {r['success']} (pose "
+                f"error {r['te']}, {r['ae']} deg: random weights, not gated); peak "
+                f"device memory {r['peak_bytes']} bytes ({r['peak_bytes'] / 2**30:.3f} GiB)")
+            report["model"] += rows
+
+    # (c) the host PnP's worst case: pnp_max_points correspondences, 99 %
+    # of them outliers, so that RANSAC runs all its iterations
+    rng = np.random.default_rng(SEED)
+    n = VISLOC_MAX_POINTS
+    K = np.float32([[1600, 0, 959.5], [0, 1600, 539.5], [0, 0, 1]])
+    X = np.concatenate([rng.uniform(-3, 3, (n, 2)), rng.uniform(6, 10, (n, 1))], 1)
+    px = X[:, :2] / X[:, 2:] * K[0, 0] + K[:2, 2]
+    px[n // 100:] = rng.uniform(0, 1920, (n - n // 100, 2)) * [1, 1080 / 1920]
+    t0 = time.perf_counter()
+    ok, _ = run_pnp(px.astype(np.float32), X.astype(np.float32), K, [0, 0, 0, 0])
+    report["pnp_worst"] = dict(points=n, inlier_share=0.01, success=bool(ok),
+                               seconds=time.perf_counter() - t0, **ransac_pnp.last_stats)
+    log(f"[visloc] PnP at {n} correspondences, 1 % inliers: {report['pnp_worst']['iterations']} "
+        f"RANSAC iterations in {report['pnp_worst']['seconds']:.3f} s (host)")
+
+    # each map view's pointmaps against the fp32 plain forward, same weights
+    model32 = dust3r_512_dpt(dtype=torch.float32, attn_impl="plain", conv_impl="ref",
+                             device="cuda", seed=SEED + 1)
+    model32.load_state_dict(model.state_dict())
+    engine32 = InferenceEngine(model32, batch_size=1)
+    for pairs, out, _ in engine.calls:
+        out32 = inference(pairs, engine32, verbose=False)
+        grid = "|".join("x".join(map(str, v["img"].shape[1:3])) for v in pairs[0])
+        for side, key in (("pred1", "pts3d"), ("pred2", "pts3d_in_other_view")):
+            a = np.asarray(out[side][key][0], np.float64)
+            b = np.asarray(out32[side][key][0], np.float64)
+            rmse = float(np.sqrt(np.mean((a - b) ** 2)) / np.sqrt(np.mean(b ** 2)))
+            report["parity"][grid] = max(report["parity"].get(grid, 0.0), rmse)
+    log(f"[visloc] parity, worst normalized RMSE of pts3d / pts3d_in_other_view bf16-kernel vs "
+        f"fp32-plain per grid over {len(engine.calls)} map views: {report['parity']} (limit "
+        f"{PARITY_RMSE:g})")
+    if not max(report["parity"].values()) <= PARITY_RMSE:
+        raise AssertionError(f"visloc pointmap parity {report['parity']} > {PARITY_RMSE:g}")
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[visloc] phase: {report['seconds']:.3f} s")
+    del model32, engine
+    return report
+
+
 def main(argv):
     if not (ROOT / "dust3r_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repo (dust3r_tpu_torch/ missing)",
@@ -1226,6 +1408,7 @@ def main(argv):
     launches, engine, pairs = slice_phase(torch)
     scene_phase(torch, engine, pairs)
     demo_phase(torch, engine.model, pairs)
+    print(json.dumps({"visloc": visloc_phase(torch)}), flush=True)
     # attention: the encoder's self-attention shape, read from the qkv
     # projection, on the sm90 kernel; its mma.sync core (the baseline) at
     # the same call; its grouped form: the variants phase's G = 2, 4 and 8

@@ -5,8 +5,9 @@ Counterpart of the parts of `dust3r_tpu/utils/geometry.py` that the aligner
 and its init use. `xy_grid`, `geotrf`, `inv` and `depthmap_to_pts3d` take
 torch tensors; `geotrf` and `inv` also take numpy arrays and then compute
 in fp32 and return numpy, as the JAX versions compute host numpy input in
-fp32 (the aligner's init calls them so). `depthmap_to_absolute_camera_coordinates`
-and `get_med_dist_between_poses` are host numpy, as in the JAX package.
+fp32 (the aligner's init calls them so). `depthmap_to_absolute_camera_coordinates`,
+`get_med_dist_between_poses`, the COLMAP / OpenCV intrinsics converters and
+visloc's `find_reciprocal_matches` are host numpy, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -134,3 +135,36 @@ def get_med_dist_between_poses(poses):
     from scipy.spatial.distance import pdist
 
     return float(np.median(pdist([np.asarray(p)[:3, 3] for p in poses])))
+
+
+def colmap_to_opencv_intrinsics(K):
+    """COLMAP's pixel convention (the centre of the top-left pixel at 0.5)
+    -> OpenCV's (at 0): the principal point moves by -0.5 (host numpy)."""
+    K = np.array(K, copy=True)
+    K[0, 2] -= 0.5
+    K[1, 2] -= 0.5
+    return K
+
+
+def opencv_to_colmap_intrinsics(K):
+    """The inverse of `colmap_to_opencv_intrinsics`."""
+    K = np.array(K, copy=True)
+    K[0, 2] += 0.5
+    K[1, 2] += 0.5
+    return K
+
+
+def find_reciprocal_matches(P1, P2):
+    """Reciprocal nearest neighbours between two 3D point sets (host, scipy
+    cKDTree). Returns (reciprocal_in_P2: (len(P2),) bool, nn2_in_P1:
+    (len(P2),) index of each P2 point's nearest P1 point, their count)."""
+    from scipy.spatial import cKDTree as KDTree
+
+    P1 = np.asarray(P1)
+    P2 = np.asarray(P2)
+    tree1 = KDTree(P1)
+    tree2 = KDTree(P2)
+    _, nn1_in_P2 = tree2.query(P1, workers=8)
+    _, nn2_in_P1 = tree1.query(P2, workers=8)
+    reciprocal_in_P2 = nn1_in_P2[nn2_in_P1] == np.arange(len(nn2_in_P1))
+    return reciprocal_in_P2, nn2_in_P1, int(reciprocal_in_P2.sum())
