@@ -92,6 +92,35 @@ Phases (each prints its lines; a failed phase raises and the exit code is 1):
      100k correspondences, 1 % inliers. Prints the host seconds of
      inference, matching and PnP, matches, inliers, RANSAC iterations and
      peak memory per query, then its JSON line {"visloc": ...}.
+  8. train: training at full width through `python -m dust3r_tpu_torch.train`'s
+     `train(args)`. (a) Each kernel's backward alone at the training path's
+     shapes against the autograd of its plain version (attention from its
+     strided views at the encoder, decoder and 768|672 cross shapes;
+     conv3x3 at the head's 3x3 shapes; up2x at its upsamples; dpt_tail at
+     (8, 128, 384, 512)), its ms beside its forward kernel's. (b) Co3d-layout
+     scenes written by `tools/train_scenes.py` (two 640x480 sequences, one
+     480x640). (c) One micro-batch's gradients through the kernels and
+     through the plain route (plain attention, fp32 cuDNN convs, the plain
+     upsample and tail) in bf16, per top-level module (relative L2 <=
+     2e-2, cosine >= 0.999; every gradient finite, none all zero where the
+     plain route's is not), and against an fp32 plain run for information.
+     (d) The released 512_dpt (ManyAR patch embed, seeded weights) on
+     Co3d at its five 512 buckets with ColorJitter, ConfLoss(Regr3D(L21)),
+     --amp 1, batch 4 x accum 2, 3 steps: each step's loss, grad norm, LR,
+     wall seconds, peak memory and forward launches (exactly 72 attention
+     calls a micro-batch, 19 conv3x3 / 5 up2x / 1 dpt_tail a head pass, 2
+     head passes, 4 with ManyAR flags); every gradient of the first
+     backward finite and non-zero. (e) After the updates, the kept conv and
+     tail packings give the bits of packings made anew. (f)
+     checkpoint-final.pth -> load_model -> InferenceEngine gives the trained
+     module's outputs bit for bit. (g) 10 steps on one repeated batch with a
+     fresh AdamW: from the trained model on the kernel route and on the
+     plain route at lr 1e-4, the plain route with its weights nudged by
+     1e-7 of themselves, and the kernel route at 1e-5, printed with each
+     step's distance from the plain route; from a freshly seeded model at
+     lr 1e-4, the loss falls. (h) A second train(args) in the directory resumes
+     at epoch 1. (i) One step of train.py's default model, 224_linear, at
+     batch 8. Prints the phase's seconds.
 The visloc phase's JSON line comes before the kernels' line. The
 second-to-last line is a JSON object of the kernels, with the launches
 of the slice's run (of the variants and experiments phases for theirs); the
@@ -204,6 +233,23 @@ VISLOC_TE, VISLOC_AE = 0.01, 0.2
 VISLOC_MODEL_CONF = 1.0
 VISLOC_MAX_POINTS = 100_000  # the CLI's --pnp_max_points
 VISLOC_PER_MAP_VIEW = dict(fused_attention=96, conv3x3=38, up2x=10, dpt_tail=2)
+# the train phase: the released 512_dpt's training data and run (Co3d at the
+# five 512 buckets with ColorJitter, aug_crop 16, the background masked
+# half of the time), cut to 3 steps of batch 4 x accum 2; 224_linear at 224
+TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS, TRAIN_LR = 4, 2, 3, 1e-4
+TRAIN_CRITERION = "ConfLoss(Regr3D(L21, norm_mode='avg_dis'), alpha=0.2)"
+TRAIN_DATASET = ("{n} @ Co3d(split='train', ROOT='{root}', aug_crop=16, mask_bg='rand', "
+                 "resolution=[(512, 384), (512, 336), (512, 288), (512, 256), (512, 160)], "
+                 "transform=ColorJitter, seed=777)")
+TRAIN_DATASET_224 = ("8 @ Co3d(split='train', ROOT='{root}', aug_crop=16, mask_bg='rand', "
+                     "resolution=224, transform=ColorJitter, seed=777)")
+# each backward alone against the autograd of its plain version: attention's
+# dq, dk, dv over their max |.| (bf16 q, k, v and rotations, dq, dk, dv
+# rounded to bf16); the fp32 recomputes (conv3x3, up2x, dpt_tail) over theirs
+TRAIN_ATTN_RTOL = 1e-2
+TRAIN_RTOL = 1e-3
+# the gradient parity per top-level module, bf16 kernels vs bf16 plain
+GRAD_REL_L2, GRAD_COSINE = 2e-2, 0.999
 
 
 def log(msg):
@@ -1385,6 +1431,429 @@ def visloc_phase(torch):
     return report
 
 
+# ---------------------------------------------------------------------- #
+# phase 8: training
+# ---------------------------------------------------------------------- #
+
+def backward_phase(torch):
+    """Each kernel's backward (the recompute of its autograd Function) alone
+    at the training path's shapes, against the autograd of its plain version
+    on the same inputs and output gradient: attention from the strided
+    views it reads (the gradient lands in the (B, N, 3C) qkv projection or
+    the (B, N, C) head-packed ones) at the encoder's, the decoder's self and
+    the 512x384|512x336 cross shapes, bf16, against the fp64 autograd of
+    the plain version's math (its rotations' values in bf16; dq, dk, dv
+    within TRAIN_ATTN_RTOL of their max |.|);
+    conv3x3 at a DPT head's 3x3 shapes, up2x at its upsamples and dpt_tail
+    at its tail, against the fp32 plain versions' autograd (TRAIN_RTOL).
+    Prints each backward's ms beside its forward kernel's, both by
+    CUDA-graph replay (`tools/card.py::graph_ms`). Returns the rows."""
+    from dust3r_tpu_torch.models.blocks import token_positions
+    from dust3r_tpu_torch.ops.attention import attention, attention_backward
+    from dust3r_tpu_torch.ops.conv3x3 import (conv3x3, conv3x3_backward, conv3x3_ref,
+                                              pack_weight)
+    from dust3r_tpu_torch.ops.dpt_tail import dpt_tail, dpt_tail_backward, dpt_tail_ref, pack_w2
+    from dust3r_tpu_torch.ops.fused_attention import fused_attention
+    from dust3r_tpu_torch.ops.rope import apply_rope2d, rope_tables
+    from dust3r_tpu_torch.ops.upsample import up2x, up2x_backward, up2x_ref
+    from dust3r_tpu_torch.tools.card import graph_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    rows = []
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (scale * torch.randn(*shape, device="cuda", generator=gen)).to(dtype)
+
+    def check(name, got, want, rtol, fwd_ms, bwd_ms):
+        errs = []
+        for g, w in zip(got, want):
+            errs.append((g.float() - w.float()).abs().max().item()
+                        / max(w.float().abs().max().item(), 1e-30))
+        worst = max(errs)
+        log(f"[train] backward {name}: rel err " + ", ".join(f"{e:.3e}" for e in errs)
+            + f" (limit {rtol:g}); forward kernel {fwd_ms:.4f} ms, backward {bwd_ms:.4f} ms "
+            f"(graph replay)")
+        if not worst <= rtol:
+            raise AssertionError(f"backward {name}: rel err {worst:.3e} > {rtol:g}")
+        rows.append(dict(name=name, rel_err=worst, ms=fwd_ms, backward_ms=bwd_ms))
+
+    grid384, grid336 = (H384 // 16, W // 16), (H336 // 16, W // 16)
+    for name, B, Hh, grid_q, grid_k, layout in (
+            ("attention encoder_self", BATCH_SIZE, 16, grid384, grid384, "qkv"),
+            ("attention decoder_self", BATCH_SIZE, 12, grid384, grid384, "qkv"),
+            ("attention decoder_cross_768x672", BATCH_SIZE, 12, grid384, grid336, "packed")):
+        d = 64
+        C = Hh * d
+        nq, nk = grid_q[0] * grid_q[1], grid_k[0] * grid_k[1]
+        pq, pk = token_positions(B, *grid_q, "cuda"), token_positions(B, *grid_k, "cuda")
+        if layout == "qkv":
+            bases = [randn(B, nq, 3 * C, dtype=torch.bfloat16).requires_grad_()]
+
+            def views(bases):
+                return bases[0].view(B, nq, 3, Hh, d).permute(2, 0, 3, 1, 4)
+        else:
+            bases = [randn(B, n, C, dtype=torch.bfloat16).requires_grad_() for n in (nq, nk, nk)]
+
+            def views(bases):
+                return [t.view(B, -1, Hh, d).transpose(1, 2) for t in bases]
+        g = randn(B, Hh, nq, d, dtype=torch.bfloat16)
+        q, k, v = views(bases)
+        got = torch.autograd.grad(attention(q, k, v, pq, pk, 100.0, "kernel"), bases, g)
+        # autograd of the plain version's math in fp64, from fp64 copies of
+        # the bases: each rotation's value is the plain version's bf16 one,
+        # its gradient the fp64 rotation's (a straight-through rounding),
+        # then softmax(q kᵀ / √d) v; nothing of the backward under test
+        leaves = [t.detach().double().requires_grad_() for t in bases]
+        q64, k64, v64 = views(leaves)
+
+        def rotated(t64, t, pos):
+            r = apply_rope2d(t64, pos)
+            return r + (apply_rope2d(t.detach(), pos).double() - r).detach()
+
+        logits = rotated(q64, q, pq) @ rotated(k64, k, pk).transpose(-1, -2) * d ** -0.5
+        want = torch.autograd.grad(torch.softmax(logits, -1) @ v64, leaves, g.double())
+        del leaves, q64, k64, v64, logits
+        bf16 = torch.autograd.grad(attention(q, k, v, pq, pk, 100.0, "plain"), bases, g)
+        log(f"[train] backward {name}: the bf16 plain version's own autograd (dP rounded to "
+            f"bf16) from the fp64 one: rel err " + ", ".join(
+                f"{(a.double() - b).abs().max().item() / b.abs().max().item():.3e}"
+                for a, b in zip(bf16, want)) + " (information)")
+        del bf16
+        qd, kd, vd = (t.detach() for t in (q, k, v))
+        tq, tk = rope_tables(pq, d), rope_tables(pk, d)
+        check(name + f" q{(B, Hh, nq, d)} k{(B, Hh, nk, d)}", got, want, TRAIN_ATTN_RTOL,
+              graph_ms(lambda: fused_attention(qd, kd, vd, pq, pk, 100.0, tq, tk)),
+              graph_ms(lambda: attention_backward(qd, kd, vd, pq, pk, 100.0, g)))
+
+    for name, cin, cout, h, w, bias, count in CONV_CASES:
+        x = randn(BATCH_SIZE, cin, h, w).contiguous(memory_format=torch.channels_last)
+        wt = randn(cout, cin, 3, 3, scale=(9 * cin) ** -0.5)
+        b = randn(cout) if bias else None
+        leaves = [t.requires_grad_() for t in (x, wt, b) if t is not None]
+        g = randn(BATCH_SIZE, cout, h, w).contiguous(memory_format=torch.channels_last)
+        wp = pack_weight(wt)
+        got = torch.autograd.grad(conv3x3(x, wt, b, "kernel", packed=wp), leaves, g)
+        want = torch.autograd.grad(conv3x3_ref(x, wt, b), leaves, g)
+        xd, wd = x.detach(), wt.detach()
+        check(f"conv3x3 {name} x{(BATCH_SIZE, cin, h, w)} -> {cout} x{count}/head", got, want,
+              TRAIN_RTOL,
+              graph_ms(lambda: conv3x3(xd, wd, None if b is None else b.detach(), "kernel",
+                                       packed=wp)),
+              graph_ms(lambda: conv3x3_backward(xd, wd, g, bias)))
+    for name, c, h, w, count in UP2X_CASES:
+        if not count:
+            continue
+        x = randn(BATCH_SIZE, c, h, w).contiguous(memory_format=torch.channels_last)
+        x.requires_grad_()
+        g = randn(BATCH_SIZE, c, 2 * h, 2 * w).contiguous(memory_format=torch.channels_last)
+        got = torch.autograd.grad(up2x(x, "kernel"), x, g)
+        want = torch.autograd.grad(up2x_ref(x), x, g)
+        xd = x.detach()
+        check(f"up2x {name} x{(BATCH_SIZE, c, h, w)}", got, want, TRAIN_RTOL,
+              graph_ms(lambda: up2x(xd, "kernel")), graph_ms(lambda: up2x_backward(g)))
+    y = randn(BATCH_SIZE, 128, H384, W, scale=0.3).contiguous(memory_format=torch.channels_last)
+    params = [randn(32, 128, 3, 3, scale=(9 * 128) ** -0.5), randn(32, scale=0.1),
+              randn(4, 32, 1, 1, scale=0.2), randn(4, scale=0.1)]
+    inputs = [t.requires_grad_() for t in (y, *params)]
+    gp, gc = randn(BATCH_SIZE, H384, W, 3), randn(BATCH_SIZE, H384, W)
+    w2p = pack_w2(params[0])
+    got = torch.autograd.grad(dpt_tail(*inputs, 1.0, "kernel", packed=w2p), inputs, (gp, gc))
+    want = torch.autograd.grad(dpt_tail_ref(*inputs, 1.0), inputs, (gp, gc))
+    detached = [t.detach() for t in inputs]
+    check(f"dpt_tail y{(BATCH_SIZE, 128, H384, W)}", got, want, TRAIN_RTOL,
+          graph_ms(lambda: dpt_tail(*detached, 1.0, "kernel", packed=w2p)),
+          graph_ms(lambda: dpt_tail_backward(detached, 1.0, gp, gc)))
+    return rows
+
+
+def _groups(torch, model):
+    """The model's parameters by top-level module, as the gradient parity
+    reads them."""
+    groups = {}
+    for name, p in model.named_parameters():
+        top = name.split(".")[0]
+        key = {"enc_norm": "enc_blocks", "decoder_embed": "decoder", "dec_blocks": "decoder",
+               "dec_blocks2": "decoder", "dec_norm": "decoder"}.get(top, top)
+        groups.setdefault(key, []).append((name, p))
+    return groups
+
+
+def _grads(torch, model, criterion, batch):
+    from dust3r_tpu_torch.training import loss_of_one_batch
+
+    model.zero_grad(set_to_none=True)
+    (loss, _), _ = loss_of_one_batch(model, criterion, batch, symmetrized=True)
+    loss.backward()
+    grads = {n: p.grad.detach().float().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def _compare_grads(torch, model, ours, ref, what, limit):
+    """Per top-level module: relative L2 error and cosine of `ours` against
+    `ref`; raises past the limits when `limit`."""
+    worst = {}
+    for group, named in _groups(torch, model).items():
+        a = torch.cat([ours[n].flatten() for n, _ in named])
+        b = torch.cat([ref[n].flatten() for n, _ in named])
+        rel = float((a - b).norm() / b.norm().clamp(min=1e-30))
+        cos = float(torch.nn.functional.cosine_similarity(a.double(), b.double(), dim=0))
+        worst[group] = (rel, cos)
+        log(f"[train] gradient parity {what} {group}: rel L2 {rel:.3e}, cosine {cos:.6f}"
+            + (f" (limits {GRAD_REL_L2:g}, {GRAD_COSINE:g})" if limit else " (information)"))
+        if limit and not (rel <= GRAD_REL_L2 and cos >= GRAD_COSINE):
+            raise AssertionError(f"gradient parity {what} {group}: rel L2 {rel:.3e}, cosine "
+                                 f"{cos:.6f}")
+    return worst
+
+
+def _micro_batches(torch, dataset, batch_size):
+    """One step's device micro-batch: the single batch of a loader of
+    `dataset` (epoch 0)."""
+    from dust3r_tpu_torch.datasets import get_data_loader
+    from dust3r_tpu_torch.training import symmetric_micro_batches
+
+    loader = get_data_loader(dataset, batch_size=batch_size, num_workers=0)
+    loader.set_epoch(0)
+    group = list(loader)
+    return symmetric_micro_batches(group, torch.device("cuda"), torch.bfloat16)
+
+
+def train_phase(torch):
+    """Training at full width (phase 8 of the module's docstring). Returns
+    the launches of the train run."""
+    import shutil
+
+    import numpy as np
+
+    from dust3r_tpu_torch.checkpoint import model_from_arch_string
+    from dust3r_tpu_torch.inference import InferenceEngine, inference
+    from dust3r_tpu_torch.losses import build_criterion
+    from dust3r_tpu_torch.model import load_model
+    from dust3r_tpu_torch.models.heads import Conv3x3, DPTOutputAdapter
+    from dust3r_tpu_torch.tools.train_scenes import write_scenes
+    from dust3r_tpu_torch.train import get_args_parser
+    from dust3r_tpu_torch.training import (TrainSpec, make_optimizer, train, train_step)
+    from dust3r_tpu_torch.utils.image import views_from_arrays
+
+    t_phase = time.perf_counter()
+    backward_phase(torch)
+    work = ROOT / "build" / "train"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    root = write_scenes(str(work / "co3d"), frames=100, seed=SEED)
+    log(f"[train] Co3d-layout scenes (2 x 640x480, 1 x 480x640, 100 frames each) written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    dataset = TRAIN_DATASET.format(n=TRAIN_BATCH * TRAIN_ACCUM * TRAIN_STEPS, root=root)
+    criterion = build_criterion(TRAIN_CRITERION)
+
+    # the kernels' gradients against the plain route's, one micro-batch
+    one_batch = TRAIN_DATASET.format(n=TRAIN_BATCH, root=root)
+    batch = _micro_batches(torch, one_batch, TRAIN_BATCH)[0]
+    model = model_from_arch_string(PUBLISHED_ARCH, landscape_only=True, dtype=torch.bfloat16,
+                                   device="cuda", seed=SEED)
+    # remat: the plain route keeps one block's activations at a time (its
+    # attention holds fp32 logits); the recompute gives the same values
+    plain = model_from_arch_string(PUBLISHED_ARCH, dtype=torch.bfloat16, attn_impl="plain",
+                                   conv_impl="ref", device="cuda", seed=SEED + 1, remat=True)
+    plain.load_state_dict(model.state_dict())
+    manyar = "is_portrait" in batch[0]
+    loss_k, g_kernel = _grads(torch, model, criterion, batch)
+    loss_p, g_plain = _grads(torch, plain, criterion, batch)
+    del plain
+    log(f"[train] one micro-batch ({batch[0]['img'].shape[0]} pairs "
+        f"{tuple(batch[0]['img'].shape[1:3])}, ManyAR flags {manyar}): loss kernels "
+        f"{loss_k:.6f}, plain {loss_p:.6f}")
+    bad = [n for n, g in g_kernel.items() if not torch.isfinite(g).all()]
+    dead = [n for n, g in g_kernel.items() if not g.any() and g_plain[n].any()]
+    if bad or dead:
+        raise AssertionError(f"parameters with a non-finite gradient {bad[:8]}, with a zero "
+                             f"gradient where the plain route's is not {dead[:8]}")
+    _compare_grads(torch, model, g_kernel, g_plain, "bf16 kernels vs bf16 plain", True)
+    ref32 = model_from_arch_string(PUBLISHED_ARCH, attn_impl="plain", conv_impl="ref",
+                                   device="cuda", seed=SEED + 2, remat=True)
+    ref32.load_state_dict(model.state_dict())
+    batch32 = tuple(dict(v, img=v["img"].float()) for v in batch)
+    _compare_grads(torch, model, g_kernel, _grads(torch, ref32, criterion, batch32)[1],
+                   "bf16 kernels vs fp32 plain", False)
+    del ref32, g_kernel, g_plain, batch32, model
+
+    # the train run: python -m dust3r_tpu_torch.train's train(args)
+    out = work / "run"
+    argv = ["--model", PUBLISHED_ARCH, "--train_dataset", dataset,
+            "--train_criterion", TRAIN_CRITERION, "--batch_size", str(TRAIN_BATCH),
+            "--accum_iter", str(TRAIN_ACCUM), "--epochs", "1", "--warmup_epochs", "0",
+            "--lr", str(TRAIN_LR), "--amp", "1", "--num_workers", "4", "--print_freq", "1",
+            "--seed", str(SEED), "--output_dir", str(out)]
+    args = get_args_parser().parse_args(argv)
+    steps, last = [], dict(read_launches(), time=time.perf_counter())
+    first_grads = {}
+
+    def on_step(model, epoch, i, metrics, micro_batches):
+        torch.cuda.synchronize()
+        now = dict(read_launches(), time=time.perf_counter())
+        got = {k: now[k] - last[k] for k in ("fused_attention", "conv3x3", "up2x", "dpt_tail")}
+        heads = 2 * sum(2 if "is_portrait" in mb[0] else 1 for mb in micro_batches)
+        # symmetrized: one encoder batch (view1) and the decoder's 4 calls a layer
+        want = dict(fused_attention=(model.enc_depth + 4 * model.dec_depth)
+                    * len(micro_batches),
+                    **{k: n * heads for k, n in PER_HEAD.items()})
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[train] step {len(steps)} (epoch {epoch}, iter {i}): loss {metrics['loss']:.6f}, "
+            f"grad norm {metrics['grad_norm']:.6f}, lr {metrics['lr']:.3e}, "
+            f"{now['time'] - last['time']:.3f} s wall, peak device memory {peak} bytes "
+            f"({peak / 2**30:.3f} GiB); forward launches {got} (expected {want}: "
+            f"{len(micro_batches)} micro-batches, {heads} head passes)")
+        if got != want:
+            raise AssertionError(f"train step launches {got} != {want}")
+        if not steps:  # the first backward: every parameter trains
+            for name, p in model.named_parameters():
+                first_grads[name] = (bool(torch.isfinite(p.grad).all()), bool(p.grad.any()))
+        steps.append(dict(metrics, seconds=now["time"] - last["time"], peak=peak))
+        last.update(now)
+
+    reset_launches()
+    last.update(read_launches())
+    torch.cuda.reset_peak_memory_stats()
+    trained, optimizer = train(args, on_step=on_step)
+    launches = read_launches()
+    if len(steps) < TRAIN_STEPS:
+        raise AssertionError(f"{len(steps)} optimizer steps, not {TRAIN_STEPS}")
+    if not all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in steps):
+        raise AssertionError("a non-finite loss or grad norm")
+    bad = [n for n, (finite, _) in first_grads.items() if not finite]
+    dead = [n for n, (_, nonzero) in first_grads.items() if not nonzero]
+    watched = [n for n in first_grads if n.endswith(("qkv.weight", "projq.weight",
+                                                     "projk.weight", "projv.weight"))
+               or ".dpt.head.2." in n or ".dpt.head.4." in n]
+    log(f"[train] first backward: {len(first_grads)} parameters, {len(bad)} non-finite, "
+        f"{len(dead)} all-zero gradients; of them {len(watched)} qkv / projq / projk / projv "
+        f"/ head.2 / head.4 tensors, all non-zero: "
+        f"{all(first_grads[n][1] for n in watched)}")
+    if bad or dead:
+        raise AssertionError(f"first backward: non-finite {bad[:8]}, all zero {dead[:8]}")
+
+    # the packed weights follow the optimizer: a forward after the update
+    # equals a forward with every packing made anew, bit for bit
+    rng = np.random.default_rng(SEED)
+    pair = views_from_arrays([rng.integers(0, 256, (H384, W, 3), dtype=np.uint8)
+                              for _ in range(2)])
+    pairs = [(pair[0], pair[1])]
+    trained.eval()
+    kept = inference(pairs, InferenceEngine(trained, batch_size=1), verbose=False)
+    for m in trained.modules():
+        if isinstance(m, Conv3x3):
+            m._packed = None
+        elif isinstance(m, DPTOutputAdapter):
+            m._packed_w2 = None
+    fresh = inference(pairs, InferenceEngine(trained, batch_size=1), verbose=False)
+    same = all(np.array_equal(kept[s][k], fresh[s][k]) for s, k in (
+        ("pred1", "pts3d"), ("pred1", "conf"), ("pred2", "pts3d_in_other_view")))
+    log(f"[train] after the optimizer's updates, the kept packings give the bits of packings "
+        f"made anew: {same}")
+    if not same:
+        raise AssertionError("a kept packing missed an optimizer update")
+
+    # checkpoint-final.pth -> load_model -> InferenceEngine, bit for bit
+    t0 = time.perf_counter()
+    loaded = load_model(str(out / "checkpoint-final.pth"), device="cuda",
+                        dtype=torch.bfloat16, verbose=False)
+    again = inference(pairs, InferenceEngine(loaded, batch_size=1), verbose=False)
+    same = all(np.array_equal(kept[s][k], again[s][k]) for s, k in (
+        ("pred1", "pts3d"), ("pred1", "conf"), ("pred2", "pts3d_in_other_view"),
+        ("pred2", "conf")))
+    log(f"[train] checkpoint-final.pth ({(out / 'checkpoint-final.pth').stat().st_size} bytes) "
+        f"through load_model and InferenceEngine in {time.perf_counter() - t0:.2f} s: one pair's "
+        f"outputs equal the trained module's bit for bit: {same}")
+    if not same:
+        raise AssertionError("checkpoint-final.pth does not give the trained module's outputs")
+    del loaded, kept, fresh, again
+
+    # 10 steps on one repeated batch with a fresh AdamW, no warmup, from the
+    # trained model (information): the kernel route and the plain route at
+    # lr 1e-4, the plain route again with its fp32 weights nudged by 1e-7
+    # of themselves (how far the steps alone part two runs), and the kernel
+    # route at 1e-5; then from a freshly seeded model at lr 1e-4, the loss
+    # falls
+    state = {k: v.detach().clone() for k, v in trained.state_dict().items()}
+    del optimizer, trained
+    repeated = _micro_batches(torch, one_batch, TRAIN_BATCH)
+
+    def ten_steps(lr, seed, state=None, nudge=0.0, **route):
+        spec = TrainSpec(lr=lr, min_lr=0.0, warmup_epochs=0, epochs=1, accum_iter=1)
+        model = model_from_arch_string(PUBLISHED_ARCH, dtype=torch.bfloat16, device="cuda",
+                                       seed=seed, **route)
+        if state is not None:
+            model.load_state_dict(state)
+        if nudge:
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.addcmul_(p, torch.randn(p.shape, device="cuda", generator=gen),
+                               value=nudge)
+        opt = make_optimizer(model, spec)
+        return [train_step(model, opt, criterion, repeated, 0.0, spec)["loss"]
+                for _ in range(10)]
+
+    plain = dict(attn_impl="plain", conv_impl="ref", remat=True)
+    witness = {"kernels, lr 1e-4": ten_steps(TRAIN_LR, SEED + 3, state),
+               "plain, lr 1e-4": ten_steps(TRAIN_LR, SEED + 3, state, **plain),
+               "plain nudged 1e-7, lr 1e-4": ten_steps(TRAIN_LR, SEED + 3, state, 1e-7,
+                                                       **plain),
+               "kernels, lr 1e-5": ten_steps(TRAIN_LR / 10, SEED + 3, state)}
+    del state
+    for what, losses in witness.items():
+        log(f"[train] the trained model, {what}, 10 steps on one repeated batch: loss "
+            + " ".join(f"{x:.5f}" for x in losses) + " (information)")
+    ref = witness["plain, lr 1e-4"]
+    for what in ("kernels, lr 1e-4", "plain nudged 1e-7, lr 1e-4"):
+        log(f"[train] {what} from plain, lr 1e-4, step by step: relative " + " ".join(
+            f"{abs(a - b) / abs(b):.1e}" for a, b in zip(witness[what], ref))
+            + " (information)")
+    losses = ten_steps(TRAIN_LR, SEED + 3)
+    log(f"[train] a fresh model, 10 steps on one repeated batch, lr {TRAIN_LR:g}: loss "
+        + " ".join(f"{x:.5f}" for x in losses))
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+
+    # resume: a second train(args) in the directory starts at the next epoch
+    resumed = []
+    args = get_args_parser().parse_args(argv[:argv.index("--epochs") + 1] + ["2"]
+                                        + argv[argv.index("--epochs") + 2:])
+    last.update(read_launches(), time=time.perf_counter())
+    steps.clear()
+    train(args, on_step=lambda model, epoch, i, m, mb: (resumed.append(epoch),
+                                                        on_step(model, epoch, i, m, mb)))
+    log(f"[train] resumed run: {len(resumed)} steps, epochs {sorted(set(resumed))}")
+    if set(resumed) != {1}:
+        raise AssertionError(f"the resumed run trained epochs {sorted(set(resumed))}, not [1]")
+
+    # train.py's default model (224_linear) at full width: one step at batch 8
+    args = get_args_parser().parse_args(["--train_dataset", "x"])
+    model = model_from_arch_string(args.model, landscape_only=True, dtype=torch.bfloat16,
+                                   device="cuda", seed=SEED)
+    mbs = _micro_batches(torch, TRAIN_DATASET_224.format(root=root), 8)
+    spec = TrainSpec(lr=TRAIN_LR, min_lr=0.0, warmup_epochs=0, epochs=1, accum_iter=1)
+    opt = make_optimizer(model, spec)
+    before = read_launches()["fused_attention"]
+    t0 = time.perf_counter()
+    m = train_step(model, opt, criterion, mbs, 0.0, spec)
+    torch.cuda.synchronize()
+    n_attn = read_launches()["fused_attention"] - before
+    want = model.enc_depth + 4 * model.dec_depth
+    log(f"[train] 224_linear ({sum(p.numel() for p in model.parameters())} params): one step at "
+        f"batch 8 ({mbs[0][0]['img'].shape[0]} pairs {tuple(mbs[0][0]['img'].shape[1:3])}, 196 "
+        f"tokens): loss {m['loss']:.6f}, grad norm {m['grad_norm']:.6f}, "
+        f"{time.perf_counter() - t0:.3f} s, attention launches {n_attn} (expected {want})")
+    if n_attn != want or not np.isfinite(m["loss"]):
+        raise AssertionError("the 224_linear step failed")
+    del model, opt
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"[train] phase: {time.perf_counter() - t_phase:.3f} s")
+    return launches
+
+
 def main(argv):
     if not (ROOT / "dust3r_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repo (dust3r_tpu_torch/ missing)",
@@ -1409,6 +1878,7 @@ def main(argv):
     scene_phase(torch, engine, pairs)
     demo_phase(torch, engine.model, pairs)
     print(json.dumps({"visloc": visloc_phase(torch)}), flush=True)
+    train_phase(torch)
     # attention: the encoder's self-attention shape, read from the qkv
     # projection, on the sm90 kernel; its mma.sync core (the baseline) at
     # the same call; its grouped form: the variants phase's G = 2, 4 and 8

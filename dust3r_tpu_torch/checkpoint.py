@@ -15,7 +15,13 @@ their own names (no flax tree in between):
   `{model: sd}` wrapper) and `from_pretrained` (a file, a snapshot
   directory, or a hub repo id through `huggingface_hub`), each returning
   the loaded module;
-* `save_torch_checkpoint`: `{"arch": <string>, "model": state_dict}`.
+* `save_torch_checkpoint`: `{"arch": <string>, "model": state_dict}`;
+* training's: `save_train_checkpoint` / `load_train_checkpoint` (the
+  reference's `checkpoint-{last,best,final,N}.pth`: `model`, `optimizer`,
+  `epoch`, `best_so_far`, `args`; `load_torch_checkpoint` reads it) and
+  `warm_start` (`--pretrained`: a full DUSt3R `.pth` or a backbone-only
+  one over the model's init, missing parts left as they are, the JAX
+  `warm_start_params` / `overlay_params`).
 
 The tensors go through what `convert_torch_state_dict` does to them
 (`convert_state_dict`): `dec_blocks.*` copied into `dec_blocks2.*` when a
@@ -27,10 +33,11 @@ the dead `refinenet4.resConfUnit1` the port does not build; then
 `attn_impl`, `conv_impl`) pass through; with no `device` the model lands on
 the CUDA card (it raises without one: pass device="cpu").
 
-Two deliberate divergences from the JAX loaders: `landscape_only=True` (the
-ManyAR portrait flags) raises, since the port's forward is the
-`landscape_only=False` case; and an orbax directory raises, since it holds
-JAX trees the port cannot read without JAX.
+`landscape_only` is taken and not used, as the JAX model only stores it:
+per-sample `is_portrait` flags choose the ManyAR path. One deliberate
+divergence from the JAX loaders: an orbax directory raises, since it holds
+JAX trees the port cannot read without JAX (and training writes `.pth`
+files where JAX writes orbax directories).
 
 `state_dict_from_jax` reproduces `dust3r_tpu/checkpoint.py::to_torch_state_dict`
 name for name, in numpy: Dense `kernel.T` becomes `weight`; conv HWIO
@@ -54,7 +61,7 @@ import torch
 
 # what the port's constructor takes from an arch string or a hub config;
 # the rest of its arguments (dtype, device, ...) are the caller's overrides
-_OVERRIDES = ("dtype", "attn_impl", "conv_impl", "device", "seed")
+_OVERRIDES = ("dtype", "attn_impl", "conv_impl", "device", "seed", "remat")
 _HUB_WEIGHT_NAMES = ("model.safetensors", "pytorch_model.bin")
 # the DPT head's dead unit: real checkpoints carry it, nothing reads it
 _DEAD_UNIT = re.compile(r"^downstream_head[12]\.dpt\.scratch\.refinenet4\.resConfUnit1\.")
@@ -104,18 +111,13 @@ def parse_arch_string(arch):
     return kwargs
 
 
-def _check_landscape_only(landscape_only):
-    if landscape_only:
-        raise NotImplementedError(
-            "landscape_only=True (the ManyAR portrait flags) is not ported: the port's "
-            "forward is the landscape_only=False case (ROADMAP.md, queue A item 8)")
-
-
 def _build(kwargs, landscape_only, overrides):
+    """The module of `kwargs` and `overrides`. landscape_only (the loaders'
+    argument, and the key of an arch string or a config) is taken and
+    dropped: the model is the same either way, as in JAX."""
     from .models.model import AsymmetricCroCo3DStereo
 
-    _check_landscape_only(landscape_only)
-    kwargs.pop("landscape_only", None)  # the loaders' own argument decides
+    kwargs.pop("landscape_only", None)
     kwargs.update(overrides)
     if isinstance(kwargs.get("img_size"), int):
         kwargs["img_size"] = (kwargs["img_size"], kwargs["img_size"])
@@ -297,6 +299,49 @@ def save_torch_checkpoint(path, model, extra=None):
     loadable by this module's loaders and the JAX package's."""
     sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     torch.save(dict(arch=arch_string(model), model=sd, **(extra or {})), path)
+
+
+# ---------------------------------------------------------------------- #
+# training
+# ---------------------------------------------------------------------- #
+
+def save_train_checkpoint(path, model, optimizer, epoch, best_so_far, args):
+    """The reference's training checkpoint: {model, optimizer, epoch,
+    best_so_far, args}, host tensors. `args.model` is the arch string, so
+    `load_torch_checkpoint` / `load_model` read the file."""
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    torch.save(dict(model=sd, optimizer=optimizer.state_dict(), epoch=epoch,
+                    best_so_far=best_so_far, args=args), path)
+
+
+def load_train_checkpoint(path, model, optimizer):
+    """Resume from a `save_train_checkpoint` file: the weights and the
+    optimizer state in place; returns (epoch, best_so_far)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    model.load_state_dict(ckpt["model"], strict=True)
+    optimizer.load_state_dict(ckpt["optimizer"])
+    return ckpt.get("epoch", -1), ckpt.get("best_so_far", math.inf)
+
+
+def warm_start(path, model, verbose=True):
+    """Training's `--pretrained`: a torch `.pth` (a full DUSt3R checkpoint,
+    or a backbone-only one such as CroCo's) over the model's init. The
+    architecture is the model's (`--model`), not the file's; the file's
+    tensors, as `convert_state_dict` reads them, replace the model's where
+    they exist, the rest keep their init (the JAX `warm_start_params` /
+    `overlay_params`). A shape that differs raises."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt.get("model", ckpt)
+    own = model.state_dict()
+    converted = convert_state_dict(sd, own.keys(), verbose)
+    for k, v in converted.items():
+        if tuple(v.shape) != tuple(own[k].shape):
+            raise ValueError(f"shape mismatch for {k}: checkpoint {tuple(v.shape)} vs "
+                             f"model {tuple(own[k].shape)}")
+    model.load_state_dict(converted, strict=False)
+    if verbose:
+        print(f"warm start: {len(converted)} of {len(own)} tensors from {path}")
+    return model
 
 
 # ---------------------------------------------------------------------- #

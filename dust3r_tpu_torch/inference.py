@@ -9,6 +9,8 @@ pred1, pred2} output dict):
     (`index_select`) and runs decoder and heads;
   * predictions come back as numpy (`to_cpu=True`) or stay on the device.
 `encoder_batches` and `pair_batches` count the batches the engine ran.
+`get_pred_pts3d` and `find_opt_scaling` decode and scale predictions for
+the training losses (`dust3r_tpu/inference.py:295-369`).
 """
 from __future__ import annotations
 
@@ -176,3 +178,73 @@ def inference(pairs, model, batch_size=8, verbose=True):
         print(f">> Inference with model on {len(pairs)} image pairs")
     engine = model if hasattr(model, "infer_pairs") else InferenceEngine(model, batch_size)
     return engine.infer_pairs(pairs, verbose=verbose)
+
+
+# ---------------------------------------------------------------------- #
+# prediction decoding for the losses
+# ---------------------------------------------------------------------- #
+
+def get_pred_pts3d(gt, pred, use_pose=False):
+    """A prediction's pointmap: from depth and pseudo focal, from pts3d, or
+    pts3d_in_other_view (use_pose must then be True); with use_pose, moved
+    by pred's camera_pose."""
+    from .utils.geometry import depthmap_to_pts3d, geotrf
+
+    if "depth" in pred and "pseudo_focal" in pred:
+        pp = gt["camera_intrinsics"][..., :2, 2] if "camera_intrinsics" in gt else None
+        pts3d = depthmap_to_pts3d(pred["depth"], pred["pseudo_focal"], pp=pp)
+    elif "pts3d" in pred:
+        pts3d = pred["pts3d"]
+    elif "pts3d_in_other_view" in pred:
+        if use_pose is not True:
+            raise ValueError("pts3d_in_other_view is already in the other view's frame")
+        return pred["pts3d_in_other_view"]
+    if use_pose:
+        camera_pose = pred.get("camera_pose")
+        if camera_pose is None:
+            raise ValueError("use_pose needs pred['camera_pose']")
+        pts3d = geotrf(camera_pose, pts3d)
+    return pts3d
+
+
+def find_opt_scaling(gt_pts1, gt_pts2, pr_pts1, pr_pts2=None,
+                     fit_mode="weiszfeld_stop_grad", valid1=None, valid2=None):
+    """Per-sample scale that fits the gt points onto the predictions (fit
+    modes avg, median, weiszfeld; '_stop_grad' detaches it), clipped at
+    1e-3; invalid pixels are masked out."""
+    from .utils.geometry import masked_mean, masked_median
+
+    if not gt_pts1.dim() == pr_pts1.dim() == 4:
+        raise ValueError("want (B, H, W, 3) pointmaps")
+
+    def flat(x):
+        return x.reshape(x.shape[0], -1, 3)
+
+    def flatm(m, like):
+        if m is None:
+            return torch.ones(like.shape[0], like.shape[1] * like.shape[2], dtype=torch.bool,
+                              device=like.device)
+        return m.reshape(m.shape[0], -1)
+
+    all_gt, all_pr, mask = flat(gt_pts1), flat(pr_pts1), flatm(valid1, gt_pts1)
+    if gt_pts2 is not None:
+        all_gt = torch.cat([all_gt, flat(gt_pts2)], 1)
+        all_pr = torch.cat([all_pr, flat(pr_pts2)], 1)
+        mask = torch.cat([mask, flatm(valid2, gt_pts2)], 1)
+    dot_gt_pr = (all_pr * all_gt).sum(-1)
+    dot_gt_gt = (all_gt * all_gt).sum(-1)
+    if fit_mode.startswith("avg") or fit_mode.startswith("weiszfeld"):
+        scaling = masked_mean(dot_gt_pr, mask, dim=1) / masked_mean(dot_gt_gt, mask, dim=1)
+        if fit_mode.startswith("weiszfeld"):
+            for _ in range(10):
+                dis = (all_pr - scaling[:, None, None] * all_gt).norm(dim=-1)
+                w = 1.0 / dis.clamp(min=1e-8)
+                scaling = (masked_mean(w * dot_gt_pr, mask, dim=1)
+                           / masked_mean(w * dot_gt_gt, mask, dim=1))
+    elif fit_mode.startswith("median"):
+        scaling = masked_median(dot_gt_pr / dot_gt_gt.clamp(min=1e-12), mask, dim=1)
+    else:
+        raise ValueError(f"bad fit_mode {fit_mode}")
+    if fit_mode.endswith("stop_grad"):
+        scaling = scaling.detach()
+    return scaling.clamp(min=1e-3)

@@ -1,9 +1,14 @@
 """AsymmetricCroCo3DStereo: siamese ViT encoder, twin cross-attention
 decoders and pointmap/confidence heads.
 
-Counterpart of `dust3r_tpu/models/model.py` for inference: encode / decode
-/ head are separate methods so the inference engine encodes each unique
-image once; images are NHWC at their true orientation; params are fp32,
+Counterpart of `dust3r_tpu/models/model.py`: encode / decode / head are
+separate methods so the inference engine encodes each unique image once;
+images are NHWC at their true orientation, or, in a training batch, stored
+landscape with per-sample `is_portrait` flags (the ManyAR path: both
+patchify orientations, both head orientations, selected per sample);
+`symmetrized=True` encodes view1 only and swaps pairs for view2; `remat`
+recomputes each block's activations in the backward (torch activation
+checkpointing, memory only); params are fp32,
 the transformer body computes in `dtype` (bf16 on the card) and the heads
 in fp32. `attn_impl` and `conv_impl` pick the attention and DPT head
 paths (conv3x3, up2x and dpt_tail; None: the kernels for CUDA tensors). Submodule names are the
@@ -20,6 +25,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.rope import rope_tables
 from ..utils.device import default_device
@@ -38,7 +44,7 @@ class AsymmetricCroCo3DStereo(nn.Module):
                  head_type="linear", depth_mode=("exp", -inf, inf),
                  conf_mode: Optional[tuple] = ("exp", 1, inf),
                  dtype=torch.float32, attn_impl=None, conv_impl=None, device=None,
-                 seed=0):
+                 seed=0, remat=False):
         super().__init__()
         if not pos_embed.startswith("RoPE"):
             raise NotImplementedError(f"unsupported pos_embed {pos_embed}")
@@ -57,6 +63,7 @@ class AsymmetricCroCo3DStereo(nn.Module):
         self.depth_mode = tuple(depth_mode)
         self.conf_mode = tuple(conf_mode) if conf_mode else conf_mode
         self.dtype = dtype
+        self.remat = remat
         rope_base = float(pos_embed[len("RoPE"):])
         self.rope_base = rope_base
         self.enc_head_dim = enc_embed_dim // enc_num_heads
@@ -100,12 +107,28 @@ class AsymmetricCroCo3DStereo(nn.Module):
                 if mod.bias is not None:
                     mod.bias.zero_()
 
-    def encode(self, img):
-        """img: (B, H, W, 3) normalized -> (tokens (B, N, C), pos (B, N, 2))."""
+    def _block(self, blk, *args):
+        """blk(*args), its activations recomputed in the backward under
+        `remat` while autograd records."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(blk, *args, use_reentrant=False)
+        return blk(*args)
+
+    def encode(self, img, is_portrait=None):
+        """img: (B, H, W, 3) normalized -> (tokens (B, N, C), pos (B, N, 2)).
+
+        is_portrait: optional (B,) bool of a ManyAR batch (images stored
+        landscape, flagged samples portrait in truth): both patchify
+        orientations run and tokens and positions are selected per sample,
+        as the JAX `encode` does."""
         x, pos = self.patch_embed(img)
+        if is_portrait is not None:
+            xp, posp = self.patch_embed(img.transpose(1, 2))
+            sel = is_portrait.to(x.device)[:, None, None]
+            x, pos = torch.where(sel, xp, x), torch.where(sel, posp, pos)
         rope = rope_tables(pos, self.enc_head_dim, self.rope_base)  # for all layers
         for blk in self.enc_blocks:
-            x = blk(x, pos, rope)
+            x = self._block(blk, x, pos, rope)
         return self.enc_norm(x), pos
 
     def decode(self, f1, pos1, f2, pos2):
@@ -118,8 +141,8 @@ class AsymmetricCroCo3DStereo(nn.Module):
         rope1 = rope_tables(pos1, self.dec_head_dim, self.rope_base)  # for all layers
         rope2 = rope_tables(pos2, self.dec_head_dim, self.rope_base)
         for blk1, blk2 in zip(self.dec_blocks, self.dec_blocks2):
-            x1, x2 = (blk1(x1, x2, pos1, pos2, rope1, rope2)[0],
-                      blk2(x2, x1, pos2, pos1, rope2, rope1)[0])
+            x1, x2 = (self._block(blk1, x1, x2, pos1, pos2, rope1, rope2)[0],
+                      self._block(blk2, x2, x1, pos2, pos1, rope2, rope1)[0])
             out1.append(x1)
             out2.append(x2)
         out1[-1] = self.dec_norm(out1[-1])
@@ -132,22 +155,59 @@ class AsymmetricCroCo3DStereo(nn.Module):
         h = self.downstream_head1 if head_num == 1 else self.downstream_head2
         return h(decout, img_shape)
 
-    def forward(self, img1, img2):
+    def _head_manyar(self, head_num, decout, img_shape, is_portrait):
+        """The ManyAR head (the JAX `_head_manyar`): the head at both
+        orientations on the whole batch, the portrait result transposed back
+        to storage orientation, selected per sample."""
+        H, W = img_shape
+        res_l = self.head(head_num, decout, (H, W))
+        res_p = self.head(head_num, decout, (W, H))
+        out = {}
+        for k, land in res_l.items():
+            sel = is_portrait.to(land.device).reshape((-1,) + (1,) * (land.dim() - 1))
+            out[k] = torch.where(sel, res_p[k].transpose(1, 2), land)
+        return out
+
+    def forward(self, img1, img2, is_portrait1=None, is_portrait2=None, symmetrized=False):
         """Pair forward. img1/img2: (B, H, W, 3). Returns (res1, res2):
-        res1 = {pts3d, conf}; res2 = {pts3d_in_other_view, conf}."""
+        res1 = {pts3d, conf}; res2 = {pts3d_in_other_view, conf}.
+
+        is_portrait1/2: (B,) bool flags of a ManyAR training batch, both or
+        neither (see `encode`); outputs come back at storage orientation.
+        symmetrized: the batch is (I, J), (J, I) interleaved, so only img1
+        is encoded and view2's tokens are view1's with each pair swapped."""
         shape1, shape2 = tuple(img1.shape[1:3]), tuple(img2.shape[1:3])
-        if shape1 == shape2:  # shared-shape path: one encoder batch
-            feat, pos = self.encode(torch.cat([img1, img2]))
+        if (is_portrait1 is None) != (is_portrait2 is None):
+            raise ValueError("pass is_portrait flags for both views or neither")
+        manyar = is_portrait1 is not None
+        if symmetrized:
+            if shape1 != shape2:
+                raise ValueError("symmetrized batches share one shape")
+            f1, pos1 = self.encode(img1, is_portrait1)
+            f2, pos2 = swap_pairs(f1), swap_pairs(pos1)
+        elif shape1 == shape2:  # shared-shape path: one encoder batch
+            flags = torch.cat([is_portrait1, is_portrait2]) if manyar else None
+            feat, pos = self.encode(torch.cat([img1, img2]), flags)
             B = img1.shape[0]
             f1, f2, pos1, pos2 = feat[:B], feat[B:], pos[:B], pos[B:]
         else:
-            f1, pos1 = self.encode(img1)
-            f2, pos2 = self.encode(img2)
+            f1, pos1 = self.encode(img1, is_portrait1)
+            f2, pos2 = self.encode(img2, is_portrait2)
         dec1, dec2 = self.decode(f1, pos1, f2, pos2)
-        res1 = self.head(1, dec1, shape1)
-        res2 = self.head(2, dec2, shape2)
+        if manyar:
+            res1 = self._head_manyar(1, dec1, shape1, is_portrait1)
+            res2 = self._head_manyar(2, dec2, shape2, is_portrait2)
+        else:
+            res1 = self.head(1, dec1, shape1)
+            res2 = self.head(2, dec2, shape2)
         res2["pts3d_in_other_view"] = res2.pop("pts3d")
         return res1, res2
+
+
+def swap_pairs(t):
+    """Swap the entries of each consecutive pair along the batch axis."""
+    B = t.shape[0]
+    return t.reshape(B // 2, 2, *t.shape[1:]).flip(1).reshape(t.shape)
 
 
 # ---------------------------------------------------------------------- #

@@ -25,8 +25,14 @@ writes y in it; it reads w packed by `pack_weight`, which the model's
 * `conv3x3_kernel` is the wrapper. For a CPU tensor it returns the plain
   version; for a CUDA tensor it launches the kernel (once a call, split or
   not) or raises. `conv3x3_kernel.launches` counts kernel launches.
+* `KernelConv3x3` makes the kernel differentiable, as the JAX custom VJP
+  (`_conv3x3_pallas_diff`) does: the kernel forward, and a backward of
+  the exact fp32 transpose convs of `conv3x3_ref` (dx, dw) and the sum of
+  g (db). The packed weight is a derived buffer: it takes no gradient,
+  which goes to w.
 * `conv3x3(x, w, b, impl)` dispatches: impl None (auto: the kernel for CUDA
-  tensors, 'ref' for CPU tensors), 'ref' or 'kernel'. Nothing falls back.
+  tensors, 'ref' for CPU tensors), 'ref' or 'kernel' (through
+  `KernelConv3x3`). Nothing falls back.
 """
 from __future__ import annotations
 
@@ -197,6 +203,31 @@ def conv3x3_kernel(x, w, b=None, packed=None):
 conv3x3_kernel.launches = 0
 
 
+def conv3x3_backward(x, w, g, has_bias=True, needs=(True, True, True)):
+    """(dx, dw, db) of `conv3x3_ref(x, w, b)` at g, as the JAX custom VJP
+    computes them: g cast to x's dtype, dx and dw the exact transpose convs,
+    db the sum of g over (B, H, W) (None without a bias, or where `needs`
+    says no)."""
+    return torch.ops.aten.convolution_backward(
+        g.to(x.dtype), x, w, [w.shape[0]] if has_bias else None, [1, 1], [1, 1], [1, 1],
+        False, [0, 0], 1, [needs[0], needs[1], needs[2] and has_bias])
+
+
+class KernelConv3x3(torch.autograd.Function):
+    """`conv3x3_kernel` with `conv3x3_backward` as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, packed):
+        ctx.save_for_backward(x, w)
+        ctx.has_bias = b is not None
+        return conv3x3_kernel(x, w, b, packed)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return (*conv3x3_backward(x, w, g, ctx.has_bias, ctx.needs_input_grad[:3]), None)
+
+
 def conv3x3(x, w, b=None, impl=None, packed=None):
     """The DPT heads' 3x3 conv. impl: None (auto: the kernel for CUDA
     tensors, else 'ref'), 'ref' or 'kernel' ('kernel' on CPU tensors runs
@@ -205,7 +236,7 @@ def conv3x3(x, w, b=None, impl=None, packed=None):
     if impl is None:
         impl = "kernel" if x.is_cuda else "ref"
     if impl == "kernel":
-        return conv3x3_kernel(x, w, b, packed)
+        return KernelConv3x3.apply(x, w, b, packed)
     if impl == "ref":
         return conv3x3_ref(x, w, b)
     raise ValueError(f"conv3x3 impl {impl!r} not in {IMPLS} or None")

@@ -30,8 +30,14 @@ memory (the upsample's output), w2 (32, 128, 3, 3), b2 (32,), w3
 * `dpt_tail_kernel` is the wrapper. For CPU tensors it returns
   `dpt_tail_bf16_ref`; for CUDA tensors it launches the kernel (once a
   call) or raises. `dpt_tail_kernel.launches` counts kernel launches.
+* `KernelDptTail` makes the kernel differentiable: its backward
+  recomputes `dpt_tail_ref` (fp32: conv2, ReLU, conv3, the postprocess)
+  under autograd, as `jax.vjp` differentiates the JAX head's last lines,
+  into y, w2, b2, w3 and b3. The packed w2 is a derived buffer and takes
+  no gradient.
 * `dpt_tail(..., impl)` dispatches: impl None (auto: the kernel for CUDA
-  tensors, 'ref' for CPU tensors), 'ref' or 'kernel'. Nothing falls back.
+  tensors, 'ref' for CPU tensors), 'ref' or 'kernel' (through
+  `KernelDptTail`). Nothing falls back.
 """
 from __future__ import annotations
 
@@ -177,6 +183,33 @@ def dpt_tail_kernel(y, w2, b2, w3, b3, conf_vmin, packed=None):
 dpt_tail_kernel.launches = 0
 
 
+def dpt_tail_backward(inputs, conf_vmin, g_pts, g_conf, needs=(True,) * 5):
+    """Gradients of `dpt_tail_ref(y, w2, b2, w3, b3, conf_vmin)` at (g_pts,
+    g_conf) with respect to the five `inputs`, recomputed in fp32 under
+    autograd (None where `needs` says no)."""
+    leaves = [t.detach().requires_grad_(need) for t, need in zip(inputs, needs)]
+    with torch.enable_grad():
+        outs = dpt_tail_ref(*leaves, conf_vmin)
+    grads = iter(torch.autograd.grad(outs, [t for t in leaves if t.requires_grad],
+                                     (g_pts, g_conf)))
+    return tuple(next(grads) if t.requires_grad else None for t in leaves)
+
+
+class KernelDptTail(torch.autograd.Function):
+    """`dpt_tail_kernel` with `dpt_tail_backward` as its backward."""
+
+    @staticmethod
+    def forward(ctx, y, w2, b2, w3, b3, conf_vmin, packed):
+        ctx.save_for_backward(y, w2, b2, w3, b3)
+        ctx.conf_vmin = conf_vmin
+        return dpt_tail_kernel(y, w2, b2, w3, b3, conf_vmin, packed)
+
+    @staticmethod
+    def backward(ctx, g_pts, g_conf):
+        return (*dpt_tail_backward(ctx.saved_tensors, ctx.conf_vmin, g_pts, g_conf,
+                                   ctx.needs_input_grad[:5]), None, None)
+
+
 def dpt_tail(y, w2, b2, w3, b3, conf_vmin, impl=None, packed=None):
     """The DPT head's tail. impl: None (auto: the kernel for CUDA tensors,
     else 'ref'), 'ref' or 'kernel' ('kernel' on CPU tensors runs the
@@ -185,7 +218,7 @@ def dpt_tail(y, w2, b2, w3, b3, conf_vmin, impl=None, packed=None):
     if impl is None:
         impl = "kernel" if y.is_cuda else "ref"
     if impl == "kernel":
-        return dpt_tail_kernel(y, w2, b2, w3, b3, conf_vmin, packed)
+        return KernelDptTail.apply(y, w2, b2, w3, b3, conf_vmin, packed)
     if impl == "ref":
         return dpt_tail_ref(y, w2, b2, w3, b3, conf_vmin)
     raise ValueError(f"dpt_tail impl {impl!r} not in {IMPLS} or None")

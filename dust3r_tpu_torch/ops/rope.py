@@ -60,3 +60,15 @@ def apply_rope2d(tokens, positions, base=100.0):
     y_tok = _apply_rope1d(tokens[..., :d], cos_y, sin_y)
     x_tok = _apply_rope1d(tokens[..., d:], cos_x, sin_x)
     return torch.cat([y_tok, x_tok], dim=-1)
+
+
+def apply_rope2d_inverse(tokens, positions, base=100.0):
+    """The adjoint (and inverse) of `apply_rope2d`: each half rotated by the
+    negative angle, t·cos − rotate_half(t)·sin, with the tables in the
+    token dtype (the JAX `_apply_rope2d_inverse`)."""
+    d = tokens.shape[-1] // 2
+    halves = []
+    for c, part in enumerate((tokens[..., :d], tokens[..., d:])):
+        cos, sin = rope_cos_sin(positions[..., c], d, base, tokens.dtype)
+        halves.append(part * cos[:, None] - rotate_half(part) * sin[:, None])
+    return torch.cat(halves, dim=-1)

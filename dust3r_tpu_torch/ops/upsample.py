@@ -18,8 +18,13 @@ result.
 * `up2x_kernel` is the wrapper. For a CPU tensor it returns the plain
   version; for a CUDA tensor it launches the kernel or raises.
   `up2x_kernel.launches` counts kernel launches.
+* `KernelUp2x` makes the kernel differentiable: its backward is the
+  adjoint of the lerps, `up2x_ref` differentiated by autograd (the JAX
+  head's `upsample2x_align_corners` under `jax.vjp`). The map is linear,
+  so the backward keeps only x's shape.
 * `up2x(x, impl)` dispatches: impl None (auto: the kernel for CUDA
-  tensors, 'ref' for CPU tensors), 'ref' or 'kernel'. Nothing falls back.
+  tensors, 'ref' for CPU tensors), 'ref' or 'kernel' (through
+  `KernelUp2x`). Nothing falls back.
 """
 from __future__ import annotations
 
@@ -114,6 +119,29 @@ def up2x_kernel(x):
 up2x_kernel.launches = 0
 
 
+def up2x_backward(g):
+    """dx of `up2x_ref` at g (B, C, 2H, 2W): the adjoint of the lerps, by
+    autograd. The map is linear, so no value of x is needed."""
+    B, C, H2, W2 = g.shape
+    x = torch.zeros((B, C, H2 // 2, W2 // 2), dtype=g.dtype, device=g.device,
+                    requires_grad=True)
+    with torch.enable_grad():
+        y = up2x_ref(x)
+    return torch.autograd.grad(y, x, g)[0]
+
+
+class KernelUp2x(torch.autograd.Function):
+    """`up2x_kernel` with `up2x_backward` as its backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return up2x_kernel(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return up2x_backward(g)
+
+
 def up2x(x, impl=None):
     """The DPT heads' 2x upsample. impl: None (auto: the kernel for CUDA
     tensors, else 'ref'), 'ref' or 'kernel' ('kernel' on CPU tensors runs
@@ -121,7 +149,7 @@ def up2x(x, impl=None):
     if impl is None:
         impl = "kernel" if x.is_cuda else "ref"
     if impl == "kernel":
-        return up2x_kernel(x)
+        return KernelUp2x.apply(x)
     if impl == "ref":
         return up2x_ref(x)
     raise ValueError(f"up2x impl {impl!r} not in {IMPLS} or None")

@@ -1,5 +1,6 @@
-"""Geometry the global aligner reaches: pixel grids, rigid transforms,
-depth <-> pointmap conversion.
+"""Geometry of the global aligner and of training: pixel grids, rigid
+transforms, depth <-> pointmap conversion, masked statistics and the
+losses' pointcloud normalization.
 
 Counterpart of the parts of `dust3r_tpu/utils/geometry.py` that the aligner
 and its init use. `xy_grid`, `geotrf`, `inv` and `depthmap_to_pts3d` take
@@ -8,10 +9,16 @@ in fp32 and return numpy, as the JAX versions compute host numpy input in
 fp32 (the aligner's init calls them so). `depthmap_to_absolute_camera_coordinates`,
 `get_med_dist_between_poses`, the COLMAP / OpenCV intrinsics converters and
 visloc's `find_reciprocal_matches` are host numpy, as in the JAX package.
+Training's `closed_form_pose_inverse`, `depth_to_world_pts3d`, the masked
+reductions (`masked_mean`, `masked_median`, `masked_quantile`: dense, with
+static shapes, the same numbers as boolean indexing) and the
+normalizations (`normalize_pointcloud`, `get_joint_pointcloud_depth`,
+`get_joint_pointcloud_center_scale`) take torch tensors.
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -74,6 +81,31 @@ def geotrf(Trf, pts, ncol=None, norm=0):
 def inv(mat):
     """Invert matrices (stacked ok)."""
     return torch.linalg.inv(mat)
+
+
+def closed_form_pose_inverse(T):
+    """Invert (..., 4, 4) rigid transforms: [[Rᵀ, -Rᵀ t], [0, 1]]."""
+    R, t = T[..., :3, :3], T[..., :3, 3]
+    Rt = R.transpose(-1, -2)
+    top = torch.cat([Rt, -torch.einsum("...ij,...j->...i", Rt, t)[..., None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=T.dtype, device=T.device)
+    return torch.cat([top, bottom.expand(*T.shape[:-2], 1, 4)], dim=-2)
+
+
+def depth_to_world_pts3d(depthmap, camera_intrinsics, camera_pose):
+    """(B, H, W) depth, (B, 3, 3) K and (B, 4, 4) cam2world -> (B, H, W, 3)
+    world points in fp32, the rays from K⁻¹ (u, v, 1) (so the row-permuted K
+    of a transposed portrait view works too)."""
+    d = depthmap.float()
+    B, H, W = d.shape
+    gy, gx = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=d.device),
+                            torch.arange(W, dtype=torch.float32, device=d.device),
+                            indexing="ij")
+    uv1 = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1)
+    rays = torch.einsum("bij,hwj->bhwi", torch.linalg.inv(camera_intrinsics.float()), uv1)
+    T = camera_pose.float()
+    return (torch.einsum("bij,bhwj->bhwi", T[:, :3, :3], rays * d[..., None])
+            + T[:, None, None, :3, 3])
 
 
 def depthmap_to_pts3d(depth, pseudo_focal, pp=None):
@@ -168,3 +200,121 @@ def find_reciprocal_matches(P1, P2):
     _, nn2_in_P1 = tree1.query(P2, workers=8)
     reciprocal_in_P2 = nn1_in_P2[nn2_in_P1] == np.arange(len(nn2_in_P1))
     return reciprocal_in_P2, nn2_in_P1, int(reciprocal_in_P2.sum())
+
+
+# ---------------------------------------------------------------------- #
+# masked statistics and pointcloud normalization (training's losses)
+# ---------------------------------------------------------------------- #
+
+def masked_mean(x, mask, dim=None, eps=1e-8):
+    """Mean of x where mask, 0 where the mask is empty."""
+    mask = mask.to(x.dtype)
+    if dim is None:
+        return (x * mask).sum() / (mask.sum()).clamp(min=eps)
+    return (x * mask).sum(dim) / mask.sum(dim).clamp(min=eps)
+
+
+def _sorted_valid(x, mask, dim):
+    """x with masked-out entries at +inf, sorted along dim, and the count
+    of valid entries."""
+    filled = torch.where(mask, x, torch.full_like(x, math.inf))
+    return torch.sort(filled, dim=dim).values, mask.sum(dim)
+
+
+def masked_median(x, mask, dim=-1):
+    """Median of the valid entries along dim, the lower middle for an even
+    count (torch.nanmedian's convention)."""
+    sorted_x, n = _sorted_valid(x, mask, dim)
+    idx = (n - 1).clamp(min=0) // 2
+    return torch.take_along_dim(sorted_x, idx.unsqueeze(dim), dim).squeeze(dim)
+
+
+def masked_quantile(x, mask, q, dim=-1):
+    """Linearly interpolated quantile of the valid entries along dim."""
+    sorted_x, n = _sorted_valid(x, mask, dim)
+    pos = q * (n.to(x.dtype) - 1).clamp(min=0)
+    lo, hi = pos.floor().long(), pos.ceil().long()
+    frac = (pos - lo.to(x.dtype)).unsqueeze(dim)
+    take = lambda i: torch.take_along_dim(sorted_x, i.unsqueeze(dim), dim)  # noqa: E731
+    return (take(lo) * (1 - frac) + take(hi) * frac).squeeze(dim)
+
+
+def _flatten_pts(pts, valid):
+    B = pts.shape[0]
+    flat = pts.reshape(B, -1, 3)
+    mask = (torch.ones(flat.shape[:2], dtype=torch.bool, device=pts.device) if valid is None
+            else valid.reshape(B, -1))
+    return flat, mask
+
+
+def normalize_pointcloud(pts1, pts2=None, norm_mode="avg_dis", valid1=None, valid2=None,
+                         ret_factor=False):
+    """Divide pointmaps by one scale per sample: norm_mode '<norm>_<dis>',
+    norm in {avg, median, sqrt}, dis in {dis, log1p, warp-log1p} (avg only);
+    warp-log1p zeroes invalid points, as the reference does."""
+    norm, dis_mode = norm_mode.split("_", 1)
+    flat1, m1 = _flatten_pts(pts1, valid1)
+    if pts2 is not None:
+        flat2, m2 = _flatten_pts(pts2, valid2)
+        all_pts, all_mask = torch.cat([flat1, flat2], 1), torch.cat([m1, m2], 1)
+    else:
+        all_pts, all_mask = flat1, m1
+    dis = all_pts.norm(dim=-1)
+    if norm == "avg":
+        if dis_mode == "log1p":
+            dis = torch.log1p(dis)
+        elif dis_mode == "warp-log1p":
+            log_dis = torch.log1p(dis)
+            warp = torch.where(all_mask, log_dis / dis.clamp(min=1e-8), torch.zeros_like(dis))
+            n1 = flat1.shape[1]
+            pts1 = pts1 * warp[:, :n1].reshape(*pts1.shape[:-1], 1)
+            if pts2 is not None:
+                pts2 = pts2 * warp[:, n1:].reshape(*pts2.shape[:-1], 1)
+            dis = torch.where(all_mask, log_dis, torch.zeros_like(log_dis))
+        elif dis_mode != "dis":
+            raise ValueError(f"bad dis_mode {dis_mode}")
+        norm_factor = masked_mean(dis, all_mask, dim=1)
+    elif norm == "median":
+        norm_factor = masked_median(dis, all_mask, dim=1).detach()
+    elif norm == "sqrt":
+        norm_factor = masked_mean(dis.sqrt(), all_mask, dim=1) ** 2
+    else:
+        raise ValueError(f"bad norm mode {norm}")
+    nf = norm_factor.clamp(min=1e-8).reshape(-1, *(1,) * (pts1.dim() - 1))
+    res = pts1 / nf
+    if pts2 is not None:
+        res = (res, pts2 / nf)
+        return res + (nf,) if ret_factor else res
+    return (res, nf) if ret_factor else res
+
+
+def get_joint_pointcloud_depth(z1, z2, valid_mask1, valid_mask2=None, quantile=0.5):
+    """Joint masked median (or quantile) of two views' depths, (B,); no
+    gradient (the reference runs it under no_grad)."""
+    B = z1.shape[0]
+    _z, m = z1.reshape(B, -1), (valid_mask1.reshape(B, -1) if valid_mask1 is not None
+                                else torch.ones_like(z1.reshape(B, -1), dtype=torch.bool))
+    if z2 is not None:
+        m2 = (valid_mask2.reshape(B, -1) if valid_mask2 is not None
+              else torch.ones_like(z2.reshape(B, -1), dtype=torch.bool))
+        _z, m = torch.cat([_z, z2.reshape(B, -1)], -1), torch.cat([m, m2], -1)
+    out = masked_median(_z, m) if quantile == 0.5 else masked_quantile(_z, m, quantile)
+    return out.detach()
+
+
+def get_joint_pointcloud_center_scale(pts1, pts2=None, valid_mask1=None, valid_mask2=None,
+                                      z_only=False, center=True):
+    """Masked median centre (B, 1, 1, 3) and median distance to it
+    (B, 1, 1, 1) of the joint cloud; no gradient."""
+    flat1, m1 = _flatten_pts(pts1, valid_mask1)
+    if pts2 is not None:
+        flat2, m2 = _flatten_pts(pts2, valid_mask2)
+        _pts, m = torch.cat([flat1, flat2], 1), torch.cat([m1, m2], 1)
+    else:
+        _pts, m = flat1, m1
+    _center = masked_median(_pts.transpose(1, 2), m[:, None, :].expand(-1, 3, -1))[:, None]
+    if z_only:
+        _center = torch.cat([torch.zeros_like(_center[..., :2]), _center[..., 2:]], -1)
+    ref = _pts - _center if center else _pts
+    scale = masked_median(ref.norm(dim=-1), m, dim=1)
+    return _center[:, None].detach(), scale[:, None, None, None].detach()

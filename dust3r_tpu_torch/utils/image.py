@@ -13,7 +13,12 @@ int32 [[H, W]], idx, instance}.
 For display: `rgb` (the inverse of the normalization), `img_to_arr`, and
 `jet`, a numpy copy of matplotlib's "jet" colormap (its 256-entry table,
 indexed as a `Colormap` call indexes it) for the demo's confidence gallery.
-`imread_cv2` is not carried: it needs cv2.
+
+`imread_cv2` reads what the training loaders read, as `cv2.imread` and
+`COLOR_BGR2RGB` return it, with PIL: colour (`IMREAD_COLOR`: EXIF
+orientation applied, RGB uint8), and `IMREAD_UNCHANGED` 8-bit and 16-bit
+PNGs (uint8 / uint16, one channel or RGB). EXR files raise: the port has no
+EXR codec yet (`utils/exr.py`, ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -30,13 +35,49 @@ def normalize_img(arr):
     return (np.asarray(arr, dtype=np.float32) / 255.0 - 0.5) / 0.5
 
 
+# cv2's imread flags, by value
+IMREAD_UNCHANGED, IMREAD_GRAYSCALE, IMREAD_COLOR = -1, 0, 1
+
+
+def imread_cv2(path, options=None):
+    """An image file as `cv2.imread(path, options)` then BGR -> RGB returns
+    it, read with PIL. options: None or IMREAD_COLOR (3-channel uint8, EXIF
+    orientation applied, as cv2 applies it), IMREAD_GRAYSCALE, or
+    IMREAD_UNCHANGED (the stored depth and channels: uint8 or uint16)."""
+    import PIL.Image
+    from PIL.ImageOps import exif_transpose
+
+    flags = IMREAD_COLOR if options is None else options
+    if path.lower().endswith(".exr"):
+        raise NotImplementedError(f"{path}: EXR depth maps need utils/exr.py, not ported yet "
+                                  f"(ROADMAP.md queue A)")
+    try:
+        img = PIL.Image.open(path)
+        img.load()
+    except (OSError, ValueError) as e:
+        raise IOError(f"Could not load image={path} with options={flags}") from e
+    if flags == IMREAD_UNCHANGED:
+        if img.mode in ("I;16", "I;16B", "I"):
+            return np.asarray(img).astype(np.uint16)
+        if img.mode == "L":
+            return np.asarray(img)
+        if img.mode in ("RGB", "RGBA", "P"):  # BGR2RGB drops an alpha
+            return np.asarray(img.convert("RGB"))
+        raise ValueError(f"{path}: PIL mode {img.mode} not read")
+    img = exif_transpose(img)
+    if flags == IMREAD_GRAYSCALE:
+        return np.asarray(img.convert("L"))
+    if flags != IMREAD_COLOR:
+        raise ValueError(f"imread flags {flags} not in (-1, 0, 1)")
+    if img.mode in ("I;16", "I;16B", "I"):  # cv2 keeps the high byte
+        return np.repeat((np.asarray(img).astype(np.uint16) >> 8).astype(np.uint8)[..., None],
+                         3, axis=-1)
+    return np.asarray(img.convert("RGB"))
+
+
 def img_to_arr(img):
-    """An image array passes through; a path would go through `imread_cv2`,
-    which needs cv2 and is not carried."""
-    if isinstance(img, str):
-        raise NotImplementedError("img_to_arr of a path needs imread_cv2, which needs cv2 "
-                                  "(not carried by the port): pass the image array")
-    return img
+    """An image array passes through; a path is read by `imread_cv2`."""
+    return imread_cv2(img) if isinstance(img, str) else img
 
 
 def rgb(ftensor, true_shape=None):

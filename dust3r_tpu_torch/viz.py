@@ -57,6 +57,43 @@ def bgr_to_hsv(image):
     return np.stack([h, s, v], axis=-1).astype(np.uint8)
 
 
+# HSV2RGB's sectors: the (b, g, r) entries of (v, p, q, t) for each sixth
+_HSV_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 1, 0]])
+# cv2's uint8 HSV2RGB runs blocks of 2 vectors of fp32 lanes a row and a
+# scalar loop over the rest; the blocks truncate, the loop rounds. Its lanes
+# are its CPU dispatch's: 16 with AVX-512 (blocks of 32 pixels), 8 with AVX2
+CV2_HSV_BLOCK = 32
+
+
+def hsv_to_bgr(hsv):
+    """`cv2.cvtColor(hsv, cv2.COLOR_HSV2BGR)` on a uint8 (H, W, 3) image
+    (hue in [0, 180)), bit for bit: OpenCV's float path (s and v scaled by
+    1/255 in fp32, h by 6/180, the sector by truncation, its fused
+    multiply-adds 1 - s·h and 1 - s·(1 - h) rounded once, here from an
+    exact fp64 product), then ×255 and saturated to uint8: truncated in the
+    first W - W mod CV2_HSV_BLOCK pixels of each row (cv2's vector blocks),
+    rounded half to even in the rest (its scalar loop)."""
+    hsv = np.asarray(hsv)
+    if hsv.dtype != np.uint8 or hsv.ndim < 2 or hsv.shape[-1] != 3:
+        raise ValueError(f"expected uint8 (..., W, 3), got {hsv.dtype} {hsv.shape}")
+    f32 = np.float32
+    h = hsv[..., 0].astype(f32) * f32(6.0 / 180.0)
+    s = hsv[..., 1].astype(f32) * f32(1.0 / 255.0)
+    v = hsv[..., 2].astype(f32) * f32(1.0 / 255.0)
+    pre = np.trunc(h)
+    h = h - pre
+    sector = (pre - np.trunc(pre * f32(1.0 / 6.0)) * f32(6.0)).astype(np.int64)
+
+    def fms(a, b):  # fma(-a, b, 1): one rounding of the exact 1 - a*b
+        return (1.0 - a.astype(np.float64) * b.astype(np.float64)).astype(f32)
+
+    tab = np.stack([v, v * (f32(1.0) - s), v * fms(s, h), v * fms(s, f32(1.0) - h)], -1)
+    bgr = np.take_along_axis(tab, _HSV_SECTORS[sector], -1) * f32(255.0)
+    width = hsv.shape[-2]
+    blocked = (np.arange(width) < width - width % CV2_HSV_BLOCK)[:, None]
+    return np.clip(np.where(blocked, np.trunc(bgr), np.rint(bgr)), 0, 255).astype(np.uint8)
+
+
 def segment_sky(image):
     """Heuristic HSV sky mask (reference viz.py:345-381): an RGB image fed
     to the BGR conversion (the reference's quirk), bright low-saturation or

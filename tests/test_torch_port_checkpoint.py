@@ -349,19 +349,22 @@ def test_state_dict_is_the_committed_manifest(name, make):
 
 
 def test_orbax_directory_and_portrait_flags_raise(tmp_path):
-    """Deliberate divergences: an orbax directory holds JAX trees, and
-    landscape_only=True asks for the ManyAR portrait flags."""
+    """A deliberate divergence: an orbax directory holds JAX trees, and
+    raises. landscape_only=True, which raised before the ManyAR portrait
+    flags were ported, is now taken as JAX takes it: the model it builds is
+    the landscape_only=False one (the flags of a batch choose the path)."""
     orbax_dir = str(tmp_path / "ckpt-1")
     jckpt.save_checkpoint(orbax_dir, {"params": {"w": jnp.ones(3)}},
                           metadata={"arch": PUBLISHED["224_linear"]})
     with pytest.raises(NotImplementedError, match="save_torch_checkpoint"):
         ckpt.from_pretrained(orbax_dir, verbose=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        ckpt.model_from_arch_string(PUBLISHED["224_linear"], landscape_only=True,
-                                    device="meta")
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        ckpt.model_from_hub_config({"head_type": "linear"}, landscape_only=True,
-                                   device="meta")
+    for build, arg in ((ckpt.model_from_arch_string, PUBLISHED["224_linear"]),
+                       (ckpt.model_from_hub_config, {"head_type": "linear"})):
+        portrait, landscape = (build(arg, landscape_only=flag, device="meta")
+                               for flag in (True, False))
+        assert ckpt.arch_string(portrait) == ckpt.arch_string(landscape)
+        assert {k: v.shape for k, v in portrait.state_dict().items()} == \
+            {k: v.shape for k, v in landscape.state_dict().items()}
 
 
 def test_load_model_and_the_lazy_api(weights, tmp_path):

@@ -1,0 +1,84 @@
+"""`python -m dust3r_tpu_torch.train` end to end on the CPU: the tiny arch
+on the Co3d-layout fixture of tests/test_torch_port_train_data.py (its
+portrait sequence gives ManyAR batches), two epochs with a test set.
+
+The checkpoints come on the JAX loop's cadence (`dust3r_tpu/training.py`:
+last at each epoch's start, kept every keep_freq, best on a better test
+median, final at the end; each file's epoch is the one JAX records); a
+second run in the same directory resumes from checkpoint-last at the next
+epoch; checkpoint-final.pth loads through `load_model`.
+"""
+import json
+import os.path as osp
+import runpy
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, osp.dirname(osp.abspath(__file__)))
+
+from dust3r_tpu_torch.model import load_model  # noqa: E402
+from test_torch_port_train_data import _write_co3d  # noqa: E402
+
+ARCH = ("AsymmetricCroCo3DStereo(pos_embed='RoPE100', patch_embed_cls='ManyAR_PatchEmbed', "
+        "img_size=(64, 64), head_type='linear', output_mode='pts3d', "
+        "depth_mode=('exp', -inf, inf), conf_mode=('exp', 1, inf), enc_embed_dim=32, "
+        "enc_depth=1, enc_num_heads=2, dec_embed_dim=32, dec_depth=1, dec_num_heads=2, "
+        "landscape_only=True)")
+
+
+def _run(monkeypatch, root, out, epochs):
+    argv = ["dust3r_tpu_torch.train", "--model", ARCH,
+            "--train_dataset", f"8 @ Co3d(split='train', ROOT='{root}', resolution=[(64, 48), "
+                               f"(64, 32)], seed=3, transform=ColorJitter, mask_bg='rand')",
+            "--test_dataset", f"4 @ Co3d(split='train', ROOT='{root}', resolution=(64, 48), "
+                              f"seed=4)",
+            "--batch_size", "2", "--accum_iter", "2", "--epochs", str(epochs),
+            "--warmup_epochs", "1", "--lr", "1e-4", "--keep_freq", "1", "--print_freq", "1",
+            "--num_workers", "0", "--device", "cpu", "--output_dir", out]
+    monkeypatch.setattr(sys, "argv", argv)
+    runpy.run_module("dust3r_tpu_torch.train", run_name="__main__")
+
+
+def _ckpt(out, name):
+    return torch.load(osp.join(out, f"checkpoint-{name}.pth"), map_location="cpu",
+                      weights_only=False)
+
+
+def test_train_cli_cadence_resume_and_final(tmp_path, monkeypatch, capsys):
+    root = _write_co3d(str(tmp_path / "co3d"), 0)
+    out = str(tmp_path / "run")
+    _run(monkeypatch, root, out, 2)
+    # JAX's cadence at epochs=2, save/eval/keep every epoch: last(1), kept 1
+    # (0) and 2 (1), best (0 or 1), final (2)
+    epochs = {name: _ckpt(out, name)["epoch"] for name in ("last", "1", "2", "best", "final")}
+    assert epochs["last"] == 1 and epochs["1"] == 0 and epochs["2"] == 1
+    assert epochs["final"] == 2 and epochs["best"] in (0, 1)
+    final = _ckpt(out, "final")
+    assert set(final) == {"model", "optimizer", "epoch", "best_so_far", "args"}
+    assert np.isfinite(final["best_so_far"])
+    steps = {int(s["step"]) for s in final["optimizer"]["state"].values()}
+    assert steps == {2 * 2}  # 2 epochs x (8 pairs / (2 x 2) a step)
+    with open(osp.join(out, "log.txt")) as f:
+        log = [json.loads(line) for line in f]
+    assert [e["epoch"] for e in log] == [0, 1, 2] and "train_loss" in log[2]
+
+    model = load_model(osp.join(out, "checkpoint-final.pth"), device="cpu", verbose=False)
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, final["model"][k]), k
+    img = torch.from_numpy(np.random.default_rng(0).uniform(-1, 1, (2, 48, 64, 3))
+                           .astype(np.float32))
+    with torch.no_grad():
+        r1, r2 = model(img, img.flip(0))
+    assert torch.isfinite(r1["pts3d"]).all() and torch.isfinite(r2["conf"]).all()
+
+    # resume: a longer run in the same directory starts at epoch 2
+    capsys.readouterr()
+    _run(monkeypatch, root, out, 3)
+    printed = capsys.readouterr().out
+    assert "auto-resuming from" in printed and "Epoch: [2]" in printed
+    assert "Epoch: [0]" not in printed and "Epoch: [1]" not in printed
+    final = _ckpt(out, "final")
+    assert final["epoch"] == 3
+    assert {int(s["step"]) for s in final["optimizer"]["state"].values()} == {3 * 2}

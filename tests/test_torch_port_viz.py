@@ -12,6 +12,7 @@ exactly.
 import cv2
 import matplotlib.pyplot as pl
 import numpy as np
+import PIL.Image
 import pytest
 
 from dust3r_tpu import viz as jviz
@@ -86,7 +87,7 @@ def test_jet_is_matplotlibs():
     assert np.array_equal(image.jet(odd), cmap(odd), equal_nan=True)
 
 
-def test_rgb_and_uint8_are_the_jax_packages():
+def test_rgb_and_uint8_are_the_jax_packages(tmp_path):
     rng = np.random.default_rng(1)
     for arr in (rng.uniform(-1.2, 1.2, (5, 7, 3)).astype(np.float32),
                 rng.uniform(-1, 1, (2, 5, 7, 3)),
@@ -102,8 +103,9 @@ def test_rgb_and_uint8_are_the_jax_packages():
     for colors in (rng.uniform(0, 1, (9, 3)), rng.integers(0, 256, (9, 3))):
         assert np.array_equal(viz.uint8(colors), jviz.uint8(colors))
     assert viz.CAM_COLORS == jviz.CAM_COLORS and np.array_equal(viz.OPENGL, jviz.OPENGL)
-    with pytest.raises(NotImplementedError, match="cv2"):
-        image.img_to_arr("photo.jpg")
+    path = str(tmp_path / "photo.png")
+    PIL.Image.fromarray(rng.integers(0, 256, (5, 7, 3), dtype=np.uint8)).save(path)
+    assert np.array_equal(image.img_to_arr(path), jimage.img_to_arr(path))
     assert image.img_to_arr(pair[0]) is pair[0]
 
 
