@@ -6,7 +6,7 @@
 
 Phases (each prints its lines; a failed phase raises and the exit code is 1):
   1. device: requires CUDA; prints the card's name and power limit;
-  2. build: compiles the nine kernel sources from `dust3r_tpu_torch/csrc/`
+  2. build: compiles the ten kernel sources from `dust3r_tpu_torch/csrc/`
      (one nvcc per source, all started together, sm_90a);
   3. kernels: each kernel of the main path (fused_attention's sm90 kernel,
      conv3x3, up2x, dpt_tail) against its plain PyTorch version on the card,
@@ -46,6 +46,17 @@ Phases (each prints its lines; a failed phase raises and the exit code is 1):
      "copies", the sm90 kernel's Z within one bf16 unit of the largest Z of
      the baseline's), and qkonly's time at 64 keys beside 768 on both
      kernels;
+  3d. serving kernels: the bf16 modes of conv3x3, up2x and dpt_tail (bf16
+     x or y, fp32 sums, bf16 y out; the tail's outputs fp32) at phase 3's
+     shapes, and the int8 mode's quantize and dequant kernels
+     (`csrc/quant_int8.cu`) at the 512_dpt projections' shapes (6144
+     tokens, K, N in {768, 1024, 2304, 3072, 4096}), each against its plain
+     version (one bf16 unit of max |y| for a bf16 output, TAIL_RTOL for
+     the tail's, the quantize bit for bit), timed by CUDA-graph replay
+     beside the plain version, the library call (bf16 channels_last
+     `F.conv2d`, bf16 `F.interpolate`, the tail's bf16 chain) and the bound
+     (int8 operations at 1979 TOPS); each projection's chain (quantize,
+     `torch._int_mm`, dequant) beside bf16 `F.linear` and `_int_mm` alone;
   4. slice: `DUSt3R_ViTLarge_BaseDecoder_512_dpt` at full width (seeded random
      weights, bf16 body, fp32 heads) serves three requests through
      make_pairs -> InferenceEngine -> inference; checks outputs, the four
@@ -121,9 +132,24 @@ Phases (each prints its lines; a failed phase raises and the exit code is 1):
      lr 1e-4, the loss falls. (h) A second train(args) in the directory resumes
      at epoch 1. (i) One step of train.py's default model, 224_linear, at
      batch 8. Prints the phase's seconds.
+  9. serving: the 512_dpt at full width in the serving configuration (bf16
+     body, bf16 heads, `InferenceEngine(quantize="int8")`) serves requests
+     (a)-(c) with every launch count from 0: each kernel's launches exact
+     (the bf16 modes 19 / 5 / 1 a head, quantize and dequant once a
+     projection: 96 an encoder batch, 194 a pair batch); request (a)'s first
+     pair against the fp32 plain forward as tests/test_quant.py gates it
+     (relative L2 of pts3d within max(4x the default configuration's, 2e-2),
+     of conf within 2e-2), with the default, bf16-heads-only and int8-only
+     configurations printed beside; request (c)'s pairs/s for the default
+     and the serving configuration in turns (not gated); peak memory. Then
+     `python -m dust3r_tpu_torch.demo --serving` headless at the demo's 4
+     images on the demo phase's fitted model written as a `.pth`, and
+     `python -m dust3r_tpu_torch.visloc --serving` on the plane scene, each
+     through its `main`, its launches exact for its engine's batches.
 The visloc phase's JSON line comes before the kernels' line. The
 second-to-last line is a JSON object of the kernels, with the launches
-of the slice's run (of the variants and experiments phases for theirs); the
+of the slice's run (of the variants and experiments phases for theirs, of
+the serving phase's requests for the bf16 modes and the int8 kernels); the
 last line is {"ok": true, "device": {...}}. With
 `--kernels-only` neither line is printed. Without a CUDA device, or outside
 a checkout of the repo, it exits non-zero and prints no result.
@@ -150,7 +176,7 @@ KERNEL_RTOL = 1e-2
 PARITY_RMSE = 1e-2
 H384, H336, W = 384, 336, 512  # the 512x384 and 512x336 buckets
 SOURCES = ("fused_attention_sm90", "conv3x3", "up2x", "dpt_tail", "fused_attention",
-           "conv3x3_taps", "conv3x3_taps_mma", "dpt_post", "attention_floor")
+           "conv3x3_taps", "conv3x3_taps_mma", "dpt_post", "attention_floor", "quant_int8")
 # max abs error of conv3x3 against conv3x3_bf16_ref over max |ref|: both
 # take the same bf16-rounded operands, whose products are exact in fp32;
 # only the order of the fp32 sums differs. The same for dpt_tail against
@@ -250,6 +276,24 @@ TRAIN_ATTN_RTOL = 1e-2
 TRAIN_RTOL = 1e-3
 # the gradient parity per top-level module, bf16 kernels vs bf16 plain
 GRAD_REL_L2, GRAD_COSINE = 2e-2, 0.999
+# the serving phase. A bf16 mode's output against its plain version, both
+# rounded to bf16 once from fp32 sums taken in another order: one bf16 unit
+# of max |y| (2^-7 of it); the tail's outputs are fp32 (TAIL_RTOL)
+BF16_RTOL = 2.0 ** -7
+# the int8 projections of a request (c) (one encoder batch and two pair
+# batches of 8 images or pairs at 512x384: 6144 tokens a call): name, K, N,
+# calls
+QUANT_TOKENS = BATCH_SIZE * (H384 // 16) * (W // 16)
+QUANT_CASES = (
+    ("enc qkv", 1024, 3072, 24), ("enc proj", 1024, 1024, 24), ("enc fc1", 1024, 4096, 24),
+    ("enc fc2", 4096, 1024, 24), ("decoder_embed", 1024, 768, 4), ("dec qkv", 768, 2304, 48),
+    ("dec proj, projq, projk, projv", 768, 768, 240), ("dec fc1", 768, 3072, 48),
+    ("dec fc2", 3072, 768, 48),
+)
+# the int8 serving pointmaps against the fp32 plain forward, as
+# tests/test_quant.py gates them: relative L2 of pts3d within max(4x the
+# default bf16 body's, 2e-2), of conf within 2e-2
+QUANT_BODY_FACTOR, QUANT_FLOOR, QUANT_CONF = 4.0, 2e-2, 2e-2
 
 
 def log(msg):
@@ -775,7 +819,9 @@ def kernel_counters():
     one head a block; its mma.sync core (`core_launches`) and the core's
     launches with more than one head a block; attention_variant's sm90
     kernel and its mma.sync core (`core_launches`); attention_floor's sm90
-    floors and those of `csrc/attention_floor.cu` (`core_launches`)."""
+    floors and those of `csrc/attention_floor.cu` (`core_launches`); of
+    conv3x3's, up2x's and dpt_tail's launches, those of their bf16 modes
+    (`bf16_launches`); the int8 mode's quantize and dequant kernels."""
     from dust3r_tpu_torch.ops.attention_floors import attention_floor
     from dust3r_tpu_torch.ops.attention_variants import attention_variant
     from dust3r_tpu_torch.ops.conv3x3 import conv3x3_kernel
@@ -783,6 +829,7 @@ def kernel_counters():
     from dust3r_tpu_torch.ops.dpt_post import dpt_post_kernel
     from dust3r_tpu_torch.ops.dpt_tail import dpt_tail_kernel
     from dust3r_tpu_torch.ops.fused_attention import fused_attention
+    from dust3r_tpu_torch.ops.quant import dequant, quantize_rows
     from dust3r_tpu_torch.ops.upsample import up2x_kernel
 
     return dict(fused_attention=(fused_attention, "launches"),
@@ -798,7 +845,11 @@ def kernel_counters():
                 conv3x3_taps_mma=(tap_sums, "mma_launches"),
                 dpt_post=(dpt_post_kernel, "launches"),
                 attention_floor=(attention_floor, "launches"),
-                attention_floor_mma=(attention_floor, "core_launches"))
+                attention_floor_mma=(attention_floor, "core_launches"),
+                conv3x3_bf16=(conv3x3_kernel, "bf16_launches"),
+                up2x_bf16=(up2x_kernel, "bf16_launches"),
+                dpt_tail_bf16=(dpt_tail_kernel, "bf16_launches"),
+                quantize_rows=(quantize_rows, "launches"), dequant=(dequant, "launches"))
 
 
 def reset_launches():
@@ -816,12 +867,24 @@ def expected_launches(model, encoder_batches, pair_batches):
     streams) in every decoder layer of a pair batch, all on the sm90
     kernel (none on the mma.sync core); conv3x3 once a call, split or not;
     the DPT kernels PER_HEAD times in each of a pair batch's two
-    heads; the softmax variants and the other experiments' kernels never
+    heads, in their bf16 modes too when the heads run in bf16; with the int8
+    mode, the quantize and the dequant kernel once a projection: 4 an
+    encoder layer, 8 a decoder layer of each stream and decoder_embed
+    twice; the softmax variants and the other experiments' kernels never
     (the model does not call them)."""
+    import torch
+
+    from dust3r_tpu_torch.ops.quant import is_quantized
+
     expected = dict.fromkeys(kernel_counters(), 0)
     expected.update(fused_attention=model.enc_depth * encoder_batches
                     + 4 * model.dec_depth * pair_batches)
     expected.update({k: 2 * n * pair_batches for k, n in PER_HEAD.items()})
+    if model.head_dtype == torch.bfloat16:
+        expected.update({f"{k}_bf16": 2 * n * pair_batches for k, n in PER_HEAD.items()})
+    if is_quantized(model):
+        n = 4 * model.enc_depth * encoder_batches + (2 + 16 * model.dec_depth) * pair_batches
+        expected.update(quantize_rows=n, dequant=n)
     return expected
 
 
@@ -1854,6 +1917,390 @@ def train_phase(torch):
     return launches
 
 
+# ---------------------------------------------------------------------- #
+# phase 9: serving (--serving: bf16 body, bf16 heads, int8 block GEMMs)
+# ---------------------------------------------------------------------- #
+
+def _mode_check(name, got, ref, limit):
+    """(max abs error, that over max |ref|) of a mode's output against its
+    plain version's; raises on another shape or dtype, a value that is not
+    finite, or an error past `limit`."""
+    if not (got.shape == ref.shape and got.dtype == ref.dtype and got.float().isfinite().all()):
+        raise AssertionError(f"{name}: bad kernel output {got.dtype} {tuple(got.shape)}")
+    err, rel = _rel_err(got, ref)
+    if not rel <= limit:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version, rel err "
+                             f"{rel:.3e} > {limit:g}")
+    return err, rel
+
+
+def serving_kernel_phase(torch):
+    """The bf16 modes of conv3x3, up2x and dpt_tail at the shapes of phase
+    3, and the int8 mode's quantize and dequant kernels at QUANT_CASES, each
+    against its plain version, timed by CUDA-graph replay beside the plain
+    version, the library call (bf16 channels_last `F.conv2d`, bf16
+    `F.interpolate`, the bf16 chain of the tail: `dpt_tail_ref` on bf16 y;
+    none for the quant kernels alone) and the bound; then each projection's
+    whole chain (quantize, `torch._int_mm`, dequant) beside bf16 `F.linear`
+    and `_int_mm` alone. Returns the rows summed over one head's calls
+    (conv3x3, up2x), the head's one tail call, and request (c)'s 484
+    projections (quantize, dequant)."""
+    import torch.nn.functional as F
+
+    from dust3r_tpu_torch.ops.conv3x3 import conv3x3_bf16_ref, conv3x3_kernel, pack_weight
+    from dust3r_tpu_torch.ops.dpt_tail import (dpt_tail_bf16_ref, dpt_tail_kernel, dpt_tail_ref,
+                                               pack_w2)
+    from dust3r_tpu_torch.ops.quant import (dequant, dequant_ref, int8_matmul, quant_linear,
+                                            quant_linear_ref, quantize_linear, quantize_rows,
+                                            quantize_rows_ref)
+    from dust3r_tpu_torch.ops.upsample import up2x_kernel, up2x_ref
+    from dust3r_tpu_torch.tools.card import bound, graph_ms
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device="cuda", generator=gen)
+
+    def cl(t):
+        return t.contiguous(memory_format=torch.channels_last)
+
+    rows = dict(conv3x3_bf16=[], up2x_bf16=[], dpt_tail_bf16=[], quantize_rows=[], dequant=[])
+    for name, cin, cout, h, w, bias, count in CONV_CASES:
+        x = cl(randn(BATCH_SIZE, cin, h, w)).to(bf16)
+        wt = randn(cout, cin, 3, 3, scale=(9 * cin) ** -0.5)
+        b = randn(cout) if bias else None
+        wp = pack_weight(wt)
+        wb, bb = cl(wt.to(bf16)), None if b is None else b.to(bf16)
+        out = conv3x3_kernel(x, wt, b, packed=wp)
+        torch.cuda.synchronize()
+        err, rel = _mode_check(f"conv3x3 bf16 {name}", out, conv3x3_bf16_ref(x, wt, b),
+                                    BF16_RTOL)
+        M = BATCH_SIZE * h * w
+        t = dict(ms=graph_ms(lambda: conv3x3_kernel(x, wt, b, packed=wp)),
+                 plain_ms=graph_ms(lambda: conv3x3_bf16_ref(x, wt, b)),
+                 library_ms=graph_ms(lambda: F.conv2d(x, wb, bb, padding=1)))
+        bound_ms, bound_by = bound(2 * (M * cin + 9 * cin * cout + M * cout) + 4 * cout,
+                                   dict(bf16=2 * M * cout * 9 * cin))
+        log(f"[serving] conv3x3 bf16 {name} x{(BATCH_SIZE, cin, h, w)} -> {cout} x{count}/head: "
+            f"max_abs_err {err:.3e} rel {rel:.3e} (limit {BF16_RTOL:g}); kernel graph "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bf16 F.conv2d "
+            f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        rows["conv3x3_bf16"].append(dict(name=name, count=count, max_abs_err=err,
+                                         bound_ms=bound_ms, bound_by=bound_by, **t))
+    for name, c, h, w, count in UP2X_CASES:
+        x = cl(randn(BATCH_SIZE, c, h, w)).to(bf16)
+        out = up2x_kernel(x)
+        torch.cuda.synchronize()
+        err, rel = _mode_check(f"up2x bf16 {name}", out, up2x_ref(x), BF16_RTOL)
+
+        def library():
+            return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=True)
+
+        t = dict(ms=graph_ms(lambda: up2x_kernel(x)), plain_ms=graph_ms(lambda: up2x_ref(x)),
+                 library_ms=graph_ms(library))
+        bound_ms, bound_by = bound(5 * 2 * x.numel(), dict(fp32=6 * 4 * x.numel()))
+        log(f"[serving] up2x bf16 {name} x{(BATCH_SIZE, c, h, w)} x{count}/head: max_abs_err "
+            f"{err:.3e} rel {rel:.3e} (limit {BF16_RTOL:g}); kernel graph {t['ms']:.4f} ms "
+            f"({100 * bound_ms / t['ms']:.1f} % of the bound), plain {t['plain_ms']:.4f} ms, "
+            f"bf16 F.interpolate {t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        rows["up2x_bf16"].append(dict(name=name, count=count, max_abs_err=err,
+                                      bound_ms=bound_ms, bound_by=bound_by, **t))
+    for name, h, w, count in TAIL_CASES:
+        y = cl(randn(BATCH_SIZE, 128, h, w, scale=0.3)).to(bf16)
+        w2 = randn(32, 128, 3, 3, scale=(9 * 128) ** -0.5)
+        b2, w3, b3 = randn(32, scale=0.1), randn(4, 32, 1, 1, scale=0.2), randn(4, scale=0.1)
+        args = (y, w2, b2, w3, b3, 1.0)
+        w2p = pack_w2(w2)
+        pts, conf = dpt_tail_kernel(*args, packed=w2p)
+        torch.cuda.synchronize()
+        want = dpt_tail_bf16_ref(*args)
+        errs = [(key, *_mode_check(f"dpt_tail bf16 {name} {key}", got, ref, TAIL_RTOL))
+                for key, got, ref in (("pts3d", pts, want[0]), ("conf", conf, want[1]))]
+        del want, pts, conf
+        t = dict(ms=graph_ms(lambda: dpt_tail_kernel(*args, packed=w2p)),
+                 plain_ms=graph_ms(lambda: dpt_tail_bf16_ref(*args)),
+                 library_ms=graph_ms(lambda: dpt_tail_ref(*args)))
+        M = BATCH_SIZE * h * w
+        nbytes = 2 * M * 128 + 4 * (32 * 128 * 9 + 32 + 4 * 32 + 4 + M * 3 + M)
+        bound_ms, bound_by = bound(nbytes, dict(bf16=2 * M * 32 * 9 * 128,
+                                                fp32=M * (2 * 32 * 4 + 20)))
+        log(f"[serving] dpt_tail bf16 {name} y{(BATCH_SIZE, 128, h, w)} x{count}/head: "
+            + ", ".join(f"{k} max_abs_err {e:.3e} rel {r:.3e}" for k, e, r in errs)
+            + f" (limit {TAIL_RTOL:g}); kernel graph {t['ms']:.4f} ms "
+            f"({100 * bound_ms / t['ms']:.1f} % of the bound), plain {t['plain_ms']:.4f} ms, "
+            f"the bf16 chain (cuDNN conv2, ReLU, 1x1, fp32 postprocess) {t['library_ms']:.4f} "
+            f"ms, bound {bound_ms:.4f} ms ({bound_by})")
+        rows["dpt_tail_bf16"].append(dict(name=name, count=count,
+                                          max_abs_err=max(e for _, e, _ in errs),
+                                          bound_ms=bound_ms, bound_by=bound_by, **t))
+    T = QUANT_TOKENS
+    chain = dict(ms=0.0, library_ms=0.0, int_mm_ms=0.0, bound_ms=0.0)
+    for name, K, N, count in QUANT_CASES:
+        x = randn(T, K).to(bf16)
+        lin = torch.nn.Linear(K, N, device="cuda")
+        lin.weight.data = randn(N, K, scale=K ** -0.5)
+        lin.bias.data = randn(N, scale=0.1)
+        q = quantize_linear(lin)
+        xq, inv_r = quantize_rows(x)
+        acc = int8_matmul(xq, q.weight_q)
+        y = dequant(acc, inv_r, q.weight_scale, q.bias, bf16)
+        torch.cuda.synchronize()
+        want_q, want_inv = quantize_rows_ref(x)
+        if not (torch.equal(xq, want_q) and torch.equal(inv_r, want_inv)):
+            raise AssertionError(f"quantize {name}: {(xq != want_q).sum().item()} of xq and "
+                                 f"{(inv_r != want_inv).sum().item()} of inv_r differ from the "
+                                 f"plain version's")
+        d_err, d_rel = _mode_check(f"dequant {name}", y, dequant_ref(
+            acc, inv_r, q.weight_scale, q.bias, bf16), BF16_RTOL)
+        whole = quant_linear(x, q.weight_q, q.weight_scale, q.bias, bf16)
+        c_rel = _rel_err(whole, quant_linear_ref(x, q.weight_q, q.weight_scale, q.bias, bf16))[1]
+        lin_rel = _rel_err(whole, F.linear(x.float(), lin.weight, lin.bias))[1]
+        wb, bb = lin.weight.to(bf16), lin.bias.to(bf16)
+        tq = dict(ms=graph_ms(lambda: quantize_rows(x)),
+                  plain_ms=graph_ms(lambda: quantize_rows_ref(x)), library_ms=None)
+        td = dict(ms=graph_ms(lambda: dequant(acc, inv_r, q.weight_scale, q.bias, bf16)),
+                  plain_ms=graph_ms(lambda: dequant_ref(acc, inv_r, q.weight_scale, q.bias,
+                                                        bf16)), library_ms=None)
+        tc = dict(ms=graph_ms(lambda: quant_linear(x, q.weight_q, q.weight_scale, q.bias, bf16)),
+                  library_ms=graph_ms(lambda: F.linear(x, wb, bb)),
+                  int_mm_ms=graph_ms(lambda: int8_matmul(xq, q.weight_q)))
+        bq = bound(2 * T * K + T * K + 4 * T, {})
+        bd = bound(4 * T * N + 4 * T + 8 * N + 2 * T * N, {})
+        bc = bound(2 * T * K + N * K + 8 * N + 2 * T * N, dict(int8=2 * T * K * N))
+        log(f"[serving] int8 {name} ({T}, {K}) -> {N} x{count}/request (c): quantize "
+            f"{tq['ms']:.4f} ms (bits of the plain version's; plain {tq['plain_ms']:.4f}, bound "
+            f"{bq[0]:.4f} {bq[1]}), dequant {td['ms']:.4f} ms (rel {d_rel:.3e}; plain "
+            f"{td['plain_ms']:.4f}, bound {bd[0]:.4f} {bd[1]}); the chain {tc['ms']:.4f} ms "
+            f"(_int_mm alone {tc['int_mm_ms']:.4f}, {2 * T * K * N / tc['int_mm_ms'] / 1e9:.1f} "
+            f"TOPS; rel {c_rel:.3e} of the plain chain, {lin_rel:.3e} of fp32 F.linear) vs bf16 "
+            f"F.linear {tc['library_ms']:.4f} ms; bound {bc[0]:.4f} ms ({bc[1]})")
+        rows["quantize_rows"].append(dict(name=name, count=count, max_abs_err=0.0,
+                                          bound_ms=bq[0], bound_by=bq[1], **tq))
+        rows["dequant"].append(dict(name=name, count=count, max_abs_err=d_err,
+                                    bound_ms=bd[0], bound_by=bd[1], **td))
+        for k in ("ms", "library_ms", "int_mm_ms"):
+            chain[k] += count * tc[k]
+        chain["bound_ms"] += count * bc[0]
+        del x, xq, acc, y, whole, lin, q
+    totals = {k: summed(v) for k, v in rows.items()}
+    for k, tot in totals.items():
+        over = "request (c)'s calls" if k in ("quantize_rows", "dequant") else "one head's calls"
+        log(f"[serving] {k}, summed over {over}: kernel {tot['ms']:.4f} ms, plain "
+            f"{tot['plain_ms']:.4f} ms, library {tot['library_ms']} ms, bound "
+            f"{tot['bound_ms']:.4f} ms ({tot['bound_by']})")
+    log(f"[serving] request (c)'s 484 int8 projections: the chains {chain['ms']:.4f} ms "
+        f"(_int_mm alone {chain['int_mm_ms']:.4f}) vs bf16 F.linear {chain['library_ms']:.4f} ms; "
+        f"bound {chain['bound_ms']:.4f} ms")
+    return totals
+
+
+def _relerr(a, b):
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / (np.linalg.norm(b) + 1e-12))
+
+
+class _RecordingEngines:
+    """Within the block, every `InferenceEngine` built (as the CLIs build
+    theirs) is kept in `engines`."""
+
+    def __enter__(self):
+        import dust3r_tpu_torch.inference as inference
+
+        self.module, self.real, self.engines = inference, inference.InferenceEngine, []
+        engines, real = self.engines, self.real
+
+        class Recording(real):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, **kw)
+                engines.append(self)
+
+        inference.InferenceEngine = Recording
+        return self
+
+    def __exit__(self, *exc):
+        self.module.InferenceEngine = self.real
+
+    def expected(self):
+        """Each kernel's launches for the recorded engines' batches."""
+        total = None
+        for e in self.engines:
+            exp = expected_launches(e.model, e.encoder_batches, e.pair_batches)
+            total = exp if total is None else {k: total[k] + v for k, v in exp.items()}
+        return total
+
+
+def serving_phase(torch, fitted):
+    """The serving configuration (phase 9 of the module's docstring).
+    `fitted`: the demo phase's model (heads fitted to a plane), written as
+    the CLIs' weights file. Returns the launches of its requests."""
+    import builtins
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from dust3r_tpu_torch.checkpoint import save_torch_checkpoint
+    from dust3r_tpu_torch.demo import main as demo_main
+    from dust3r_tpu_torch.image_pairs import make_pairs
+    from dust3r_tpu_torch.inference import InferenceEngine, inference
+    from dust3r_tpu_torch.model import dust3r_512_dpt
+    from dust3r_tpu_torch.ops.quant import is_quantized
+    from dust3r_tpu_torch.utils.image import views_from_arrays
+    from dust3r_tpu_torch.visloc.cli import main as visloc_main
+
+    t_phase = time.perf_counter()
+    bf16, fp32 = torch.bfloat16, torch.float32
+    model = dust3r_512_dpt(dtype=bf16, head_dtype=bf16, device="cuda", seed=SEED)
+    model32 = dust3r_512_dpt(dtype=fp32, attn_impl="plain", conv_impl="ref", device="cuda",
+                             seed=SEED + 1)
+    model32.load_state_dict(model.state_dict())
+    default = dust3r_512_dpt(dtype=bf16, device="cuda", seed=SEED + 2)
+    default.load_state_dict(model.state_dict())
+    rng = np.random.default_rng(SEED)  # the slice phase's images
+
+    def images(*heights):
+        return views_from_arrays([rng.integers(0, 256, (h, W, 3), dtype=np.uint8)
+                                  for h in heights])
+
+    req_a = make_pairs(images(H384, H384, H384, H384), "complete", symmetrize=True)
+    req_b = make_pairs(images(H384, H384, H336, H336), "complete", symmetrize=True)
+    one = req_a[:1]
+
+    def first_pair(m):
+        return inference(one, InferenceEngine(m, batch_size=1), verbose=False)
+
+    outs = dict(fp32_plain=first_pair(model32), bf16_heads=first_pair(model))
+    del model32
+    model.head_dtype = fp32
+    outs["default"] = first_pair(model)
+    model.head_dtype = bf16
+    engine = InferenceEngine(model, batch_size=BATCH_SIZE, quantize="int8")  # in place
+    if engine.model is not model or not is_quantized(model):
+        raise AssertionError("InferenceEngine(quantize='int8') did not convert the model")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # the main path: every launch count starts at 0 here
+    t0 = time.perf_counter()
+    out_a = inference(req_a, engine, verbose=False)
+    t_a = time.perf_counter() - t0
+    out_b = inference(req_b, engine, verbose=False)
+    t0 = time.perf_counter()
+    out_c = inference(req_a, engine, verbose=False)
+    t_c = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    shapes = [[tuple(tuple(v["img"].shape[1:3]) for v in p) for p in req] for req in
+              (req_a, req_b)]
+    for name, out, pairs, sh in (("a", out_a, req_a, shapes[0]), ("b", out_b, req_b, shapes[1]),
+                                 ("c", out_c, req_a, shapes[0])):
+        _check_request(f"serving request {name}", out, len(pairs), sh)
+    expected = expected_launches(model, engine.encoder_batches, engine.pair_batches)
+    log(f"[serving] 512_dpt, bf16 body, bf16 heads, int8 block GEMMs (InferenceEngine("
+        f"quantize='int8')): request a {t_a:.3f} s (cold), request c {t_c:.3f} s, "
+        f"{len(req_a) / t_c:.3f} pairs/s; {engine.encoder_batches} encoder and "
+        f"{engine.pair_batches} pair batches; launches {launches} (expected {expected}); peak "
+        f"device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+    if launches != expected:
+        raise AssertionError(f"serving launches {launches} != {expected}: some call of the "
+                             f"serving path bypassed its kernel")
+    outs["serving"] = {side: {k: v[:1] for k, v in out_a[side].items()}
+                       for side in ("pred1", "pred2")}
+    model.head_dtype = fp32
+    outs["int8"] = first_pair(model)
+    model.head_dtype = bf16
+
+    ref = outs["fp32_plain"]
+    errs = {}
+    for cfg in ("default", "bf16_heads", "int8", "serving"):
+        errs[cfg] = dict(
+            pts3d=max(_relerr(outs[cfg]["pred1"]["pts3d"], ref["pred1"]["pts3d"]),
+                      _relerr(outs[cfg]["pred2"]["pts3d_in_other_view"],
+                              ref["pred2"]["pts3d_in_other_view"])),
+            conf=max(_relerr(outs[cfg][s]["conf"], ref[s]["conf"]) for s in ("pred1", "pred2")))
+    limit = max(QUANT_BODY_FACTOR * errs["default"]["pts3d"], QUANT_FLOOR)
+    log("[serving] relative L2 against the fp32 plain forward, request a's first pair: "
+        + "; ".join(f"{k} pts3d {v['pts3d']:.3e} conf {v['conf']:.3e}" for k, v in errs.items())
+        + f" (serving limits: pts3d {limit:.3e} = max({QUANT_BODY_FACTOR:g} x default, "
+        f"{QUANT_FLOOR:g}), conf {QUANT_CONF:g})")
+    if not (errs["serving"]["pts3d"] < limit and errs["serving"]["conf"] < QUANT_CONF):
+        raise AssertionError(f"serving pointmaps off the fp32 plain forward: {errs['serving']}")
+
+    # request (c)'s pairs/s, the default configuration and the serving one in turns
+    engine_default = InferenceEngine(default, batch_size=BATCH_SIZE)
+    inference(req_a, engine_default, verbose=False)  # warm
+    rates = dict(default=[], serving=[])
+    for cfg, eng in (("default", engine_default), ("serving", engine), ("serving", engine),
+                     ("default", engine_default)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inference(req_a, eng, verbose=False)
+        rates[cfg].append(len(req_a) / (time.perf_counter() - t0))
+    log(f"[serving] request (c) pairs/s in turns (default, serving, serving, default): "
+        f"default {rates['default']}, serving {rates['serving']} (not gated)")
+    del engine_default, default
+
+    # the CLIs with --serving, from a weights file of the demo phase's model
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        weights = os.path.join(tmp, "fitted.pth")
+        save_torch_checkpoint(weights, fitted)
+        files = demo_images(tmp)
+        outdir = os.path.join(tmp, "demo")
+        printer = builtins.print  # the demo's main stamps print; put it back after
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with _RecordingEngines() as rec:
+                demo_main(["--weights", weights, "--images", *files, "--outdir", outdir,
+                           "--serving", "--silent"])
+        finally:
+            builtins.print = printer
+        demo_s = time.perf_counter() - t0
+        launches_demo, expected_demo = read_launches(), rec.expected()
+        n_verts, recs = _read_ply(os.path.join(outdir, "scene.ply"))
+        served = rec.engines[0].model
+        log(f"[serving] demo --serving at {len(files)} images: {demo_s:.3f} s (load, inference, "
+            f"300 iterations, export); model {served.dtype} body, {served.head_dtype} heads, "
+            f"quantized {is_quantized(served)}; scene.ply {n_verts} vertices; launches "
+            f"{launches_demo} (expected {expected_demo})")
+        if not (served.head_dtype == bf16 and is_quantized(served)):
+            raise AssertionError("demo --serving did not build the serving configuration")
+        if launches_demo != expected_demo or not np.isfinite(recs["xyz"]).all():
+            raise AssertionError(f"demo --serving: launches {launches_demo} != {expected_demo} "
+                                 f"or non-finite vertices")
+        del rec, served
+
+        root = os.path.join(tmp, "plane")
+        dataset = ("__import__('dust3r_tpu_torch.tools.visloc_scenes', fromlist=['_'])."
+                   f"synthetic_dataset({root!r}, 'plane', {SEED})")
+        reset_launches()
+        t0 = time.perf_counter()
+        with _RecordingEngines() as rec:
+            visloc_main(["--dataset", dataset, "--weights", weights, "--serving",
+                         "--confidence_threshold", str(VISLOC_MODEL_CONF),
+                         "--output_dir", os.path.join(tmp, "visloc")])
+        visloc_s = time.perf_counter() - t0
+        launches_visloc, expected_visloc = read_launches(), rec.expected()
+        e = rec.engines[0]
+        log(f"[serving] visloc --serving on the plane scene: {visloc_s:.3f} s; "
+            f"{e.encoder_batches} encoder and {e.pair_batches} pair batches; launches "
+            f"{launches_visloc} (expected {expected_visloc})")
+        if not (e.model.head_dtype == bf16 and is_quantized(e.model)):
+            raise AssertionError("visloc --serving did not build the serving configuration")
+        if launches_visloc != expected_visloc or e.pair_batches == 0:
+            raise AssertionError(f"visloc --serving: launches {launches_visloc} != "
+                                 f"{expected_visloc}")
+        del rec, e
+    del engine, model
+    log(f"[serving] phase: {time.perf_counter() - t_phase:.3f} s")
+    return launches
+
+
 def main(argv):
     if not (ROOT / "dust3r_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repo (dust3r_tpu_torch/ missing)",
@@ -1872,6 +2319,7 @@ def main(argv):
     _, conv_total = conv_kernel_phase(torch)
     _, up_total = up2x_kernel_phase(torch)
     _, tail_total = tail_kernel_phase(torch)
+    serving_totals = serving_kernel_phase(torch)
     if "--kernels-only" in argv:
         return 0
     launches, engine, pairs = slice_phase(torch)
@@ -1879,6 +2327,7 @@ def main(argv):
     demo_phase(torch, engine.model, pairs)
     print(json.dumps({"visloc": visloc_phase(torch)}), flush=True)
     train_phase(torch)
+    serving_launches = serving_phase(torch, engine.model)
     # attention: the encoder's self-attention shape, read from the qkv
     # projection, on the sm90 kernel; its mma.sync core (the baseline) at
     # the same call; its grouped form: the variants phase's G = 2, 4 and 8
@@ -1895,11 +2344,16 @@ def main(argv):
     # the floors, conv3x3, up2x, dpt_tail, the tap-sum conv), else CUDA
     # events over a loop of calls. Launches: the slice's run (requests
     # (a)-(c)); the variants phase's for the variants; the conv variants,
-    # the epilogue and the floors: the experiments phase's
+    # the epilogue and the floors: the experiments phase's. The bf16 modes
+    # and the int8 kernels: the serving kernel phase's graph replays summed
+    # over one head's calls (conv3x3_bf16, up2x_bf16), the head's one tail
+    # call, request (c)'s 484 projections (quantize_rows, dequant); their
+    # launches those of the serving phase's requests (a)-(c)
     launches.update({k: variant_launches[k]
                      for k in ("fused_attention_grouped", "fused_attention_grouped_mma",
                                "attention_variant", "attention_variant_core")})
     launches.update({k: experiment_launches[k] for k in experiment_rows})
+    launches.update({k: serving_launches[k] for k in serving_totals})
     enc = attn_rows[0]
     rows = dict(
         fused_attention=dict(enc, ms=enc["graph_ms"], library_ms=enc["library_graph_ms"],
@@ -1916,7 +2370,7 @@ def main(argv):
         conv3x3=dict(conv_total, ms=conv_total["graph_ms"],
                      library_ms=conv_total["library_graph_ms"]),
         up2x=up_total, dpt_tail=tail_total,
-        **{k: summed(v) for k, v in experiment_rows.items()})
+        **{k: summed(v) for k, v in experiment_rows.items()}, **serving_totals)
     for name in ("attention_floor", "attention_floor_mma"):
         rows[name]["library_ms"] = None  # no one call computes every floor
     where = dict(
@@ -1941,7 +2395,12 @@ def main(argv):
                           "scripts/exp_convk2_r3.py:67"),
         dpt_post=("dpt_post.cu", "scripts/exp_tailk2_r2.py:52"),
         attention_floor=("fused_attention_sm90.cu", "scripts/exp_attn_r2.py:144"),
-        attention_floor_mma=("attention_floor.cu", "scripts/exp_attn_r2.py:144"))
+        attention_floor_mma=("attention_floor.cu", "scripts/exp_attn_r2.py:144"),
+        conv3x3_bf16=("conv3x3.cu", "dust3r_tpu/ops/conv3x3.py:74"),
+        up2x_bf16=("up2x.cu", "scripts/exp_up_pallas_r2.py:79"),
+        dpt_tail_bf16=("dpt_tail.cu", "scripts/exp_tailk_r2.py:78, scripts/exp_tailk2_r2.py:113"),
+        quantize_rows=("quant_int8.cu", "none: XLA in dust3r_tpu/ops/quant.py:72-81"),
+        dequant=("quant_int8.cu", "none: XLA in dust3r_tpu/ops/quant.py:85-87"))
     launches["fused_attention_mma"] = launches.pop("fused_attention_core")
     launches["attention_variant_mma"] = launches.pop("attention_variant_core")
     kernels = [dict(name=name, route="cuda", source=f"dust3r_tpu_torch/csrc/{src}",

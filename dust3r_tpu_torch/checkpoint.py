@@ -29,8 +29,9 @@ checkpoint holds one decoder, bf16 upcast to fp32, the `scratch.layer_rn.{k}`
 spelling of the DPT reassembly convs renamed, and the tensors the JAX
 converter leaves unconsumed (`mask_token`, rope buffers, ...) dropped, with
 the dead `refinenet4.resConfUnit1` the port does not build; then
-`load_state_dict(strict=True)`. Constructor overrides (`dtype`, `device`,
-`attn_impl`, `conv_impl`) pass through; with no `device` the model lands on
+`load_state_dict(strict=True)`. Constructor overrides (`dtype`,
+`head_dtype`, `device`, `attn_impl`, `conv_impl`) pass through, as the JAX
+loaders' overrides do; with no `device` the model lands on
 the CUDA card (it raises without one: pass device="cpu").
 
 `landscape_only` is taken and not used, as the JAX model only stores it:
@@ -45,7 +46,10 @@ becomes OIHW; the `_PatchExpand` kernel (in, out, s, s) is already the
 `ConvTranspose2d` layout; LayerNorm `ln.scale` / `ln.bias` become `weight` /
 `bias`. A flax DPT init has no `refinenet4.resConfUnit1` (that unit never
 receives an input) and the port does not build one; a tree converted from
-torch does carry it, and the bridge drops it.
+torch does carry it, and the bridge drops it. A tree quantized by the JAX
+`quantize_params` carries its QuantDense leaves (`kernel_q` (K, N) int8,
+`kernel_scale`, `bias`) into a quantized port module's `weight_q` (N, K)
+int8, `weight_scale` and `bias`.
 """
 from __future__ import annotations
 
@@ -61,7 +65,7 @@ import torch
 
 # what the port's constructor takes from an arch string or a hub config;
 # the rest of its arguments (dtype, device, ...) are the caller's overrides
-_OVERRIDES = ("dtype", "attn_impl", "conv_impl", "device", "seed", "remat")
+_OVERRIDES = ("dtype", "head_dtype", "attn_impl", "conv_impl", "device", "seed", "remat")
 _HUB_WEIGHT_NAMES = ("model.safetensors", "pytorch_model.bin")
 # the DPT head's dead unit: real checkpoints carry it, nothing reads it
 _DEAD_UNIT = re.compile(r"^downstream_head[12]\.dpt\.scratch\.refinenet4\.resConfUnit1\.")
@@ -349,7 +353,8 @@ def warm_start(path, model, verbose=True):
 # ---------------------------------------------------------------------- #
 
 def state_dict_from_jax(variables, enc_depth=24, dec_depth=12, head_type="linear"):
-    """flax `{"params": ...}` tree with numpy leaves -> {name: fp32 tensor}."""
+    """flax `{"params": ...}` tree with numpy leaves -> {name: tensor}: fp32,
+    and int8 for the `weight_q` of a quantized tree's QuantDense leaves."""
     params = variables["params"]
     sd = {}
 
@@ -363,6 +368,11 @@ def state_dict_from_jax(variables, enc_depth=24, dec_depth=12, head_type="linear
         return np.asarray(node(path))
 
     def linear(t, f):
+        if "kernel_q" in node(f):  # QuantDense (dust3r_tpu/ops/quant.py)
+            sd[t + ".weight_q"] = get(f + ("kernel_q",)).T
+            sd[t + ".weight_scale"] = get(f + ("kernel_scale",))
+            sd[t + ".bias"] = get(f + ("bias",))
+            return
         sd[t + ".weight"] = get(f + ("kernel",)).T
         if "bias" in node(f):
             sd[t + ".bias"] = get(f + ("bias",))
@@ -436,5 +446,6 @@ def state_dict_from_jax(variables, enc_depth=24, dec_depth=12, head_type="linear
             linear(f"{t}.proj", (t, "proj"))
         else:
             dpt_head(t, (t,))
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
+    return {k: torch.from_numpy(np.array(v, dtype=np.int8 if v.dtype == np.int8 else np.float32,
+                                         order="C"))
             for k, v in sd.items()}

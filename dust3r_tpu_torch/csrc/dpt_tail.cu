@@ -14,7 +14,9 @@
 // with fp32 sums and zero padding outside the image: the depth mode
 // ('exp', -inf, inf) and conf mode ('exp', conf_vmin, inf) of every published
 // config. W2 comes packed by the wrapper (ops/dpt_tail.py::pack_w2) as bf16
-// (9 * 128, 32), row (dy * 3 + dx) * 128 + c; w3 is (4, 32) fp32.
+// (9 * 128, 32), row (dy * 3 + dx) * 128 + c; w3 is (4, 32) fp32. In the
+// bf16 mode (the serving configuration's bf16 heads) y is bf16: the same
+// function, with nothing left to round, and half the bytes of y read.
 //
 // What bounds it on an H100: y is read once (4 * 128 bytes a pixel) and
 // 16 bytes a pixel are written; the conv is 2 * 32 * 1152 FLOPs a pixel on
@@ -73,6 +75,11 @@
 //     against w3 in shared memory, the postprocess, 16 bytes stored. No
 //     atomics: the sums run in one fixed order, so two calls give the same
 //     bits.
+// The bf16 mode: TMA loads each stage's box of bf16 y (64-byte pixel rows,
+// 64-byte swizzle: the patch's own layout) straight into a patch buffer, a
+// ring of five of them in the space of the fp32 stages and patches; the
+// rounding warpgroup's thread 0 only issues the loads, the MMA warpgroup
+// runs as in the fp32 mode.
 // Not carried over from the TPU design: the gathered 2-row halo inputs (row
 // 12) and the W-pre-padded copy of y (row 14), which answered BlockSpecs that
 // cannot overlap; here the halo is part of the TMA box.
@@ -102,24 +109,38 @@ constexpr int kRoundWarps = 4;               // warpgroup 1; its thread 0 also i
 constexpr int kThreads = 32 * (kMmaWarps + kRoundWarps);
 constexpr int kStageBytes = kBoxPix * kChunk * 4;                  // 41472, one TMA box
 constexpr int kStageStride = (kStageBytes + 1023) / 1024 * 1024;   // 128-byte swizzle: 1 KB aligned
-constexpr int kPatchBytes = kBoxPix * kChunk * 2;                  // 20736
+constexpr int kPatchBytes = kBoxPix * kChunk * 2;                  // 20736, one bf16 TMA box
+constexpr int kPatchStride = (kPatchBytes + 1023) / 1024 * 1024;   // 64-byte swizzle: 1 KB aligned
+constexpr int kRingBytes = kStages * kStageStride + 2 * kPatchStride;
+constexpr int kMaxPatches = kRingBytes / kPatchStride;             // 5, the bf16 mode's ring
 constexpr int kW2Rows = 9 * kCin;                                  // rows of 64 bytes
 constexpr int kHStride = kHid + 1;
 
+// patch buffers: 2 after the fp32 stages; in the bf16 mode the whole ring
+__host__ __device__ constexpr int patches(bool bf16) { return bf16 ? kMaxPatches : 2; }
+
 struct Smem {
-  unsigned char stage[kStages][kStageStride];
+  unsigned char ring[kRingBytes];  // the fp32 stages, then the patches (see `stage`, `patch`)
   unsigned char w2[kW2Rows * kHid * 2];
-  unsigned char patch[2][kPatchBytes];
   float hs[kMmaWarps][32][kHStride];  // an MMA warp's 32 pixels of h, two output rows at a time
   float w3[kOut * kHid];
   float b2[kHid];
   float b3[kOut];
-  uint64_t full[kStages];    // the stage's box landed (TMA bytes)
-  uint64_t patch_full[2];    // the patch buffer rounded (one arrival a rounding warp)
-  uint64_t patch_empty[2];   // its products done (one arrival an MMA warp)
+  uint64_t full[kStages];               // the stage's box landed (TMA bytes)
+  uint64_t patch_full[kMaxPatches];     // the patch buffer rounded (one arrival a rounding
+                                        // warp) or, in the bf16 mode, landed (TMA bytes)
+  uint64_t patch_empty[kMaxPatches];    // its products done (one arrival an MMA warp)
 };
 constexpr size_t kSmem = sizeof(Smem) + 1024;
 static_assert(kSmem <= 232448, "a block's shared memory on sm_90");
+
+__device__ __forceinline__ unsigned char* stage(Smem& sm, int s) {
+  return sm.ring + s * kStageStride;
+}
+template <bool kBf16>
+__device__ __forceinline__ unsigned char* patch(Smem& sm, int b) {
+  return sm.ring + (kBf16 ? 0 : kStages * kStageStride) + b * kPatchStride;
+}
 
 // 16-byte chunk q of a 64-byte row r (a patch pixel, a W2 row), swizzled
 __device__ __forceinline__ int row64(int r, int q) { return r * 64 + ((q ^ ((r >> 1) & 3)) << 4); }
@@ -218,6 +239,7 @@ __device__ __forceinline__ void products(const unsigned char* patch, const unsig
   }
 }
 
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
 dpt_tail_sm90_kernel(const __grid_constant__ CUtensorMap ymap,
                      const __nv_bfloat16* __restrict__ w2p, const float* __restrict__ b2,
@@ -227,6 +249,7 @@ dpt_tail_sm90_kernel(const __grid_constant__ CUtensorMap ymap,
   extern __shared__ unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                       ~static_cast<uintptr_t>(1023));
+  constexpr int P = patches(kBf16);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   // this block's chunks: chunk i is chunk i % 4 of its tile i / 4
@@ -234,8 +257,8 @@ dpt_tail_sm90_kernel(const __grid_constant__ CUtensorMap ymap,
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) sm90::mbar_init(&sm.full[s], 1);
-    for (int b = 0; b < 2; ++b) {
-      sm90::mbar_init(&sm.patch_full[b], kRoundWarps);
+    for (int b = 0; b < P; ++b) {
+      sm90::mbar_init(&sm.patch_full[b], kBf16 ? 1 : kRoundWarps);
       sm90::mbar_init(&sm.patch_empty[b], kMmaWarps);
     }
     sm90::fence_barrier_init();
@@ -244,26 +267,39 @@ dpt_tail_sm90_kernel(const __grid_constant__ CUtensorMap ymap,
 
   if (warp >= kMmaWarps) {  // the rounding warpgroup
     const int rt = threadIdx.x - 32 * kMmaWarps;
-    auto load = [&](int i) {  // chunk i of this block into stage i % kStages
-      const int s = i % kStages;
+    // chunk i of this block by TMA into `dst`, completing on `bar`
+    auto load = [&](int i, unsigned char* dst, uint64_t* bar, int bytes) {
       const Tile t = decode(blockIdx.x + (i / kChunks) * gridDim.x, tiles_w, tiles_img);
-      sm90::mbar_arrive_expect_tx(&sm.full[s], kStageBytes);
-      sm90::tma_load_4d(sm.stage[s], &ymap, &sm.full[s], (i % kChunks) * kChunk, t.w0 - 1,
-                        t.h0 - 1, t.img);
+      sm90::mbar_arrive_expect_tx(bar, bytes);
+      sm90::tma_load_4d(dst, &ymap, bar, (i % kChunks) * kChunk, t.w0 - 1, t.h0 - 1, t.img);
     };
+    if constexpr (kBf16) {  // nothing to round: its thread 0 feeds the patches
+      if (rt == 0) {
+        for (int i = 0; i < nchunks; ++i) {
+          const int b = i % P;
+          if (i >= P) sm90::mbar_wait(&sm.patch_empty[b], ((i / P) & 1) ^ 1);
+          load(i, patch<kBf16>(sm, b), &sm.patch_full[b], kPatchBytes);
+        }
+      }
+      return;
+    }
     if (rt == 0) {
-      for (int i = 0; i < kStages && i < nchunks; ++i) load(i);
+      for (int i = 0; i < kStages && i < nchunks; ++i) {
+        load(i, stage(sm, i), &sm.full[i], kStageBytes);
+      }
     }
     for (int i = 0; i < nchunks; ++i) {
-      const int s = i % kStages, b = i & 1;
+      const int s = i % kStages, b = i % P;
       sm90::mbar_wait(&sm.full[s], (i / kStages) & 1);
-      if (i >= 2) sm90::mbar_wait(&sm.patch_empty[b], ((i / 2) & 1) ^ 1);
-      round_stage(sm.stage[s], sm.patch[b], rt);
+      if (i >= P) sm90::mbar_wait(&sm.patch_empty[b], ((i / P) & 1) ^ 1);
+      round_stage(stage(sm, s), patch<kBf16>(sm, b), rt);
       __syncwarp();
       if (lane == 0) sm90::mbar_arrive(&sm.patch_full[b]);
       // every rounding warp is done with stage s: refill it
       sm90::named_barrier_sync(2, 32 * kRoundWarps);
-      if (rt == 0 && i + kStages < nchunks) load(i + kStages);
+      if (rt == 0 && i + kStages < nchunks) {
+        load(i + kStages, stage(sm, s), &sm.full[s], kStageBytes);
+      }
     }
     return;
   }
@@ -294,9 +330,9 @@ dpt_tail_sm90_kernel(const __grid_constant__ CUtensorMap ymap,
         for (int e = 0; e < 4; ++e) acc[r][n][e] = 0.f;
 
     for (int c = 0; c < kChunks; ++c, ++i) {
-      const int b = i & 1;
-      sm90::mbar_wait(&sm.patch_full[b], (i / 2) & 1);
-      products(sm.patch[b], sm.w2, c, warp, lane, acc);
+      const int b = i % P;
+      sm90::mbar_wait(&sm.patch_full[b], (i / P) & 1);
+      products(patch<kBf16>(sm, b), sm.w2, c, warp, lane, acc);
       __syncwarp();
       if (lane == 0) sm90::mbar_arrive(&sm.patch_empty[b]);
     }
@@ -331,7 +367,23 @@ dpt_tail_sm90_kernel(const __grid_constant__ CUtensorMap ymap,
 
 }  // namespace
 
-// y: (batch, H, W, 128) fp32, contiguous and 16-byte aligned; w2p:
+template <bool kBf16>
+int launch(const CUtensorMap& ymap, const void* w2p, const void* b2, const void* w3,
+           const void* b3, float conf_vmin, void* pts, void* conf, int H, int W, int tiles_w,
+           int tiles_img, int tiles, int grid, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      dpt_tail_sm90_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  dpt_tail_sm90_kernel<kBf16><<<grid, kThreads, kSmem, stream>>>(
+      ymap, static_cast<const __nv_bfloat16*>(w2p), static_cast<const float*>(b2),
+      static_cast<const float*>(w3), static_cast<const float*>(b3), conf_vmin,
+      static_cast<float*>(pts), static_cast<float*>(conf), H, W, tiles_w, tiles_img, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// y: (batch, H, W, 128) fp32 (bf16 = 0) or bf16 (bf16 = 1), contiguous and
+// 16-byte aligned; w2p:
 // (9 * 128, 32) bf16, 16-byte aligned; b2: (32,) fp32; w3: (4, 32) fp32;
 // b3: (4,) fp32; pts: (batch, H, W, 3) fp32; conf: (batch, H, W) fp32.
 // Launches min(tiles, SMs of the current device) persistent blocks. Returns
@@ -340,7 +392,7 @@ dpt_tail_sm90_kernel(const __grid_constant__ CUtensorMap ymap,
 // encoder); -1 for sizes it does not take.
 extern "C" int dust3r_dpt_tail(const void* y, const void* w2p, const void* b2,
                                const void* w3, const void* b3, float conf_vmin, void* pts,
-                               void* conf, int batch, int H, int W, void* stream) {
+                               void* conf, int batch, int H, int W, int bf16, void* stream) {
   if (batch <= 0 || H <= 0 || W <= 0) return -1;
   const long long tiles_w = (W + kTW - 1) / kTW;
   const long long tiles_img = tiles_w * ((H + kTH - 1) / kTH);
@@ -355,19 +407,18 @@ extern "C" int dust3r_dpt_tail(const void* y, const void* w2p, const void* b2,
   const int grid = tiles < sms ? static_cast<int>(tiles) : sms;
   CUtensorMap ymap;
   const uint64_t dims[4] = {(uint64_t)kCin, (uint64_t)W, (uint64_t)H, (uint64_t)batch};
-  const uint64_t strides[3] = {4ull * kCin, 4ull * kCin * W, 4ull * kCin * W * H};
+  const uint64_t yb = bf16 ? 2 : 4;  // bytes a value of y
+  const uint64_t strides[3] = {yb * kCin, yb * kCin * W, yb * kCin * W * H};
   const uint32_t box[4] = {kChunk, kPW, kPH, 1};
-  const int err = sm90::encode_tensor_map(&ymap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, y, dims,
-                                          strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  const int err = sm90::encode_tensor_map(
+      &ymap, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, y,
+      dims, strides, box, bf16 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != 0) return err == sm90::kNoEncoder ? err : 1000 + err;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      dpt_tail_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmem));
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  dpt_tail_sm90_kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
-      ymap, static_cast<const __nv_bfloat16*>(w2p), static_cast<const float*>(b2),
-      static_cast<const float*>(w3), static_cast<const float*>(b3), conf_vmin,
-      static_cast<float*>(pts), static_cast<float*>(conf), H, W, static_cast<int>(tiles_w),
-      static_cast<int>(tiles_img), static_cast<int>(tiles));
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int tw = static_cast<int>(tiles_w), ti = static_cast<int>(tiles_img);
+  const int nt = static_cast<int>(tiles);
+  return bf16 ? launch<true>(ymap, w2p, b2, w3, b3, conf_vmin, pts, conf, H, W, tw, ti, nt,
+                             grid, s)
+              : launch<false>(ymap, w2p, b2, w3, b3, conf_vmin, pts, conf, H, W, tw, ti, nt,
+                              grid, s);
 }

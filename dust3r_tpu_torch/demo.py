@@ -15,8 +15,10 @@ JAX package does. `gradio` is imported only inside the UI functions.
     python -m dust3r_tpu_torch.demo --weights ckpt.pth --images a.jpg b.jpg c.jpg \\
         --outdir out                                                  # headless
 
-`--quantize`, `--serving` (int8 serving, ROADMAP.md queue A item 9) and
-`--mesh` (data parallel over cards, item 10) are not ported and raise.
+`--quantize int8` runs the transformer's projections on int8 operands
+(`ops/quant.py`); `--serving` is the JAX package's serving configuration:
+bf16 body, bf16 heads and `--quantize int8`. `--mesh` (data parallel over
+cards, ROADMAP.md queue A item 10) is not ported and raises.
 """
 from __future__ import annotations
 
@@ -60,9 +62,11 @@ def get_args_parser():
     parser.add_argument("--mesh", type=int, default=0,
                         help="shard inference over this many devices (not ported)")
     parser.add_argument("--quantize", type=str, default=None, choices=["int8"],
-                        help="int8 serving mode (not ported)")
+                        help="int8 serving mode: the transformer's projections on int8 "
+                             "operands (ops/quant.py)")
     parser.add_argument("--serving", action="store_true",
-                        help="int8 block GEMMs and bf16 heads (not ported)")
+                        help="the serving configuration: bf16 body, bf16 heads and "
+                             "--quantize int8")
     parser.add_argument("--tmp_dir", type=str, default=None)
     parser.add_argument("--silent", action="store_true", default=False)
     parser.add_argument("--images", type=str, nargs="+", default=None,
@@ -322,9 +326,6 @@ def main(argv=None):
     the engine, then serve the UI (or, with --images, reconstruct once
     without it)."""
     args = get_args_parser().parse_args(argv)
-    if args.quantize or args.serving:
-        raise NotImplementedError("--quantize / --serving (int8 serving) are not ported "
-                                  "(ROADMAP.md, queue A item 9)")
     if args.mesh:
         raise NotImplementedError("--mesh (inference over several cards) is not ported "
                                   "(ROADMAP.md, queue A item 10)")
@@ -335,13 +336,11 @@ def main(argv=None):
     server_name = args.server_name or ("0.0.0.0" if args.local_network else "127.0.0.1")
 
     from .checkpoint import from_pretrained
-    from .inference import InferenceEngine
+    from .inference import InferenceEngine, serving_overrides
 
-    # the card runs the transformer body in bf16 (its kernels' type), fp32 on the CPU
-    dtype = torch.bfloat16 if torch.device(args.device).type == "cuda" else torch.float32
     model = from_pretrained(args.weights or "naver/" + args.model_name, device=args.device,
-                            dtype=dtype, verbose=not args.silent)
-    engine = InferenceEngine(model)
+                            verbose=not args.silent, **serving_overrides(args))
+    engine = InferenceEngine(model, quantize=args.quantize)
     if args.images is not None:
         filelist = args.images[0] if len(args.images) == 1 and os.path.isdir(args.images[0]) \
             else args.images

@@ -7,7 +7,10 @@ pred1, pred2} output dict):
   * pairs are grouped by (shape1, shape2) bucket and padded to a fixed
     batch size; each batch gathers its features on the device
     (`index_select`) and runs decoder and heads;
-  * predictions come back as numpy (`to_cpu=True`) or stay on the device.
+  * predictions come back as numpy (`to_cpu=True`) or stay on the device;
+  * `quantize="int8"` converts the model to the int8 serving mode
+    (`ops/quant.py`) at construction, in place, unless it already holds
+    `QuantLinear`s.
 `encoder_batches` and `pair_batches` count the batches the engine ran.
 `get_pred_pts3d` and `find_opt_scaling` decode and scale predictions for
 the training losses (`dust3r_tpu/inference.py:295-369`).
@@ -31,7 +34,15 @@ def _pad_batch(arrs, bs):
 class InferenceEngine:
     """Two-view inference over a scene graph with an AsymmetricCroCo3DStereo."""
 
-    def __init__(self, model, batch_size=8):
+    def __init__(self, model, batch_size=8, quantize=None):
+        """quantize: None or "int8" (any other value raises, as in JAX)."""
+        if quantize is not None:
+            if quantize != "int8":
+                raise ValueError(f"unsupported quantize mode {quantize!r}")
+            from .ops.quant import is_quantized, quantize_for_inference
+
+            if not is_quantized(model):
+                quantize_for_inference(model)
         self.model = model.eval()
         self.batch_size = batch_size
         self.device = next(model.parameters()).device
@@ -129,6 +140,19 @@ class InferenceEngine:
                 pred2[n] = {k: v[m] for k, v in bucket2.items()}
 
         return collate_inference_output(pairs, pred1, pred2, True, numpy=to_cpu)
+
+
+def serving_overrides(args):
+    """The model's dtypes for the CLI's flags: the card runs the transformer
+    body in bf16 (its kernels' type), the CPU in fp32; `--serving` sets the
+    body and the heads to bf16 and `args.quantize` to "int8", as the JAX
+    CLIs do."""
+    on_card = torch.device(args.device).type == "cuda"
+    overrides = dict(dtype=torch.bfloat16 if on_card else torch.float32)
+    if args.serving:
+        overrides.update(dtype=torch.bfloat16, head_dtype=torch.bfloat16)
+        args.quantize = args.quantize or "int8"
+    return overrides
 
 
 def _collate_views(views, multiple_shapes, numpy=True):

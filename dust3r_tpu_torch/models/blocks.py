@@ -9,7 +9,10 @@ tensor names. Conventions kept from the JAX package:
     (3, heads, head_dim); cross-attention has projq/projk/projv;
   * `dtype` is the compute dtype of the projections; params stay fp32.
 Casts are explicit (no autocast) so an fp32 run has the bf16 run's
-structure.
+structure. In the int8 serving mode `ops.quant.quantize_for_inference`
+swaps the projections (`qkv`, `proj`, `projq`, `projk`, `projv`, `fc1`,
+`fc2`) for `QuantLinear`s under the same names, so the state dict reads
+`...qkv.weight_q`; the blocks call them as they call a `Linear`.
 """
 from __future__ import annotations
 

@@ -2,7 +2,10 @@
 
 Counterpart of `dust3r_tpu/models/heads.py`, with the reference's torch
 tensor names (`proj`, `dpt.act_postprocess.*`, `dpt.scratch.*`,
-`dpt.head.*`). Heads run in fp32 on fp32 tokens; the DPT trunk's tensors
+`dpt.head.*`). Heads compute in the dtype of the tokens they are given
+(the model's `head_dtype`: fp32 by default, bf16 in the serving
+configuration; every conv casts its weights to it, as the JAX heads run at
+their `dtype`), and the postprocess always in fp32. The DPT trunk's tensors
 are NCHW-shaped in `torch.channels_last` memory (NHWC, the layout of the
 JAX heads and of the kernels; the tokens reshape into it with no copy).
 Three dispatchers carry it, each to its CUDA kernel for CUDA tensors by
@@ -11,7 +14,7 @@ through `ops/conv3x3.py`, its five 2x upsamples `Upsample2x` modules
 through `ops/upsample.py`, and its tail (the last 3x3 conv, the ReLU, the
 1x1 conv and the postprocess) is one `ops/dpt_tail.py` call that reads the
 `dpt.head.2` and `dpt.head.4` modules' weights. The model's `conv_impl`
-goes to all three.
+goes to all three; each takes fp32 or bf16 (the kernels' bf16 modes).
 """
 from __future__ import annotations
 
@@ -66,10 +69,32 @@ def postprocess(fmap, depth_mode: Mode, conf_mode):
     return res
 
 
+class Conv2d(nn.Conv2d):
+    """`nn.Conv2d` computed in its input's dtype (weight and bias cast to
+    it): the DPT head's 1x1 and stride-2 convs, on cuDNN."""
+
+    def forward(self, x):
+        dt = x.dtype
+        return self._conv_forward(x, self.weight.to(dt),
+                                  None if self.bias is None else self.bias.to(dt))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """`nn.ConvTranspose2d` (kernel = stride, no padding) computed in its
+    input's dtype, on cuDNN."""
+
+    def forward(self, x):
+        dt = x.dtype
+        return F.conv_transpose2d(x, self.weight.to(dt),
+                                  None if self.bias is None else self.bias.to(dt),
+                                  self.stride, self.padding, self.output_padding, self.groups,
+                                  self.dilation)
+
+
 class LinearPts3d(nn.Module):
-    """Per-token linear projection to a (patch x patch) block of 3D points;
-    the JAX rearrange 'b (h w) (c ph pw) -> b (h ph) (w pw) c' is a
-    pixel_shuffle."""
+    """Per-token linear projection to a (patch x patch) block of 3D points,
+    in the tokens' dtype, then upcast to fp32 for the postprocess; the JAX
+    rearrange 'b (h w) (c ph pw) -> b (h ph) (w pw) c' is a pixel_shuffle."""
 
     def __init__(self, patch_size, depth_mode, conf_mode, has_conf=True,
                  dim_in=768):
@@ -82,7 +107,9 @@ class LinearPts3d(nn.Module):
     def forward(self, decout, img_shape):
         H, W = img_shape
         p = self.patch_size
-        feat = self.proj(decout[-1].float())  # (B, S, nch*p*p)
+        x = decout[-1]
+        feat = F.linear(x, self.proj.weight.to(x.dtype),
+                        self.proj.bias.to(x.dtype)).float()  # (B, S, nch*p*p)
         B = feat.shape[0]
         feat = feat.transpose(1, 2).reshape(B, -1, H // p, W // p)
         feat = F.pixel_shuffle(feat, p).permute(0, 2, 3, 1)
@@ -158,7 +185,7 @@ class FeatureFusionBlock(nn.Module):
         if has_residual:
             self.resConfUnit1 = ResidualConvUnit(features, conv_impl)
         self.resConfUnit2 = ResidualConvUnit(features, conv_impl)
-        self.out_conv = nn.Conv2d(features, features, 1)
+        self.out_conv = Conv2d(features, features, 1)
         self.upsample = Upsample2x(conv_impl)
 
     def forward(self, x, res=None):
@@ -198,19 +225,17 @@ class DPTOutputAdapter(nn.Module):
         self._packed_w2 = None  # (weight version, data_ptr, device), pack_w2(head[2].weight)
         l0, l1, l2, l3 = layer_dims
         self.act_postprocess = nn.ModuleList([
-            nn.Sequential(nn.Conv2d(dim_tokens[0], l0, 1),
-                          nn.ConvTranspose2d(l0, l0, 4, stride=4)),
-            nn.Sequential(nn.Conv2d(dim_tokens[1], l1, 1),
-                          nn.ConvTranspose2d(l1, l1, 2, stride=2)),
-            nn.Sequential(nn.Conv2d(dim_tokens[2], l2, 1)),
-            nn.Sequential(nn.Conv2d(dim_tokens[3], l3, 1),
-                          nn.Conv2d(l3, l3, 3, stride=2, padding=1)),
+            nn.Sequential(Conv2d(dim_tokens[0], l0, 1), ConvTranspose2d(l0, l0, 4, stride=4)),
+            nn.Sequential(Conv2d(dim_tokens[1], l1, 1), ConvTranspose2d(l1, l1, 2, stride=2)),
+            nn.Sequential(Conv2d(dim_tokens[2], l2, 1)),
+            nn.Sequential(Conv2d(dim_tokens[3], l3, 1),
+                          Conv2d(l3, l3, 3, stride=2, padding=1)),
         ])
         self.scratch = _Scratch(layer_dims, feature_dim, conv_impl)
         self.head = nn.Sequential(
             Conv3x3(feature_dim, feature_dim // 2, impl=conv_impl), Upsample2x(conv_impl),
             Conv3x3(feature_dim // 2, 32, impl=conv_impl), nn.ReLU(),
-            nn.Conv2d(32, nch, 1))
+            Conv2d(32, nch, 1))
 
     def forward(self, decout, img_shape, patch_size):
         nh, nw = img_shape[0] // patch_size, img_shape[1] // patch_size
@@ -234,10 +259,10 @@ class DPTOutputAdapter(nn.Module):
         return _kept_packing(self, "_packed_w2", self.head[2].weight, pack_w2)
 
     def tail(self, y):
-        """head[2:] and the postprocess on y (B, 128, H, W): one dpt_tail
-        call with the weights of head[2] (3x3, 128 -> 32) and head[4] (1x1,
-        32 -> 4). Modes the tail kernel does not take run the modules
-        themselves, and raise where the kernel was asked for."""
+        """head[2:] and the postprocess on y (B, 128, H, W), fp32 or bf16:
+        one dpt_tail call with the weights of head[2] (3x3, 128 -> 32) and
+        head[4] (1x1, 32 -> 4). Modes the tail kernel does not take run the
+        modules themselves, and raise where the kernel was asked for."""
         if self.conf_vmin is not None:
             conv2, conv3 = self.head[2], self.head[4]
             args = (y, conv2.weight, conv2.bias, conv3.weight, conv3.bias, self.conf_vmin,
@@ -251,7 +276,7 @@ class DPTOutputAdapter(nn.Module):
             raise ValueError(f"the dpt_tail kernel takes depth mode ('exp', -inf, inf) and "
                              f"conf mode ('exp', vmin, inf), not {self.depth_mode} and "
                              f"{self.conf_mode}; conv_impl='ref' runs any mode")
-        out = self.head[2:](y).permute(0, 2, 3, 1)  # NHWC
+        out = self.head[2:](y).float().permute(0, 2, 3, 1)  # NHWC, postprocess in fp32
         return postprocess(out, self.depth_mode, self.conf_mode)
 
 
@@ -269,7 +294,7 @@ class DPTHead(nn.Module):
                                     conf_mode if has_conf else None, conv_impl=conv_impl)
 
     def forward(self, decout, img_shape):
-        return self.dpt([t.float() for t in decout], img_shape, self.patch_size)
+        return self.dpt(decout, img_shape, self.patch_size)
 
 
 def head_factory(head_type, output_mode, *, patch_size, dec_depth, depth_mode,

@@ -10,7 +10,11 @@ patchify orientations, both head orientations, selected per sample);
 recomputes each block's activations in the backward (torch activation
 checkpointing, memory only); params are fp32,
 the transformer body computes in `dtype` (bf16 on the card) and the heads
-in fp32. `attn_impl` and `conv_impl` pick the attention and DPT head
+in `head_dtype` (fp32, the parity default; bf16 in the serving
+configuration, `--serving`), their postprocess in fp32. The int8 serving
+mode swaps the body's projections for `ops.quant.QuantLinear`
+(`quantize_for_inference`, `InferenceEngine(quantize="int8")`).
+`attn_impl` and `conv_impl` pick the attention and DPT head
 paths (conv3x3, up2x and dpt_tail; None: the kernels for CUDA tensors). Submodule names are the
 reference's torch tensor names, so
 `checkpoint.state_dict_from_jax` output loads with `load_state_dict`.
@@ -43,8 +47,8 @@ class AsymmetricCroCo3DStereo(nn.Module):
                  mlp_ratio=4.0, pos_embed="RoPE100", output_mode="pts3d",
                  head_type="linear", depth_mode=("exp", -inf, inf),
                  conf_mode: Optional[tuple] = ("exp", 1, inf),
-                 dtype=torch.float32, attn_impl=None, conv_impl=None, device=None,
-                 seed=0, remat=False):
+                 dtype=torch.float32, head_dtype=torch.float32, attn_impl=None,
+                 conv_impl=None, device=None, seed=0, remat=False):
         super().__init__()
         if not pos_embed.startswith("RoPE"):
             raise NotImplementedError(f"unsupported pos_embed {pos_embed}")
@@ -63,6 +67,7 @@ class AsymmetricCroCo3DStereo(nn.Module):
         self.depth_mode = tuple(depth_mode)
         self.conf_mode = tuple(conf_mode) if conf_mode else conf_mode
         self.dtype = dtype
+        self.head_dtype = head_dtype
         self.remat = remat
         rope_base = float(pos_embed[len("RoPE"):])
         self.rope_base = rope_base
@@ -150,8 +155,9 @@ class AsymmetricCroCo3DStereo(nn.Module):
         return out1, out2
 
     def head(self, head_num, decout, img_shape):
-        """Downstream head `head_num` (1 or 2), in fp32."""
-        decout = [t.float() for t in decout]
+        """Downstream head `head_num` (1 or 2), in `head_dtype` (the
+        postprocess in fp32)."""
+        decout = [t.to(self.head_dtype) for t in decout]
         h = self.downstream_head1 if head_num == 1 else self.downstream_head2
         return h(decout, img_shape)
 

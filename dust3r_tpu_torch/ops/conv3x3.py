@@ -12,19 +12,22 @@ partial sums, so it rounds less, never more.
 Layouts are PyTorch's: x is (B, Cin, H, W), w is `nn.Conv2d`'s
 (Cout, Cin, 3, 3), b is (Cout,) or None. The kernel reads x in
 `torch.channels_last` memory (NHWC, the layout of the JAX function) and
-writes y in it; it reads w packed by `pack_weight`, which the model's
-`Conv3x3` modules do once per version of their weight.
+writes y in it, in x's dtype: fp32, or bf16 (the bf16 mode of the serving
+configuration's bf16 heads: x read as it is, the sums and the bias in
+fp32, y rounded once); it reads w packed by `pack_weight`, which the
+model's `Conv3x3` modules do once per version of their weight.
 
-* `conv3x3_ref` is fp32 `F.conv2d`, the counterpart of the JAX
+* `conv3x3_ref` is `F.conv2d` in x's dtype, the counterpart of the JAX
   `conv3x3_ref`.
 * `conv3x3_bf16_ref` is the kernel's plain version: `F.conv2d` in fp32 on
-  bf16-rounded x and w, plus the bias. The CPU tests and the card-side
-  comparison use it.
+  bf16-rounded x and w, plus the bias, rounded once to x's dtype. The CPU
+  tests and the card-side comparison use it.
 * `plan` is the launch's shape: output channels a block and how many
   blocks a tile splits the reduction over.
 * `conv3x3_kernel` is the wrapper. For a CPU tensor it returns the plain
   version; for a CUDA tensor it launches the kernel (once a call, split or
-  not) or raises. `conv3x3_kernel.launches` counts kernel launches.
+  not) or raises. `conv3x3_kernel.launches` counts kernel launches,
+  `conv3x3_kernel.bf16_launches` those of the bf16 mode.
 * `KernelConv3x3` makes the kernel differentiable, as the JAX custom VJP
   (`_conv3x3_pallas_diff`) does: the kernel forward, and a backward of
   the exact fp32 transpose convs of `conv3x3_ref` (dx, dw) and the sum of
@@ -46,19 +49,20 @@ CHANNEL_MULTIPLE = 32  # the kernel's k-tile (Cin) and narrowest n-tile (Cout)
 
 
 def conv3x3_ref(x, w, b=None):
-    """Plain conv in x's dtype (fp32 on the heads' path)."""
+    """Plain conv in x's dtype (fp32 on the heads' path, bf16 in bf16 heads)."""
     return F.conv2d(x, w.to(x.dtype), None if b is None else b.to(x.dtype), padding=1)
 
 
 def conv3x3_bf16_ref(x, w, b=None):
     """The kernel's function in plain PyTorch: x and w rounded to bf16, the
-    conv in fp32 (bf16 products are exact in fp32), then the bias."""
+    conv in fp32 (bf16 products are exact in fp32), then the bias; y
+    rounded once to x's dtype."""
     xr = x.to(torch.bfloat16).float()
     wr = w.to(torch.bfloat16).float()
     y = F.conv2d(xr, wr, padding=1)
     if b is not None:
         y = y + b.float()[:, None, None]
-    return y
+    return y.to(x.dtype)
 
 
 _LIB = None
@@ -77,7 +81,7 @@ def _kernel():
         from ._build import load_library
 
         fn = load_library("conv3x3").dust3r_conv3x3
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LIB = fn
     return _LIB
@@ -122,10 +126,10 @@ def plan(B, H, W, cin, cout, sms):
 def _check(x, w, b):
     if not (x.is_cuda and w.device == x.device and (b is None or b.device == x.device)):
         raise ValueError("x, w and b must lie on one CUDA device")
-    if x.dtype != torch.float32 or w.dtype != torch.float32 or (
+    if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != torch.float32 or (
             b is not None and b.dtype != torch.float32):
-        raise TypeError(f"conv3x3 kernel takes fp32 x, w, b, got {x.dtype}, {w.dtype}, "
-                        f"{None if b is None else b.dtype}")
+        raise TypeError(f"conv3x3 kernel takes fp32 or bf16 x and fp32 w, b, got {x.dtype}, "
+                        f"{w.dtype}, {None if b is None else b.dtype}")
     if x.dim() != 4 or w.dim() != 4 or w.shape[2:] != (3, 3) or w.shape[1] != x.shape[1]:
         raise ValueError(f"want x (B, Cin, H, W) and w (Cout, Cin, 3, 3), got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
@@ -164,10 +168,10 @@ def _counters(device):
 
 
 def conv3x3_kernel(x, w, b=None, packed=None):
-    """x (B, Cin, H, W) fp32 channels_last, w (Cout, Cin, 3, 3) fp32, b
-    (Cout,) fp32 or None -> y (B, Cout, H, W) fp32 channels_last. packed:
-    `pack_weight(w)` when the caller keeps it (the kernel reads it), else
-    packed here."""
+    """x (B, Cin, H, W) fp32 or bf16 channels_last, w (Cout, Cin, 3, 3)
+    fp32, b (Cout,) fp32 or None -> y (B, Cout, H, W) channels_last in x's
+    dtype. packed: `pack_weight(w)` when the caller keeps it (the kernel
+    reads it), else packed here."""
     if x.device.type == "cpu":
         return conv3x3_bf16_ref(x, w, b)
     _check(x, w, b)
@@ -184,23 +188,26 @@ def conv3x3_kernel(x, w, b=None, packed=None):
                          dtype=torch.float32)
         counters = _counters(x.device)
     bias = None if b is None else b.contiguous()
-    y = torch.empty((B, cout, H, W), device=x.device, dtype=torch.float32,
+    y = torch.empty((B, cout, H, W), device=x.device, dtype=x.dtype,
                     memory_format=torch.channels_last)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _kernel()(x.data_ptr(), wp.data_ptr(), None if bias is None else bias.data_ptr(),
                         y.data_ptr(), None if ws is None else ws.data_ptr(),
                         None if counters is None else counters.data_ptr(),
-                        B, H, W, cin, cout, bn, splits, stream)
+                        B, H, W, cin, cout, bn, splits, int(x.dtype == torch.bfloat16),
+                        stream)
     if err != 0:
         raise RuntimeError(f"conv3x3 kernel launch failed: error {err} (x {tuple(x.shape)}, "
                            f"Cout {cout}, {bn} channels a block, {splits} splits; above 1000: "
                            f"1000 + the CUresult of encoding a tensor map)")
     conv3x3_kernel.launches += 1
+    conv3x3_kernel.bf16_launches += int(x.dtype == torch.bfloat16)
     return y
 
 
 conv3x3_kernel.launches = 0
+conv3x3_kernel.bf16_launches = 0  # of them, the bf16 mode's
 
 
 def conv3x3_backward(x, w, g, has_bias=True, needs=(True, True, True)):

@@ -12,24 +12,28 @@ taps from that one patch by ldmatrix into mma.sync, then applies the ReLU,
 the 1x1 and the postprocess to each pixel in shared memory; its header
 says what bounds it on the card and how the design answers that).
 Like conv3x3 it rounds y and w2 to bf16 and sums in fp32; the rest is fp32.
+y may be bf16 (the bf16 mode, the serving configuration's bf16 heads): the
+same function, y read as it is, half its bytes.
 
 It serves the depth mode ('exp', -inf, inf) and a conf mode ('exp',
 conf_vmin, inf), those of every published config (`kernel_conf_vmin`
 tells). Layouts are PyTorch's: y is (B, 128, H, W) in `torch.channels_last`
-memory (the upsample's output), w2 (32, 128, 3, 3), b2 (32,), w3
+memory (the upsample's output), fp32 or bf16, w2 (32, 128, 3, 3), b2 (32,), w3
 (4, 32, 1, 1), b3 (4,); the results are pts3d (B, H, W, 3) and conf
 (B, H, W), contiguous fp32, as the JAX head returns them.
 
-* `dpt_tail_ref` is fp32 throughout (`F.conv2d`, ReLU, the 1x1, the
-  postprocess), the counterpart of the script's `tail_xla` and of the JAX
-  head's last lines.
+* `dpt_tail_ref` runs in y's dtype (`F.conv2d`, ReLU, the 1x1) with the
+  postprocess in fp32: fp32 throughout for fp32 y, the counterpart of the
+  script's `tail_xla` and of the JAX head's last lines; for bf16 y the JAX
+  bf16 head's chain (`heads.py:369-375`).
 * `dpt_tail_bf16_ref` is the kernel's function in plain PyTorch: y and w2
   rounded to bf16, everything else fp32.
 * `pack_w2` is the kernel's packing of w2 (`unpack_w2` inverts it); the
   model's `DPTOutputAdapter` keeps it once per version of the weight.
 * `dpt_tail_kernel` is the wrapper. For CPU tensors it returns
   `dpt_tail_bf16_ref`; for CUDA tensors it launches the kernel (once a
-  call) or raises. `dpt_tail_kernel.launches` counts kernel launches.
+  call) or raises. `dpt_tail_kernel.launches` counts kernel launches,
+  `dpt_tail_kernel.bf16_launches` those of the bf16 mode.
 * `KernelDptTail` makes the kernel differentiable: its backward
   recomputes `dpt_tail_ref` (fp32: conv2, ReLU, conv3, the postprocess)
   under autograd, as `jax.vjp` differentiates the JAX head's last lines,
@@ -74,14 +78,16 @@ def _postprocess(o4, conf_vmin):
 
 
 def dpt_tail_ref(y, w2, b2, w3, b3, conf_vmin):
-    """The tail in fp32: conv2 + b2, ReLU, conv3 + b3, postprocess."""
-    h = F.relu(F.conv2d(y, w2, b2, padding=1))
-    return _postprocess(F.conv2d(h, w3, b3), conf_vmin)
+    """The tail in y's dtype (conv2 + b2, ReLU, conv3 + b3), then the
+    postprocess in fp32."""
+    dt = y.dtype
+    h = F.relu(F.conv2d(y, w2.to(dt), b2.to(dt), padding=1))
+    return _postprocess(F.conv2d(h, w3.to(dt), b3.to(dt)).float(), conf_vmin)
 
 
 def dpt_tail_bf16_ref(y, w2, b2, w3, b3, conf_vmin):
     """The kernel's function in plain PyTorch: y and w2 rounded to bf16
-    (their products are exact in fp32), the rest in fp32."""
+    (their products are exact in fp32), the rest in fp32; y fp32 or bf16."""
     yr = y.to(torch.bfloat16).float()
     w2r = w2.to(torch.bfloat16).float()
     return dpt_tail_ref(yr, w2r, b2, w3, b3, conf_vmin)
@@ -112,7 +118,7 @@ def _kernel():
 
         fn = load_library("dpt_tail").dust3r_dpt_tail
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_float] + [ctypes.c_void_p] * 2
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _LIB = fn
     return _LIB
@@ -122,8 +128,9 @@ def _check(y, w2, b2, w3, b3):
     tensors = (y, w2, b2, w3, b3)
     if not (y.is_cuda and all(t.device == y.device for t in tensors)):
         raise ValueError("y, w2, b2, w3 and b3 must lie on one CUDA device")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"dpt_tail kernel takes fp32 tensors, got "
+    if y.dtype not in (torch.float32, torch.bfloat16) or any(
+            t.dtype != torch.float32 for t in tensors[1:]):
+        raise TypeError(f"dpt_tail kernel takes fp32 or bf16 y and fp32 weights, got "
                         f"{[t.dtype for t in tensors]}")
     want = ((CIN,), (HIDDEN, CIN, 3, 3), (HIDDEN,), (NOUT, HIDDEN, 1, 1), (NOUT,))
     got = (tuple(y.shape[1:2]),) + tuple(tuple(t.shape) for t in tensors[1:])
@@ -155,8 +162,8 @@ def _packed(w2, packed):
 
 
 def dpt_tail_kernel(y, w2, b2, w3, b3, conf_vmin, packed=None):
-    """y (B, 128, H, W) fp32 channels_last -> pts3d (B, H, W, 3), conf
-    (B, H, W), both contiguous fp32. packed: `pack_w2(w2)` when the caller
+    """y (B, 128, H, W) fp32 or bf16 channels_last -> pts3d (B, H, W, 3),
+    conf (B, H, W), both contiguous fp32. packed: `pack_w2(w2)` when the caller
     keeps it (the kernel reads it), else packed here; w3, b2 and b3 reach
     the kernel as views of the caller's tensors."""
     if y.device.type == "cpu":
@@ -171,16 +178,18 @@ def dpt_tail_kernel(y, w2, b2, w3, b3, conf_vmin, packed=None):
         stream = torch.cuda.current_stream(y.device).cuda_stream
         err = _kernel()(y.data_ptr(), w2p.data_ptr(), b2c.data_ptr(), w3c.data_ptr(),
                         b3c.data_ptr(), float(conf_vmin), pts.data_ptr(), conf.data_ptr(),
-                        B, H, W, stream)
+                        B, H, W, int(y.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"dpt_tail kernel launch failed: error {err} (y {tuple(y.shape)}; "
                            f"-1: a size it does not take; above 1000: 1000 + the CUresult "
                            f"of encoding y's tensor map)")
     dpt_tail_kernel.launches += 1
+    dpt_tail_kernel.bf16_launches += int(y.dtype == torch.bfloat16)
     return pts, conf
 
 
 dpt_tail_kernel.launches = 0
+dpt_tail_kernel.bf16_launches = 0  # of them, the bf16 mode's
 
 
 def dpt_tail_backward(inputs, conf_vmin, g_pts, g_conf, needs=(True,) * 5):

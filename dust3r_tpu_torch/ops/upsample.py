@@ -10,14 +10,17 @@ NHWC map directly, where the TPU kernel wrote four phase channel groups.
 
 Layouts are PyTorch's: x is (B, C, H, W) in `torch.channels_last` memory
 (NHWC, the layout of the JAX function), and so is the (B, C, 2H, 2W)
-result.
+result, in x's dtype: fp32, or bf16 (the bf16 mode of the serving
+configuration's bf16 heads: the lerps in fp32, y rounded once).
 
 * `up2x_ref` is the plain version: the even/odd closed form of the JAX
-  `_up2x_axis_lerp` (rows, then columns) in fp32 PyTorch. The CPU tests,
-  the card-side comparison and `impl='ref'` use it.
+  `_up2x_axis_lerp` (rows, then columns) in fp32 PyTorch, rounded once to
+  x's dtype. The CPU tests, the card-side comparison and `impl='ref'` use
+  it.
 * `up2x_kernel` is the wrapper. For a CPU tensor it returns the plain
   version; for a CUDA tensor it launches the kernel or raises.
-  `up2x_kernel.launches` counts kernel launches.
+  `up2x_kernel.launches` counts kernel launches, `up2x_kernel.bf16_launches`
+  those of the bf16 mode.
 * `KernelUp2x` makes the kernel differentiable: its backward is the
   adjoint of the lerps, `up2x_ref` differentiated by autograd (the JAX
   head's `upsample2x_align_corners` under `jax.vjp`). The map is linear,
@@ -33,7 +36,8 @@ import ctypes
 import torch
 
 IMPLS = ("ref", "kernel")
-CHANNEL_MULTIPLE = 4  # the kernel moves 4 fp32 channels per 16-byte access
+# the kernel moves 16 bytes an access: 4 fp32 or 8 bf16 channels
+CHANNEL_MULTIPLE = {torch.float32: 4, torch.bfloat16: 8}
 
 
 def _up2x_axis(x, axis):
@@ -57,11 +61,12 @@ def _up2x_axis(x, axis):
 
 
 def up2x_ref(x):
-    """The kernel's function in plain PyTorch, in x's dtype (fp32 on the
-    heads' path): (B, C, H, W) -> (B, C, 2H, 2W), channels_last."""
+    """The kernel's function in plain PyTorch: (B, C, H, W) -> (B, C, 2H,
+    2W), channels_last; the lerps in fp32 (in x's dtype if wider), the
+    result rounded once to x's dtype."""
     y = x.permute(0, 2, 3, 1)  # NHWC
-    y = _up2x_axis(_up2x_axis(y, 1), 2)
-    return y.permute(0, 3, 1, 2)
+    y = _up2x_axis(_up2x_axis(y.float() if x.dtype == torch.bfloat16 else y, 1), 2)
+    return y.permute(0, 3, 1, 2).to(x.dtype)
 
 
 _LIB = None
@@ -73,7 +78,7 @@ def _kernel():
         from ._build import load_library
 
         fn = load_library("up2x").dust3r_up2x
-        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LIB = fn
     return _LIB
@@ -82,13 +87,14 @@ def _kernel():
 def _check(x):
     if not x.is_cuda:
         raise ValueError("x must lie on a CUDA device")
-    if x.dtype != torch.float32:
-        raise TypeError(f"up2x kernel takes fp32 x, got {x.dtype}")
+    if x.dtype not in CHANNEL_MULTIPLE:
+        raise TypeError(f"up2x kernel takes fp32 or bf16 x, got {x.dtype}")
     if x.dim() != 4:
         raise ValueError(f"want x (B, C, H, W), got {tuple(x.shape)}")
     B, C, H, W = x.shape
-    if C % CHANNEL_MULTIPLE:
-        raise ValueError(f"C {C} must be a multiple of {CHANNEL_MULTIPLE}")
+    if C % CHANNEL_MULTIPLE[x.dtype]:
+        raise ValueError(f"C {C} must be a multiple of {CHANNEL_MULTIPLE[x.dtype]} "
+                         f"for {x.dtype}")
     if x.numel() == 0 or x.numel() >= 2 ** 31 - 1:  # y's 16-byte groups index in 32 bits
         raise ValueError(f"unsupported size {tuple(x.shape)}")
     if not x.is_contiguous(memory_format=torch.channels_last):
@@ -98,25 +104,28 @@ def _check(x):
 
 
 def up2x_kernel(x):
-    """x (B, C, H, W) fp32 channels_last -> (B, C, 2H, 2W) fp32
-    channels_last, align_corners=True."""
+    """x (B, C, H, W) fp32 or bf16 channels_last -> (B, C, 2H, 2W)
+    channels_last in x's dtype, align_corners=True."""
     if x.device.type == "cpu":
         return up2x_ref(x)
     _check(x)
     B, C, H, W = x.shape
-    y = torch.empty((B, C, 2 * H, 2 * W), device=x.device, dtype=torch.float32,
+    y = torch.empty((B, C, 2 * H, 2 * W), device=x.device, dtype=x.dtype,
                     memory_format=torch.channels_last)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _kernel()(x.data_ptr(), y.data_ptr(), B, H, W, C, stream)
+        err = _kernel()(x.data_ptr(), y.data_ptr(), B, H, W, C,
+                        int(x.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"up2x kernel launch failed: CUDA error {err} "
                            f"(x {tuple(x.shape)})")
     up2x_kernel.launches += 1
+    up2x_kernel.bf16_launches += int(x.dtype == torch.bfloat16)
     return y
 
 
 up2x_kernel.launches = 0
+up2x_kernel.bf16_launches = 0  # of them, the bf16 mode's
 
 
 def up2x_backward(g):

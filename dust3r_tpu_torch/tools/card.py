@@ -10,7 +10,7 @@ import torch
 # the card's peaks (the H100 SXM data sheet, dense): HBM bytes/s, and
 # operations/s by type; bounds are the larger of bytes and operations times
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = dict(bf16=989e12, fp32=67e12)
+PEAK_OPS_PER_S = dict(bf16=989e12, fp32=67e12, int8=1979e12)
 
 
 def card_name():

@@ -1,22 +1,24 @@
 """Measure the 512_dpt slice on one CUDA card.
 
     python -m dust3r_tpu_torch.tools.measure ab [--reps 3]
-    python -m dust3r_tpu_torch.tools.measure profile [--out build/profile]
+    python -m dust3r_tpu_torch.tools.measure profile [--serving] [--out build/profile]
     python -m dust3r_tpu_torch.tools.measure align [--iters 20]
 
 `ab` and `profile` serve the request of `chip_smoke.py` request (c): 4 images at 512x384,
 `complete` graph, symmetrized (12 pairs), batch 8, through make_pairs ->
 InferenceEngine -> inference, at full width with seeded random weights
-(bf16 body, fp32 heads).
+(bf16 body, fp32 heads; with `--serving`, or the "serving" variant, the
+serving configuration: bf16 heads and `InferenceEngine(quantize="int8")`).
 
-  ab       the kernels against their plain versions, end to end: three
-           models with the same weights, "kernels" (all four kernels),
-           "plain attention" (plain bf16 attention, the DPT head kernels)
-           and "ref heads" (attention kernel; the DPT heads' plain fp32
-           versions: cuDNN 3x3 convs, the plain upsample and tail, i.e.
-           conv_impl="ref"), warmed, then timed in the order kernels, plain
-           attention, ref heads, ref heads, plain attention, kernels,
-           `--reps` times; prints pairs/s of every run and the medians.
+  ab       the kernels against their plain versions and the serving
+           configuration, end to end: four models with the same weights,
+           "kernels" (all four kernels), "plain attention" (plain bf16
+           attention, the DPT head kernels), "ref heads" (attention kernel;
+           the DPT heads' plain fp32 versions: cuDNN 3x3 convs, the plain
+           upsample and tail, i.e. conv_impl="ref") and "serving" (bf16
+           heads on the kernels' bf16 modes, int8 block GEMMs), warmed,
+           then timed in that order and back, `--reps` times; prints
+           pairs/s of every run and the medians.
   profile  one warm request under torch.profiler: the device's busy share
            of the request's wall time, device time by kernel class and by
            kernel; the Chrome trace goes to `--out`. The classes match
@@ -61,24 +63,32 @@ def _pairs_per_s(pairs, engine):
     return len(pairs) / (time.perf_counter() - t0)
 
 
-AB_VARIANTS = {  # name: (attn_impl, conv_impl) of the model
-    "kernels": ("kernel", "kernel"),
-    "plain attention": ("plain", "kernel"),
-    "ref heads": ("kernel", "ref"),
+AB_VARIANTS = {  # name: (attn_impl, conv_impl, head_dtype, quantize) of the model
+    "kernels": ("kernel", "kernel", torch.float32, None),
+    "plain attention": ("plain", "kernel", torch.float32, None),
+    "ref heads": ("kernel", "ref", torch.float32, None),
+    "serving": ("kernel", "kernel", torch.bfloat16, "int8"),
 }
+
+
+def _engine(seed, attn="kernel", conv="kernel", head_dtype=torch.float32, quantize=None,
+            weights=None):
+    """An engine of the request's batch on a 512_dpt (bf16 body), its weights
+    `weights` or drawn from `seed`, quantized after they are set."""
+    model = dust3r_512_dpt(dtype=torch.bfloat16, head_dtype=head_dtype, device="cuda",
+                           seed=seed, attn_impl=attn, conv_impl=conv)
+    if weights is not None:
+        model.load_state_dict(weights)
+    return InferenceEngine(model, BATCH_SIZE, quantize=quantize)
 
 
 def ab(reps):
     pairs = _request()
     engines, weights = {}, None
-    for n, (name, (attn, conv)) in enumerate(AB_VARIANTS.items()):
-        model = dust3r_512_dpt(dtype=torch.bfloat16, device="cuda", seed=SEED + n,
-                               attn_impl=attn, conv_impl=conv)
+    for n, (name, variant) in enumerate(AB_VARIANTS.items()):
+        engines[name] = _engine(SEED + n, *variant, weights=weights)
         if weights is None:
-            weights = model.state_dict()
-        else:
-            model.load_state_dict(weights)
-        engines[name] = InferenceEngine(model, BATCH_SIZE)
+            weights = engines[name].model.state_dict()
     for engine in engines.values():  # warm-up
         inference(pairs, engine, verbose=False)
     runs = {name: [] for name in engines}
@@ -94,6 +104,8 @@ def _kernel_class(name):
     n = name.lower()
     if "attn_" in n:
         return "attention kernel"
+    if "quantize_rows" in n or "dequant" in n:
+        return "int8 quantize / dequant kernels"
     if "conv3x3_sm90" in n or "conv3x3_igemm" in n:
         return "conv3x3 kernel"
     if "up2x_align_corners" in n:
@@ -102,6 +114,8 @@ def _kernel_class(name):
         return "dpt_tail kernel"
     if "conv" in n or "cudnn" in n or "implicit" in n or "winograd" in n:
         return "conv (cuDNN)"
+    if any(s in n for s in ("imma", "i16832gemm", "gemm_s8", "i8i32", "s8s32", "int8")):
+        return "int8 gemm (cuBLASLt, torch._int_mm)"
     if any(s in n for s in ("gemm", "xmma", "cutlass", "nvjet")):
         return "gemm (cuBLAS)"
     if "copy" in n or "memcpy" in n or "memset" in n:
@@ -139,13 +153,12 @@ def _device_summary(prof, wall_us, what, per=1):
         print(f"[profile] kernel {us / per / 1e3:9.3f} ms  {name[:110]}")
 
 
-def profile(out_dir):
+def profile(out_dir, serving=False):
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     pairs = _request()
-    engine = InferenceEngine(dust3r_512_dpt(dtype=torch.bfloat16, device="cuda",
-                                            seed=SEED), BATCH_SIZE)
+    engine = _engine(SEED, *AB_VARIANTS["serving" if serving else "kernels"])
     inference(pairs, engine, verbose=False)  # warm-up
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -154,8 +167,9 @@ def profile(out_dir):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     out_dir.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out_dir / "slice_request_trace.json"))
-    _device_summary(prof, wall_us, f"request of {len(pairs)} pairs")
+    config = "serving" if serving else "slice"
+    prof.export_chrome_trace(str(out_dir / f"{config}_request_trace.json"))
+    _device_summary(prof, wall_us, f"{config} request of {len(pairs)} pairs")
 
 
 def align(iters):
@@ -183,7 +197,10 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
     sub.add_parser("ab").add_argument("--reps", type=int, default=3)
-    sub.add_parser("profile").add_argument("--out", type=Path, default=Path("build/profile"))
+    prof = sub.add_parser("profile")
+    prof.add_argument("--out", type=Path, default=Path("build/profile"))
+    prof.add_argument("--serving", action="store_true",
+                      help="the serving configuration: bf16 heads, int8 block GEMMs")
     sub.add_parser("align").add_argument("--iters", type=int, default=20)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -192,7 +209,7 @@ def main():
     if args.cmd == "ab":
         ab(args.reps)
     elif args.cmd == "profile":
-        profile(args.out)
+        profile(args.out, args.serving)
     else:
         align(args.iters)
 

@@ -299,3 +299,13 @@ SCENES = (
     SceneSpec("plane", (1920, 1080), (1920, 1080), 1600.0, 1650.0, n_maps=2, n_queries=1,
               query_model="SIMPLE_RADIAL", query_k1=-0.04, relief=0.0),
 )
+
+
+def synthetic_dataset(root, name="plane", seed=0, topk=2):
+    """Write the scene `name` of `SCENES` under `root` and return its
+    `SyntheticColmapDataset`: a `--dataset` for the visloc CLI,
+    `python -m dust3r_tpu_torch.visloc --dataset "__import__('dust3r_tpu_torch.tools.
+    visloc_scenes', fromlist=['_']).synthetic_dataset('<dir>')" --weights ...`."""
+    spec = next(s for s in SCENES if s.name == name)
+    cams, _, queries = write_scene(root, spec, seed=seed)
+    return SyntheticColmapDataset(root, cams, queries, topk=topk)

@@ -17,7 +17,9 @@ The step (`train_step`) follows the JAX step, `build_train_step`:
   (the JAX `wd_mask`), the LR set per iteration at the fractional epoch;
 * a step whose loss or grad norm is not finite changes nothing: neither
   the params, nor the optimizer's moments, nor its step count (JAX keeps
-  the old state with `jnp.where`; here the optimizer is not stepped).
+  the old state with `jnp.where`; here the optimizer is not stepped);
+* a quantized model (the int8 serving mode) is refused: it is
+  inference-only.
 The gt pointmaps are rebuilt on the device from depth, K and pose, as the
 JAX step does (`_host_view` / `_ensure_gt_pts3d`); with `amp` the images
 are cast to bf16 before they are sent.
@@ -37,6 +39,7 @@ import time
 import numpy as np
 import torch
 
+from .ops.quant import is_quantized
 from .optim_factory import adjust_learning_rate_by_lr
 from .utils.misc import freeze_mask, interleave
 
@@ -176,6 +179,9 @@ def train_step(model, optimizer, criterion, micro_batches, epoch_f, spec, symmet
     lr, grad_norm, skipped and the criterion's details."""
     if len(micro_batches) != spec.accum_iter:
         raise ValueError(f"{len(micro_batches)} micro-batches for accum_iter {spec.accum_iter}")
+    if is_quantized(model):
+        raise ValueError("the model is quantized (the int8 serving mode), which is "
+                         "inference-only: rounding has no gradient")
     params = dict(model.named_parameters())
     for p in params.values():
         p.grad = None

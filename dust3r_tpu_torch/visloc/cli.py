@@ -13,9 +13,10 @@ and errors; `main` adds the LTVL export and the stats line that
 `visloc.py` prints. The engine is the port's `InferenceEngine` on
 `--device` (the CUDA card unless `--device cpu`; bf16 body and fp32 heads
 on the card, fp32 on the CPU), the model comes from `from_pretrained`.
-`--quantize`, `--serving` (int8 serving, ROADMAP.md queue A item 9) and
-`--mesh` > 0 (inference over several cards, item 10) are not ported and
-raise.
+`--quantize int8` runs the transformer's projections on int8 operands;
+`--serving` sets bf16 body, bf16 heads and `--quantize int8`, as the root
+`visloc.py` does. `--mesh` > 0 (inference over several cards, ROADMAP.md
+queue A item 10) is not ported and raises.
 """
 from __future__ import annotations
 
@@ -56,9 +57,11 @@ def get_args_parser():
     parser.add_argument("--pnp_max_points", type=int, default=100_000)
     parser.add_argument("--viz_matches", type=int, default=0)
     parser.add_argument("--quantize", type=str, default=None, choices=["int8"],
-                        help="int8 serving mode (not ported)")
+                        help="int8 serving mode: the transformer's projections on int8 "
+                             "operands (ops/quant.py)")
     parser.add_argument("--serving", action="store_true",
-                        help="int8 block GEMMs and bf16 heads (not ported)")
+                        help="the serving configuration: bf16 body, bf16 heads and "
+                             "--quantize int8")
     parser.add_argument("--mesh", type=int, default=0,
                         help="shard inference over this many devices (not ported)")
     parser.add_argument("--output_dir", type=str, default=None)
@@ -202,23 +205,20 @@ def main(argv=None):
     import torch
 
     from ..checkpoint import from_pretrained
-    from ..inference import InferenceEngine
+    from ..inference import InferenceEngine, serving_overrides
     from ..utils.device import default_device
 
     args = get_args_parser().parse_args(argv)
-    if args.quantize or args.serving:
-        raise NotImplementedError("--quantize / --serving (int8 serving) are not ported "
-                                  "(ROADMAP.md, queue A item 9)")
     if args.mesh:
         raise NotImplementedError("--mesh (inference over several cards) is not ported "
                                   "(ROADMAP.md, queue A item 10)")
     device = torch.device(args.device) if args.device else \
         default_device("dust3r_tpu_torch.visloc (--device)")
-    # the card runs the transformer body in bf16 (its kernels' type), fp32 on the CPU
-    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    args.device = str(device)
     model = from_pretrained(args.weights or "naver/" + args.model_name, device=device,
-                            dtype=dtype)
-    engine = InferenceEngine(model, batch_size=1)  # visloc.py's batch without --mesh
+                            **serving_overrides(args))
+    # visloc.py's batch without --mesh
+    engine = InferenceEngine(model, batch_size=1, quantize=args.quantize)
 
     dataset = eval(args.dataset)  # noqa: S307 - the reference's CLI DSL, in this module's names
     dataset.set_resolution(model)
