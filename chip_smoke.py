@@ -121,7 +121,18 @@ Phases (each prints its lines; a failed phase raises and the exit code is 1):
      wall seconds, peak memory and forward launches (exactly 72 attention
      calls a micro-batch, 19 conv3x3 / 5 up2x / 1 dpt_tail a head pass, 2
      head passes, 4 with ManyAR flags); every gradient of the first
-     backward finite and non-zero. (e) After the updates, the kept conv and
+     backward finite and non-zero. (d2) After (f), with nothing of that run
+     left on the card: the same model and run on the published mix of the
+     nine datasets (Habitat, BlendedMVS, MegaDepth, ARKitScenes, Co3d,
+     StaticThings3D, ScanNetpp at docs/TRAINING.md's arguments, Waymo and
+     WildRGBD beside them) on `tools/train_scenes.py`'s layouts at their
+     preprocess sizes (EXR depths among them), evaluated on the published
+     test mix (Habitat, BlendedMVS, MegaDepth at 512x336, Co3d, a few
+     pairs each; Regr3D_ScaleShiftInv) with spawned loader workers: each
+     step's forward launches and the test pass's exact, every loss, grad
+     norm and test loss finite, all nine datasets among the trained views,
+     every view with valid pixels; each dataset's host ms to make one pair
+     printed. (e) After the updates, the kept conv and
      tail packings give the bits of packings made anew. (f)
      checkpoint-final.pth -> load_model -> InferenceEngine gives the trained
      module's outputs bit for bit. (g) 10 steps on one repeated batch with a
@@ -269,6 +280,15 @@ TRAIN_DATASET = ("{n} @ Co3d(split='train', ROOT='{root}', aug_crop=16, mask_bg=
                  "transform=ColorJitter, seed=777)")
 TRAIN_DATASET_224 = ("8 @ Co3d(split='train', ROOT='{root}', aug_crop=16, mask_bg='rand', "
                      "resolution=224, transform=ColorJitter, seed=777)")
+# step (d2): the published 512 stage's mix (docs/TRAINING.md:41, :60: its seven
+# datasets at their published arguments, then Waymo and WildRGBD, so that every
+# loader is on the path) on `tools/train_scenes.py`'s layouts, cut to the 3
+# steps' 24 pairs; the published test mix (:61) cut to a few pairs each
+TRAIN_RESOLUTIONS = [(512, 384), (512, 336), (512, 288), (512, 256), (512, 160)]
+MIX_COUNTS = dict(Habitat=3, BlendedMVS=3, MegaDepth=3, ARKitScenes=3, Co3d=3,
+                  StaticThings3D=3, ScanNetpp=2, Waymo=2, WildRGBD=2)
+MIX_FRAMES, MIX_TEST_PAIRS, MIX_LOADER_PAIRS = 6, 4, 3
+TEST_CRITERION = "Regr3D_ScaleShiftInv(L21, gt_scale=True)"
 # each backward alone against the autograd of its plain version: attention's
 # dq, dk, dv over their max |.| (bf16 q, k, v and rotations, dq, dk, dv
 # rounded to bf16); the fp32 recomputes (conv3x3, up2x, dpt_tail) over theirs
@@ -1682,6 +1702,163 @@ def _micro_batches(torch, dataset, batch_size):
     return symmetric_micro_batches(group, torch.device("cuda"), torch.bfloat16)
 
 
+def forward_launches(model, flagged):
+    """Each kernel's launches for symmetrized forwards, one a batch (flagged:
+    whether each batch carries ManyAR flags): the encoder once (view1 and
+    view2 ride one batch) and the decoder's 4 attention calls a layer; two
+    head passes a batch, four with ManyAR flags, PER_HEAD each."""
+    heads = 2 * sum(2 if f else 1 for f in flagged)
+    return dict(fused_attention=(model.enc_depth + 4 * model.dec_depth) * len(flagged),
+                **{k: n * heads for k, n in PER_HEAD.items()})
+
+
+def step_gate(torch, tag, steps, last, first_grads):
+    """An on_step for train(args): each optimizer step's forward launches
+    (since `last`) must be what its micro-batches imply; prints its loss,
+    grad norm, LR, wall seconds and peak memory; appends it to `steps`; the
+    first backward's gradients (finite, non-zero) go to `first_grads`."""
+    def on_step(model, epoch, i, metrics, micro_batches):
+        torch.cuda.synchronize()
+        now = dict(read_launches(), time=time.perf_counter())
+        got = {k: now[k] - last[k] for k in ("fused_attention", "conv3x3", "up2x", "dpt_tail")}
+        want = forward_launches(model, ["is_portrait" in mb[0] for mb in micro_batches])
+        peak = torch.cuda.max_memory_allocated()
+        log(f"{tag} step {len(steps)} (epoch {epoch}, iter {i}): loss {metrics['loss']:.6f}, "
+            f"grad norm {metrics['grad_norm']:.6f}, lr {metrics['lr']:.3e}, "
+            f"{now['time'] - last['time']:.3f} s wall, peak device memory {peak} bytes "
+            f"({peak / 2**30:.3f} GiB); forward launches {got} (expected {want}: "
+            f"{len(micro_batches)} micro-batches)")
+        if got != want:
+            raise AssertionError(f"{tag} train step launches {got} != {want}")
+        if not steps:  # the first backward: every parameter trains
+            for name, p in model.named_parameters():
+                first_grads[name] = (bool(torch.isfinite(p.grad).all()), bool(p.grad.any()))
+        steps.append(dict(metrics, seconds=now["time"] - last["time"], peak=peak))
+        last.update(now)
+    return on_step
+
+
+def mix_train_phase(torch, work):
+    """Step (d2) of the train phase: train(args) on the published mix of
+    the nine datasets (MIX_COUNTS over `tools/train_scenes.py`'s layouts at
+    their preprocess sizes, the five 512 buckets, ColorJitter), evaluated on
+    the published test mix (Habitat, BlendedMVS, MegaDepth at 512x336,
+    Co3d) with TEST_CRITERION, spawned loader workers. Each step's forward
+    launches exact (`step_gate`), the test pass's too (its batches read
+    again in the main process), every loss, grad norm and test loss finite,
+    every dataset among the trained views and every view with valid pixels.
+    Prints each dataset's host ms to make a pair (`__getitem__` in this
+    process, EXR decoding included) and the step's seconds and memory."""
+    import shutil
+
+    import numpy as np
+
+    import dust3r_tpu_torch.training as training
+    from dust3r_tpu_torch.datasets import DATASET_CLASSES, build_dataset, collate_views
+    from dust3r_tpu_torch.tools.train_scenes import mix_dsl, test_mix_dsl, write_mix
+    from dust3r_tpu_torch.train import get_args_parser
+
+    t_phase = time.perf_counter()
+    roots = write_mix(str(work / "mix"), frames=MIX_FRAMES, seed=SEED)
+    log(f"[train] (d2) the nine layouts ({MIX_FRAMES} frames a sequence, each at its "
+        f"preprocess size) written in {time.perf_counter() - t_phase:.2f} s")
+    for name, n in MIX_COUNTS.items():
+        ds = build_dataset(mix_dsl(roots, {name: n}, TRAIN_RESOLUTIONS, seed=SEED))
+        ds.set_epoch(0)
+        ms = []
+        for i in range(MIX_LOADER_PAIRS):
+            t0 = time.perf_counter()
+            views = ds[i % len(ds), i % len(TRAIN_RESOLUTIONS)]
+            ms.append(1e3 * (time.perf_counter() - t0))
+        log(f"[train] (d2) loader {name}: one pair in " + ", ".join(f"{t:.1f}" for t in ms)
+            + f" ms (host, this process; {views[0]['true_shape'].tolist()} "
+            f"{views[1]['true_shape'].tolist()} at the last)")
+
+    seen = []  # (dataset, valid pixels) of every trained view
+    tested = []  # (name, loader, launches, stats) of every test pass
+    symmetric, test_one_epoch = training.symmetric_micro_batches, training.test_one_epoch
+
+    def recording(group, device, img_dtype):
+        for views in group:
+            for v in views:
+                seen.extend(zip(v["dataset"], v["valid_mask"].flatten(1).sum(1).tolist()))
+        return symmetric(group, device, img_dtype)
+
+    def counted(model, criterion, loader, epoch, device, **kw):
+        torch.cuda.synchronize()
+        before = read_launches()
+        stats = test_one_epoch(model, criterion, loader, epoch, device, **kw)
+        torch.cuda.synchronize()
+        tested.append((kw["prefix"], loader, {k: v - before[k] for k, v in
+                                              read_launches().items()}, stats))
+        return stats
+
+    out = work / "mix_run"
+    argv = ["--model", PUBLISHED_ARCH,
+            "--train_dataset", mix_dsl(roots, MIX_COUNTS, TRAIN_RESOLUTIONS, seed=SEED),
+            "--test_dataset", test_mix_dsl(roots, MIX_TEST_PAIRS),
+            "--train_criterion", TRAIN_CRITERION, "--test_criterion", TEST_CRITERION,
+            "--batch_size", str(TRAIN_BATCH), "--accum_iter", str(TRAIN_ACCUM), "--epochs", "1",
+            "--warmup_epochs", "0", "--lr", str(TRAIN_LR), "--amp", "1", "--eval_freq", "1",
+            "--num_workers", "4", "--print_freq", "1", "--seed", str(SEED),
+            "--output_dir", str(out)]
+    steps, last = [], dict(read_launches(), time=time.perf_counter())
+    first_grads = {}
+    torch.cuda.reset_peak_memory_stats()
+    training.symmetric_micro_batches, training.test_one_epoch = recording, counted
+    try:
+        t_run = time.perf_counter()
+        model, _ = training.train(get_args_parser().parse_args(argv),
+                                  on_step=step_gate(torch, "[train] (d2)", steps, last,
+                                                    first_grads))
+        run_s = time.perf_counter() - t_run
+    finally:
+        training.symmetric_micro_batches, training.test_one_epoch = symmetric, test_one_epoch
+    if len(steps) != TRAIN_STEPS:
+        raise AssertionError(f"(d2): {len(steps)} optimizer steps, not {TRAIN_STEPS}")
+    if not all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in steps):
+        raise AssertionError("(d2): a non-finite loss or grad norm")
+    bad = [n for n, (finite, _) in first_grads.items() if not finite]
+    if bad:
+        raise AssertionError(f"(d2) first backward: non-finite gradients {bad[:8]}")
+    labels = {}
+    for label, valid in seen:
+        labels.setdefault(label, []).append(valid)
+    log(f"[train] (d2) trained views by dataset (count, fewest valid pixels): "
+        + ", ".join(f"{k} {len(v)} {min(v)}" for k, v in sorted(labels.items())))
+    if len(labels) != len(DATASET_CLASSES) or min(min(v) for v in labels.values()) == 0:
+        raise AssertionError(f"(d2): trained views from {sorted(labels)}, each of the "
+                             f"{len(DATASET_CLASSES)} datasets needed, every view with valid "
+                             f"pixels")
+
+    # the test pass: its batches read again here, its launches what they imply
+    for name, loader, got, stats in tested:
+        ds = loader.dataset
+        flagged = []
+        for b in range(0, len(ds), loader.batch_size):
+            batch = collate_views([ds[i] for i in range(b, min(b + loader.batch_size,
+                                                                len(ds)))])
+            if not all(bool(v["valid_mask"].flatten(1).any(1).all()) for v in batch):
+                raise AssertionError(f"(d2) test set {name}: a view without valid pixels")
+            flagged.append("is_portrait" in training.add_manyar_flags(
+                *training.make_batch_symmetric(*batch))[0])
+        want = forward_launches(model, flagged)
+        got = {k: got[k] for k in want}
+        log(f"[train] (d2) test {name}: {len(ds)} pairs in {len(flagged)} batches (ManyAR "
+            f"flags {flagged}): loss avg {stats['loss_avg']:.6f}, med {stats['loss_med']:.6f}; "
+            f"forward launches {got} (expected {want})")
+        if got != want:
+            raise AssertionError(f"(d2) test set {name}: launches {got} != {want}")
+        if not all(np.isfinite(v) for v in stats.values()):
+            raise AssertionError(f"(d2) test set {name}: non-finite stats {stats}")
+    if len(tested) != 4:
+        raise AssertionError(f"(d2): {len(tested)} test sets evaluated, not 4")
+    del model
+    shutil.rmtree(out, ignore_errors=True)
+    log(f"[train] (d2) train(args) {run_s:.3f} s (3 checkpoints written); the step added "
+        f"{time.perf_counter() - t_phase:.3f} s to the phase")
+
+
 def train_phase(torch):
     """Training at full width (phase 8 of the module's docstring). Returns
     the launches of the train run."""
@@ -1752,30 +1929,7 @@ def train_phase(torch):
     args = get_args_parser().parse_args(argv)
     steps, last = [], dict(read_launches(), time=time.perf_counter())
     first_grads = {}
-
-    def on_step(model, epoch, i, metrics, micro_batches):
-        torch.cuda.synchronize()
-        now = dict(read_launches(), time=time.perf_counter())
-        got = {k: now[k] - last[k] for k in ("fused_attention", "conv3x3", "up2x", "dpt_tail")}
-        heads = 2 * sum(2 if "is_portrait" in mb[0] else 1 for mb in micro_batches)
-        # symmetrized: one encoder batch (view1) and the decoder's 4 calls a layer
-        want = dict(fused_attention=(model.enc_depth + 4 * model.dec_depth)
-                    * len(micro_batches),
-                    **{k: n * heads for k, n in PER_HEAD.items()})
-        peak = torch.cuda.max_memory_allocated()
-        log(f"[train] step {len(steps)} (epoch {epoch}, iter {i}): loss {metrics['loss']:.6f}, "
-            f"grad norm {metrics['grad_norm']:.6f}, lr {metrics['lr']:.3e}, "
-            f"{now['time'] - last['time']:.3f} s wall, peak device memory {peak} bytes "
-            f"({peak / 2**30:.3f} GiB); forward launches {got} (expected {want}: "
-            f"{len(micro_batches)} micro-batches, {heads} head passes)")
-        if got != want:
-            raise AssertionError(f"train step launches {got} != {want}")
-        if not steps:  # the first backward: every parameter trains
-            for name, p in model.named_parameters():
-                first_grads[name] = (bool(torch.isfinite(p.grad).all()), bool(p.grad.any()))
-        steps.append(dict(metrics, seconds=now["time"] - last["time"], peak=peak))
-        last.update(now)
-
+    on_step = step_gate(torch, "[train]", steps, last, first_grads)
     reset_launches()
     last.update(read_launches())
     torch.cuda.reset_peak_memory_stats()
@@ -1839,8 +1993,12 @@ def train_phase(torch):
     # of themselves (how far the steps alone part two runs), and the kernel
     # route at 1e-5; then from a freshly seeded model at lr 1e-4, the loss
     # falls
-    state = {k: v.detach().clone() for k, v in trained.state_dict().items()}
+    state = {k: v.detach().cpu() for k, v in trained.state_dict().items()}
     del optimizer, trained
+
+    # (d2) the nine-dataset mix, with nothing of the Co3d run left on the card
+    mix_train_phase(torch, work)
+
     repeated = _micro_batches(torch, one_batch, TRAIN_BATCH)
 
     def ten_steps(lr, seed, state=None, nudge=0.0, **route):

@@ -4,9 +4,10 @@ Counterpart of `dust3r_tpu/datasets/__init__.py`. The dataset DSL string
 ("1000 @ Co3d(...) + 100 @ WildRGBD(...)") is evaluated in a namespace of
 the dataset classes and the transform names, with no builtins; the loader
 is `torch.utils.data.DataLoader` over the batch-aligned sampler, with
-worker processes (spawned) and pinned memory. Co3d and WildRGBD are
-ported; the other seven datasets of the JAX package raise when the string
-names them (ROADMAP.md queue A item 7).
+worker processes (spawned) and pinned memory. The nine datasets of the
+JAX package: Co3d, WildRGBD, ARKitScenes, BlendedMVS, MegaDepth,
+ScanNetpp, StaticThings3D, Waymo and Habitat, read without cv2 (PIL, and
+the port's EXR codec for the EXR depth maps).
 """
 from __future__ import annotations
 
@@ -16,18 +17,17 @@ import numpy as np
 import torch
 
 from .base.base_stereo_view_dataset import BaseStereoViewDataset  # noqa: F401
+from .arkitscenes import ARKitScenes, ScanNetpp
+from .blendedmvs import BlendedMVS
 from .co3d import Co3d, WildRGBD
+from .habitat import Habitat
+from .megadepth import MegaDepth
+from .staticthings3d import StaticThings3D
+from .waymo import Waymo
 
-DATASET_CLASSES = dict(Co3d=Co3d, WildRGBD=WildRGBD)
-NOT_PORTED = ("ARKitScenes", "ScanNetpp", "BlendedMVS", "MegaDepth", "StaticThings3D",
-              "Waymo", "Habitat")
-
-
-def _not_ported(name):
-    def raise_(*args, **kwargs):
-        raise NotImplementedError(f"dataset {name} is not ported yet (ROADMAP.md queue A "
-                                  f"item 7): the port has {', '.join(DATASET_CLASSES)}")
-    return raise_
+DATASET_CLASSES = dict(Co3d=Co3d, WildRGBD=WildRGBD, ARKitScenes=ARKitScenes,
+                       BlendedMVS=BlendedMVS, MegaDepth=MegaDepth, ScanNetpp=ScanNetpp,
+                       StaticThings3D=StaticThings3D, Waymo=Waymo, Habitat=Habitat)
 
 
 def build_dataset(dataset_str):
@@ -37,7 +37,6 @@ def build_dataset(dataset_str):
     from .utils.transforms import TRANSFORM_DSL_NAMES
 
     namespace = {"__builtins__": {}}
-    namespace.update({name: _not_ported(name) for name in NOT_PORTED})
     namespace.update(DATASET_CLASSES)
     namespace.update(TRANSFORM_DSL_NAMES)
     return eval(dataset_str, namespace)  # noqa: S307 - restricted namespace

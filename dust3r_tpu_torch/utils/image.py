@@ -17,8 +17,8 @@ indexed as a `Colormap` call indexes it) for the demo's confidence gallery.
 `imread_cv2` reads what the training loaders read, as `cv2.imread` and
 `COLOR_BGR2RGB` return it, with PIL: colour (`IMREAD_COLOR`: EXIF
 orientation applied, RGB uint8), and `IMREAD_UNCHANGED` 8-bit and 16-bit
-PNGs (uint8 / uint16, one channel or RGB). EXR files raise: the port has no
-EXR codec yet (`utils/exr.py`, ROADMAP queue A).
+PNGs (uint8 / uint16, one channel or RGB); EXR depth maps with the port's
+codec (`utils/exr.read_exr`, float32).
 """
 from __future__ import annotations
 
@@ -43,14 +43,21 @@ def imread_cv2(path, options=None):
     """An image file as `cv2.imread(path, options)` then BGR -> RGB returns
     it, read with PIL. options: None or IMREAD_COLOR (3-channel uint8, EXIF
     orientation applied, as cv2 applies it), IMREAD_GRAYSCALE, or
-    IMREAD_UNCHANGED (the stored depth and channels: uint8 or uint16)."""
+    IMREAD_UNCHANGED (the stored depth and channels: uint8 or uint16).
+
+    An .exr file is `read_exr(path)` whatever the options: float32 (H, W)
+    for a one-channel depth map, as JAX's `cv2.imread(path,
+    IMREAD_ANYDEPTH)` or its `read_exr` fallback gives it; a three-channel
+    file gives (H, W, 3) RGB, where a cv2 with OpenEXR would give one
+    channel under IMREAD_ANYDEPTH."""
     import PIL.Image
     from PIL.ImageOps import exif_transpose
 
     flags = IMREAD_COLOR if options is None else options
     if path.lower().endswith(".exr"):
-        raise NotImplementedError(f"{path}: EXR depth maps need utils/exr.py, not ported yet "
-                                  f"(ROADMAP.md queue A)")
+        from .exr import read_exr
+
+        return read_exr(path)
     try:
         img = PIL.Image.open(path)
         img.load()

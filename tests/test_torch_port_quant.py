@@ -234,3 +234,16 @@ def test_quantized_model_refuses_to_train(tiny):
                      accum_iter=1, amp=False)
     with pytest.raises(ValueError, match="inference-only"):
         train_step(model, make_optimizer(model, spec), None, [{}], 0.0, spec)
+
+
+@pytest.mark.parametrize("rows,K,N", [(16, 64, 64), (32, 60, 64), (32, 64, 60)])
+def test_int8_matmul_names_what_int_mm_refuses(rows, K, N):
+    """Off the CPU `int8_matmul` is `torch._int_mm`, which takes more than 16
+    rows and K, N multiples of 8; another shape raises with that reason
+    before the call (here on `meta` tensors: the check runs for any device
+    but the CPU). JAX's `QuantDense` takes any shape (ROADMAP.md §C)."""
+    xq = torch.empty(rows, K, dtype=torch.int8, device="meta")
+    wq = torch.empty(N, K, dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match=rf"more than 16 rows and K, N multiples of 8: got "
+                                         rf"xq \({rows}, {K}\), wq \({N}, {K}\)"):
+        quant.int8_matmul(xq, wq)

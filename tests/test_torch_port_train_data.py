@@ -238,9 +238,16 @@ def test_unshuffled_loader_and_dsl_equal_jax(roots, same_jitter):
         _same_batch(tds.collate_views([o[len(o) - 1]]), jds.collate_views([t[len(t) - 1]]))
 
 
-def test_unported_datasets_raise(roots):
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        tds.build_dataset("100 @ Habitat(split='train', ROOT='x', resolution=224)")
+def test_build_dataset_names_all_nine(tmp_path):
+    """Every dataset name of JAX's DSL builds (on the layouts of
+    tools/train_scenes.py); the DSL still has no builtins."""
+    from dust3r_tpu_torch.tools.train_scenes import TRAIN_ARGS, mix_dsl, write_mix
+
+    roots = write_mix(str(tmp_path), frames=2, long_edge=64)
+    assert set(roots) == set(tds.DATASET_CLASSES) == set(jds.DATASET_CLASSES)
+    for name in TRAIN_ARGS:
+        built = tds.build_dataset(mix_dsl(roots, {name: 1}, (32, 24)))
+        assert type(built.dataset) is tds.DATASET_CLASSES[name] and len(built.dataset) > 0
     with pytest.raises(NameError):  # no builtins in the DSL
         tds.build_dataset("open('x')")
 

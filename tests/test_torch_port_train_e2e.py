@@ -82,3 +82,34 @@ def test_train_cli_cadence_resume_and_final(tmp_path, monkeypatch, capsys):
     final = _ckpt(out, "final")
     assert final["epoch"] == 3
     assert {int(s["step"]) for s in final["optimizer"]["state"].values()} == {3 * 2}
+
+
+def test_train_on_the_nine_dataset_mix_with_a_test_set(tmp_path):
+    """train(args) at the tiny arch on the published mix of the nine
+    datasets (the layouts of tools/train_scenes.py), evaluated on the
+    published test mix with its criterion: 2 steps, every loss finite."""
+    from dust3r_tpu_torch.tools.train_scenes import (TRAIN_ARGS, mix_dsl, test_mix_dsl,
+                                                     write_mix)
+    from dust3r_tpu_torch.train import get_args_parser
+    from dust3r_tpu_torch.training import train
+
+    roots = write_mix(str(tmp_path / "mix"), frames=3, seed=1, long_edge=96)
+    small = dict(Habitat=(64, 48), BlendedMVS=(64, 48), MegaDepth=(64, 32), Co3d=(64, 48))
+    out = str(tmp_path / "run")
+    args = get_args_parser().parse_args([
+        "--model", ARCH,
+        "--train_dataset", mix_dsl(roots, {name: 1 for name in TRAIN_ARGS},
+                                   [(64, 48), (64, 32)], seed=3),
+        "--test_dataset", test_mix_dsl(roots, 2, small),
+        "--train_criterion", "ConfLoss(Regr3D(L21, norm_mode='avg_dis'), alpha=0.2)",
+        "--test_criterion", "Regr3D_ScaleShiftInv(L21, gt_scale=True)",
+        "--batch_size", "2", "--accum_iter", "2", "--epochs", "1", "--warmup_epochs", "0",
+        "--lr", "1e-4", "--num_workers", "0", "--device", "cpu", "--output_dir", out])
+    steps = []
+    train(args, on_step=lambda model, epoch, i, metrics, mbs: steps.append(metrics))
+    assert len(steps) == 2  # 9 pairs at batch 2 x accum 2
+    assert all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in steps)
+    with open(osp.join(out, "log.txt")) as f:
+        last = [json.loads(line) for line in f][-1]
+    tested = {k for k in last if k.endswith("_loss_med")}
+    assert len(tested) == 4 and all(np.isfinite(last[k]) for k in tested), last
