@@ -132,7 +132,18 @@ Phases (each prints its lines; a failed phase raises and the exit code is 1):
      step's forward launches and the test pass's exact, every loss, grad
      norm and test loss finite, all nine datasets among the trained views,
      every view with valid pixels; each dataset's host ms to make one pair
-     printed. (e) After the updates, the kept conv and
+     printed. (d3) The nine datasets' download layouts (`tools/raw_scenes.py`
+     at their sources' sizes: Co3d 1920x1080, BlendedMVS 768x576, MegaDepth
+     1600x1200, StaticThings3D 960x540, ARKitScenes 640x480 with 256x192
+     depth, Waymo's stage-1 output at 1920x1280, ScanNet++ 1752x1168
+     fisheye and a 1920x1440 iPhone frame, Habitat 1024x2048 envmaps)
+     through the port's preprocess scripts (no JAX, no cv2; Waymo's stage 1,
+     the ScanNet++ mesh render and habitat-sim take the layout's stand-ins,
+     named in the log), each dataset's host seconds and files printed; each
+     published loader's views on the plane (median |z - PLANE_Z| / PLANE_Z
+     <= 1e-2); two steps at batch 4 x accum 2 on the mix of those outputs,
+     no checkpoint: launches exact, losses finite, step seconds and peak
+     memory printed. (e) After the updates, the kept conv and
      tail packings give the bits of packings made anew. (f)
      checkpoint-final.pth -> load_model -> InferenceEngine gives the trained
      module's outputs bit for bit. (g) 10 steps on one repeated batch with a
@@ -289,6 +300,15 @@ MIX_COUNTS = dict(Habitat=3, BlendedMVS=3, MegaDepth=3, ARKitScenes=3, Co3d=3,
                   StaticThings3D=3, ScanNetpp=2, Waymo=2, WildRGBD=2)
 MIX_FRAMES, MIX_TEST_PAIRS, MIX_LOADER_PAIRS = 6, 4, 3
 TEST_CRITERION = "Regr3D_ScaleShiftInv(L21, gt_scale=True)"
+# step (d3): the nine raw layouts of `tools/raw_scenes.py` at their sources'
+# sizes, D3_FRAMES frames a sequence, through the port's preprocess scripts,
+# then the published loaders: every view of every pair (D3_GATE_PAIRS evenly
+# spaced where a loader has more) within D3_PLANE_RTOL of the plane (median
+# |z - PLANE_Z| / PLANE_Z), and D3_STEPS steps of batch 4 x accum 2 on the
+# mix (D3_COUNTS: 16 pairs)
+D3_FRAMES, D3_GATE_PAIRS, D3_STEPS, D3_PLANE_RTOL = 3, 6, 2, 1e-2
+D3_COUNTS = dict(Habitat=2, BlendedMVS=2, MegaDepth=2, ARKitScenes=2, Co3d=2,
+                 StaticThings3D=2, ScanNetpp=2, Waymo=1, WildRGBD=1)
 # each backward alone against the autograd of its plain version: attention's
 # dq, dk, dv over their max |.| (bf16 q, k, v and rotations, dq, dk, dv
 # rounded to bf16); the fp32 recomputes (conv3x3, up2x, dpt_tail) over theirs
@@ -1859,6 +1879,104 @@ def mix_train_phase(torch, work):
         f"{time.perf_counter() - t_phase:.3f} s to the phase")
 
 
+def preprocess_train_phase(torch, work):
+    """Step (d3) of the train phase: raw layouts -> the port's preprocess
+    scripts -> the published loaders -> the 512_dpt. `tools/raw_scenes.py`
+    writes each dataset's download layout at its source's size and runs its
+    script through the script's entry point (the nine on threads of their
+    own); the stages that need what neither machine has (Waymo's stage 1,
+    the ScanNet++ mesh render, habitat-sim) take the layout's stand-ins, and
+    MegaDepth's .h5 read runs where h5py imports. Gate: every view of each
+    loader's pairs (at most D3_GATE_PAIRS, evenly spaced; the published
+    arguments, the five 512 buckets in turn) within D3_PLANE_RTOL of the
+    plane. Then D3_STEPS steps of batch 4 x accum 2 on
+    the mix, no checkpoint: the launch counts set to 0 before them and read
+    after, exact for their micro-batches; every loss finite. Prints each
+    dataset's host seconds and files, each step's seconds, the peak
+    memory."""
+    import shutil
+
+    import numpy as np
+
+    from dust3r_tpu_torch.checkpoint import model_from_arch_string
+    from dust3r_tpu_torch.datasets import build_dataset, get_data_loader
+    from dust3r_tpu_torch.losses import build_criterion
+    from dust3r_tpu_torch.tools import raw_scenes
+    from dust3r_tpu_torch.tools.train_scenes import mix_dsl
+    from dust3r_tpu_torch.training import (TrainSpec, make_optimizer, symmetric_micro_batches,
+                                           train_step)
+
+    t_phase = time.perf_counter()
+    done = raw_scenes.run_all(str(work / "raw"), frames=D3_FRAMES, seed=SEED)
+    host_s = time.perf_counter() - t_phase
+    for name, (out, raw_s, prep_s, files, info) in done.items():
+        log(f"[train] (d3) {name}: raw layout {raw_s:.2f} s, preprocess {prep_s:.2f} s (host), "
+            f"{files} files written")
+    for name, what in raw_scenes.NOT_DRIVEN.items():
+        log(f"[train] (d3) {name}: not driven here, {what}")
+    h5 = done["MegaDepth"][4]["h5"]
+    log("[train] (d3) MegaDepth: the .h5 depth read " + (
+        "ran (h5py imports)" if h5 else "did not run (no h5py): the core ran on the arrays"))
+    log(f"[train] (d3) the nine raw layouts and their preprocessing: {host_s:.2f} s of wall "
+        f"(one thread a dataset)")
+
+    roots = {name: out for name, (out, *_rest) in done.items()}
+    args = raw_scenes.mix_args(roots["Habitat"])
+    for i, name in enumerate(D3_COUNTS):
+        ds = build_dataset(f"{name}({args[name]}, ROOT='{roots[name]}', "
+                           f"resolution={TRAIN_RESOLUTIONS}, seed={SEED})")
+        pairs = np.unique(np.linspace(0, len(ds) - 1, min(len(ds), D3_GATE_PAIRS)).astype(int))
+        errs = [raw_scenes.plane_error(v) for k in pairs
+                for v in ds[int(k), (i + int(k)) % len(TRAIN_RESOLUTIONS)]]
+        log(f"[train] (d3) {name} loader: {len(pairs)} of its {len(ds)} pairs, {len(errs)} "
+            f"views, plane error (median |z - "
+            f"{raw_scenes.PLANE_Z}| / {raw_scenes.PLANE_Z}) " + " ".join(f"{e:.3e}" for e in errs)
+            + f" (limit {D3_PLANE_RTOL:g})")
+        if not max(errs) <= D3_PLANE_RTOL:
+            raise AssertionError(f"(d3) {name}: a view off the plane ({max(errs):.3e})")
+
+    model = model_from_arch_string(PUBLISHED_ARCH, landscape_only=True, dtype=torch.bfloat16,
+                                   device="cuda", seed=SEED)
+    spec = TrainSpec(lr=TRAIN_LR, min_lr=0.0, warmup_epochs=0, epochs=1,
+                     accum_iter=TRAIN_ACCUM)
+    opt = make_optimizer(model, spec)
+    criterion = build_criterion(TRAIN_CRITERION)
+    loader = get_data_loader(mix_dsl(roots, D3_COUNTS, TRAIN_RESOLUTIONS, seed=SEED, args=args),
+                             batch_size=TRAIN_BATCH, num_workers=0)
+    loader.set_epoch(0)
+    batches = list(loader)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    want = dict.fromkeys(("fused_attention", "conv3x3", "up2x", "dpt_tail"), 0)
+    losses = []
+    for step in range(D3_STEPS):
+        t0 = time.perf_counter()
+        group = batches[step * TRAIN_ACCUM:(step + 1) * TRAIN_ACCUM]
+        mbs = symmetric_micro_batches(group, torch.device("cuda"), torch.bfloat16)
+        m = train_step(model, opt, criterion, mbs, step / D3_STEPS, spec)
+        torch.cuda.synchronize()
+        flagged = ["is_portrait" in mb[0] for mb in mbs]
+        for k, n in forward_launches(model, flagged).items():
+            want[k] += n
+        losses.append(m["loss"])
+        labels = sorted({d for views in group for v in views for d in v["dataset"]})
+        log(f"[train] (d3) step {step}: loss {m['loss']:.6f}, grad norm {m['grad_norm']:.6f}, "
+            f"{time.perf_counter() - t0:.3f} s wall, ManyAR flags {flagged}, datasets {labels}")
+    got = {k: v for k, v in read_launches().items() if k in want}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[train] (d3) {D3_STEPS} steps of batch {TRAIN_BATCH} x accum {TRAIN_ACCUM} on the "
+        f"preprocessed mix: forward launches {got} (expected {want}); peak device memory {peak} "
+        f"bytes ({peak / 2**30:.3f} GiB)")
+    if got != want:
+        raise AssertionError(f"(d3) launches {got} != {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"(d3) a non-finite loss: {losses}")
+    del model, opt, batches, group, mbs
+    shutil.rmtree(work / "raw", ignore_errors=True)
+    log(f"[train] (d3) the step added {time.perf_counter() - t_phase:.3f} s to the phase")
+
+
 def train_phase(torch):
     """Training at full width (phase 8 of the module's docstring). Returns
     the launches of the train run."""
@@ -1998,6 +2116,8 @@ def train_phase(torch):
 
     # (d2) the nine-dataset mix, with nothing of the Co3d run left on the card
     mix_train_phase(torch, work)
+    # (d3) raw layouts through the port's preprocess scripts to two steps
+    preprocess_train_phase(torch, work)
 
     repeated = _micro_batches(torch, one_batch, TRAIN_BATCH)
 

@@ -399,13 +399,15 @@ TEST_ARGS = dict(Habitat=("1_000, split='val'", (512, 384)),
                  Co3d=("split='test'", (512, 384)))
 
 
-def mix_dsl(roots, counts, resolution, seed=None):
+def mix_dsl(roots, counts, resolution, seed=None, args=None):
     """The train mix's dataset string: `counts[name] @ name(...)` for each
-    name of counts, with ColorJitter; seeded (seed + i) if seed is given."""
+    name of counts, with ColorJitter; seeded (seed + i) if seed is given;
+    `args` in place of TRAIN_ARGS."""
+    args = TRAIN_ARGS if args is None else args
     parts = []
     for i, (name, n) in enumerate(counts.items()):
         seeded = "" if seed is None else f", seed={seed + i}"
-        parts.append(f"{n} @ {name}({TRAIN_ARGS[name]}, ROOT='{roots[name]}', "
+        parts.append(f"{n} @ {name}({args[name]}, ROOT='{roots[name]}', "
                      f"resolution={resolution}, transform=ColorJitter{seeded})")
     return " + ".join(parts)
 
