@@ -168,6 +168,27 @@ Phases (each prints its lines; a failed phase raises and the exit code is 1):
      images on the demo phase's fitted model written as a `.pth`, and
      `python -m dust3r_tpu_torch.visloc --serving` on the plane scene, each
      through its `main`, its launches exact for its engine's batches.
+  10. parallel: the data axis (`--mesh`) at full width, on one card: (a)
+     request (c) on `InferenceEngine(mesh=[cuda:0, cuda:0])` (two replicas,
+     each batch of 8 split in two shards run from a thread each): every
+     kernel's launches exactly twice a one-device batch's, pointmaps within
+     PARITY_RMSE of the slice phase's fp32 plain forward, the distance to
+     the one-device engine's outputs and both pairs/s printed; (b) scene
+     (i) on `global_aligner(mesh=[cuda:0, cuda:0])` (two shards of 15
+     edges): recovered as in phase 5, its loss after 300 iterations beside
+     the one-device run's; (c) two ranks of `train(args)` (`--mesh 2
+     --dist_backend gloo`, both on cuda:0: NCCL refuses two ranks on one
+     device), spawned by `parallel.distributed.launch`, one step each at
+     batch 2 x accum 2 on Co3d-layout scenes at 512x384, against one
+     process at batch 4 x accum 2 on the ranks' joined global batch: the
+     all-reduced gradients per top-level module (rel L2 <= 2e-2, cosine >=
+     0.999), the losses within 1e-2, the ranks' parameters equal (SHA-256),
+     checkpoint-final.pth written by rank 0 alone, each rank's forward
+     launches exact; each rank's step seconds, peak memory and the share of
+     an all-reduce of the gradients' size printed; (d) `train(args)` at
+     `--mesh 1` over NCCL in this process: one step, exact launches, the
+     checkpoint; (e) with two cards, (a)-(c) across cuda:0 and cuda:1, (c)
+     over NCCL; with one, a line that says they were not run.
 The visloc phase's JSON line comes before the kernels' line. The
 second-to-last line is a JSON object of the kernels, with the launches
 of the slice's run (of the variants and experiments phases for theirs, of
@@ -330,6 +351,16 @@ QUANT_CASES = (
     ("dec proj, projq, projk, projv", 768, 768, 240), ("dec fc1", 768, 3072, 48),
     ("dec fc2", 3072, 768, 48),
 )
+# the parallel phase: the data axis on one card (two shards, two replicas,
+# two ranks over gloo: NCCL refuses two ranks on one device), and on two
+# cards where there are; step (c)'s ranks at batch 2 x accum 2 on Co3d at
+# 512x384, one step, against one process at batch 4 x accum 2 on the same
+# global batch (GRAD_REL_L2 / GRAD_COSINE per top-level module, the losses
+# within PARALLEL_LOSS_RTOL); step (d) --mesh 1 over NCCL at batch 2 x accum 2
+PARALLEL_BATCH, PARALLEL_ACCUM, PARALLEL_FRAMES = 2, 2, 12
+PARALLEL_DATASET = ("{n} @ Co3d(split='train', ROOT='{root}', aug_crop=16, mask_bg='rand', "
+                    "resolution=[(512, 384)], transform=ColorJitter, seed=777)")
+PARALLEL_LOSS_RTOL = 1e-2
 # the int8 serving pointmaps against the fp32 plain forward, as
 # tests/test_quant.py gates them: relative L2 of pts3d within max(4x the
 # default bf16 body's, 2e-2), of conf within 2e-2
@@ -901,8 +932,10 @@ def read_launches():
     return {name: getattr(fn, attr) for name, (fn, attr) in kernel_counters().items()}
 
 
-def expected_launches(model, encoder_batches, pair_batches):
-    """Each kernel's launches for the engine's batches: attention in every
+def expected_launches(model, encoder_batches, pair_batches, shards=1):
+    """Each kernel's launches for the engine's batches (each split into
+    `shards` on a mesh, every shard launching what a whole batch does):
+    attention in every
     encoder layer of an encoder batch and 4 calls (self and cross, two
     streams) in every decoder layer of a pair batch, all on the sm90
     kernel (none on the mma.sync core); conv3x3 once a call, split or not;
@@ -925,7 +958,7 @@ def expected_launches(model, encoder_batches, pair_batches):
     if is_quantized(model):
         n = 4 * model.enc_depth * encoder_batches + (2 + 16 * model.dec_depth) * pair_batches
         expected.update(quantize_rows=n, dequant=n)
-    return expected
+    return {k: shards * n for k, n in expected.items()}
 
 
 def _check_request(name, out, n_pairs, shapes):
@@ -1036,7 +1069,7 @@ def slice_phase(torch):
     if not worst <= PARITY_RMSE:
         raise AssertionError(f"pointmap parity {worst:.3e} > {PARITY_RMSE:g}")
     del model32
-    return launches, engine, req_a
+    return launches, engine, req_a, dict(out_c=out_c, out32=out32, seconds_c=t_c)
 
 
 def rotation_error_deg(R1, R2):
@@ -1045,9 +1078,10 @@ def rotation_error_deg(R1, R2):
     return float(np.degrees(np.arccos(np.clip((np.trace(R1.T @ R2) - 1) / 2, -1, 1))))
 
 
-def _align(torch, name, out, device):
+def _align(torch, name, out, device, mesh=None, tag="[scene]"):
     """global_aligner -> compute_global_alignment as the README's quick start
-    calls it; prints init seconds, iterations/s, final loss, peak memory."""
+    calls it (its edges split over `mesh`, a list of devices, when given);
+    prints init seconds, iterations/s, final loss, peak memory."""
     import numpy as np
 
     from dust3r_tpu_torch.cloud_opt import global_aligner
@@ -1055,14 +1089,18 @@ def _align(torch, name, out, device):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    scene = global_aligner(out, device=device, verbose=False)
+    scene = global_aligner(out, device=device, verbose=False, mesh=mesh)
     build_s = time.perf_counter() - t0
     final = scene.compute_global_alignment(init="mst", niter=ALIGN_ITERS, schedule="cosine",
                                            lr=0.01)
     peak = torch.cuda.max_memory_allocated()
     losses = scene.last_losses
-    log(f"[scene] {name}: {scene.n_imgs} images {scene.imshapes[0]}, {scene.n_edges} edges, "
-        f"{scene.obs_pred_i.dtype} observations; scene built in {build_s:.3f} s, init "
+    log(f"{tag} {name}: {scene.n_imgs} images {scene.imshapes[0]}, {scene.n_edges} edges, "
+        f"{scene.obs_pred_i.dtype} observations"
+        + ("" if mesh is None else f" in {len(scene.shards)} shards of "
+           f"{[sh['edges'].stop - sh['edges'].start for sh in scene.shards]} edges on "
+           f"{[str(sh['device']) for sh in scene.shards]}")
+        + f"; scene built in {build_s:.3f} s, init "
         f"(host) {scene.seconds['init']:.3f} s, {ALIGN_ITERS} iterations in "
         f"{scene.seconds['align']:.3f} s = {ALIGN_ITERS / scene.seconds['align']:.1f} it/s; "
         f"loss {losses[0]:.6g} -> {losses[-1]:.6g}, final {final:.6g}; peak device memory "
@@ -1083,23 +1121,32 @@ def _align(torch, name, out, device):
     return scene, poses, focals
 
 
-def scene_phase(torch, engine, pairs):
+def synthetic_scene_run(torch, mesh=None, tag="[scene]"):
+    """Scene (i): the synthetic 6-image scene with a known answer at full
+    resolution, aligned on the card (its edges split over `mesh` when
+    given), which must be recovered. Returns the scene."""
     import numpy as np
 
     from dust3r_tpu_torch.tools.scenes import synthetic_scene
 
-    # (i) a synthetic scene with a known answer, at full resolution
     out, poses, focal = synthetic_scene(SCENE_IMAGES, H384, W, SCENE_FOCAL * W, seed=SEED)
-    _, est, focals = _align(torch, "synthetic", out, "cuda")
+    scene, est, focals = _align(torch, "synthetic", out, "cuda", mesh=mesh, tag=tag)
     focal_err = float(np.abs(focals / focal - 1).max())
     rot_err = max(rotation_error_deg((np.linalg.inv(poses[0]) @ poses[k])[:3, :3],
                                      (np.linalg.inv(est[0]) @ est[k])[:3, :3])
                   for k in range(1, SCENE_IMAGES))
-    log(f"[scene] synthetic: focal {focal:.1f} px recovered to {focal_err:.3e} relative "
+    log(f"{tag} synthetic: focal {focal:.1f} px recovered to {focal_err:.3e} relative "
         f"(limit {FOCAL_RTOL:g}); relative rotations to {rot_err:.4f} deg (limit "
         f"{ROT_DEG:g})")
     if not (focal_err <= FOCAL_RTOL and rot_err <= ROT_DEG):
         raise AssertionError("synthetic scene not recovered")
+    return scene
+
+
+def scene_phase(torch, engine, pairs):
+    """Phase 5; returns scene (i)'s per-iteration losses."""
+    # (i) a synthetic scene with a known answer, at full resolution
+    synthetic = synthetic_scene_run(torch)
 
     # (ii) the README's quick start: request (a)'s pairs, kept on the device;
     # its launch counts start at 0 here
@@ -1118,6 +1165,7 @@ def scene_phase(torch, engine, pairs):
         raise AssertionError(f"quick start launches {launches} != {expected}: some call "
                              f"of its path bypassed a kernel")
     _align(torch, "quick start", out, None)
+    return synthetic.last_losses
 
 
 def _checkpoint_files(torch, model, tmp):
@@ -2579,6 +2627,286 @@ def serving_phase(torch, fitted):
     return launches
 
 
+# ---------------------------------------------------------------------- #
+# phase 10: the data axis (--mesh): engine shards, aligner shards, DDP ranks
+# ---------------------------------------------------------------------- #
+
+def engine_shards(torch, devices, pairs, refs, tag):
+    """(a) Request (c) on InferenceEngine(mesh=devices): every launch count
+    from 0, each kernel's launches exactly the shards' (`expected_launches`
+    with shards); pointmaps within PARITY_RMSE of the slice phase's fp32
+    plain forward; the distance to the one-device engine's outputs and
+    both engines' pairs/s printed."""
+    import numpy as np
+
+    from dust3r_tpu_torch.inference import InferenceEngine, inference
+    from dust3r_tpu_torch.model import dust3r_512_dpt
+
+    model = dust3r_512_dpt(dtype=torch.bfloat16, device=devices[0], seed=SEED)
+    engine = InferenceEngine(model, batch_size=BATCH_SIZE, mesh=devices)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = inference(pairs, engine, verbose=False)
+    cold = time.perf_counter() - t0
+    launches = read_launches()
+    expected = expected_launches(model, engine.encoder_batches, engine.pair_batches,
+                                 shards=engine.n_shards)
+    t0 = time.perf_counter()
+    inference(pairs, engine, verbose=False)
+    warm = time.perf_counter() - t0
+    _check_request(f"{tag} request (c)", out, len(pairs),
+                   [tuple(tuple(v["img"].shape[1:3]) for v in p) for p in pairs])
+    log(f"{tag} request (c) on InferenceEngine(mesh={[str(d) for d in devices]}): "
+        f"{engine.n_shards} replicas, {BATCH_SIZE // engine.n_shards} pairs a shard, "
+        f"{engine.encoder_batches} encoder and {engine.pair_batches} pair batches; "
+        f"{cold:.3f} s cold, {warm:.3f} s warm = {len(pairs) / warm:.3f} pairs/s (one device, "
+        f"the slice phase: {len(pairs) / refs['seconds_c']:.3f}); launches {launches} "
+        f"(expected {expected})")
+    if launches != expected:
+        raise AssertionError(f"{tag} launches {launches} != {expected}")
+    worst = 0.0
+    for side, key in (("pred1", "pts3d"), ("pred2", "pts3d_in_other_view")):
+        a = out[side][key][0].astype(np.float64)
+        b = refs["out32"][side][key][0].astype(np.float64)
+        rmse = float(np.sqrt(np.mean((a - b) ** 2)) / np.sqrt(np.mean(b ** 2)))
+        worst = max(worst, rmse)
+        one = refs["out_c"][side][key]
+        dist = float(np.abs(out[side][key] - one).max() / np.abs(one).max())
+        log(f"{tag} {side}.{key}: normalized RMSE vs fp32-plain {rmse:.3e} (limit "
+            f"{PARITY_RMSE:g}); max |mesh - one device| / max |one device| {dist:.3e} "
+            f"(information)")
+    if not worst <= PARITY_RMSE:
+        raise AssertionError(f"{tag} pointmap parity {worst:.3e} > {PARITY_RMSE:g}")
+    del engine, model
+    torch.cuda.empty_cache()
+
+
+def aligner_shards(torch, devices, one_device_losses, tag):
+    """(b) Scene (i) with its edges split over `devices`: recovered, its
+    loss after ALIGN_ITERS iterations beside the one-device run's."""
+    scene = synthetic_scene_run(torch, mesh=devices, tag=tag)
+    a, b = float(scene.last_losses[-1]), float(one_device_losses[-1])
+    log(f"{tag} synthetic: loss after {ALIGN_ITERS} iterations {a:.7g} on "
+        f"{len(scene.shards)} shards, {b:.7g} on one device (relative {abs(a - b) / b:.3e}, "
+        f"information)")
+
+
+def parallel_train_rank(rank, world_size, device, args, grads_path):
+    """Step (c) in a spawned rank: `train(args)` (`training.train_rank`)
+    with its step timed and its checkpoint writes counted; after the step,
+    the rank's loss, peak memory, forward launches, micro-batches (host
+    copies) and the SHA-256 of its parameters; rank 0 writes its
+    all-reduced gradients to `grads_path`; then an all-reduce of a buffer
+    of the gradients' size alone, timed. Returns that report."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from dust3r_tpu_torch import checkpoint, training
+
+    report = dict(saves=[])
+    save, step = checkpoint.save_train_checkpoint, training.train_step
+
+    def counted_save(path, *a, **kw):
+        report["saves"].append(Path(path).name)
+        return save(path, *a, **kw)
+
+    def timed_step(*a, **kw):
+        dist.barrier()  # from the same start: rank 0 alone opens the log writer
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        metrics = step(*a, **kw)
+        torch.cuda.synchronize(device)
+        report["step_s"] = time.perf_counter() - t0
+        return metrics
+
+    def on_step(module, epoch, i, metrics, micro_batches):
+        report.update(metrics=metrics, peak=torch.cuda.max_memory_allocated(device),
+                      launches=read_launches(),
+                      expected=forward_launches(module, ["is_portrait" in mb[0]
+                                                         for mb in micro_batches]),
+                      micro_batches=[tuple({k: v.cpu() for k, v in view.items()} for view in mb)
+                                     for mb in micro_batches])
+        sha = hashlib.sha256()
+        for p in module.parameters():
+            sha.update(p.detach().cpu().numpy().tobytes())
+        report["param_sha256"] = sha.hexdigest()
+        if rank == 0:
+            torch.save({n: p.grad.detach().cpu() for n, p in module.named_parameters()},
+                       grads_path)
+        flat = torch.cat([p.grad.detach().flatten() for p in module.parameters()])
+        report["grad_bytes"] = flat.numel() * flat.element_size()
+        dist.barrier()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        dist.all_reduce(flat)
+        torch.cuda.synchronize(device)
+        report["all_reduce_s"] = time.perf_counter() - t0
+
+    checkpoint.save_train_checkpoint, training.train_step = counted_save, timed_step
+    reset_launches()
+    torch.cuda.set_device(device)  # CUDA's first use in this process
+    torch.cuda.reset_peak_memory_stats(device)
+    training.train_rank(rank, world_size, device, args, on_step)
+    return report
+
+
+def _parallel_argv(root, out, n_ranks, steps=1):
+    n = PARALLEL_BATCH * PARALLEL_ACCUM * n_ranks * steps
+    return ["--model", PUBLISHED_ARCH, "--train_dataset", PARALLEL_DATASET.format(n=n, root=root),
+            "--train_criterion", TRAIN_CRITERION, "--batch_size", str(PARALLEL_BATCH),
+            "--accum_iter", str(PARALLEL_ACCUM), "--epochs", "1", "--warmup_epochs", "0",
+            "--lr", str(TRAIN_LR), "--amp", "1", "--num_workers", "0", "--print_freq", "1",
+            "--save_freq", "0", "--seed", str(SEED), "--output_dir", str(out),
+            "--mesh", str(n_ranks)]
+
+
+def ddp_ranks(torch, devices, backend, root, work, tag):
+    """(c) Two ranks of train(args) on `devices` over `backend`, spawned,
+    one step at batch PARALLEL_BATCH x accum PARALLEL_ACCUM each, against
+    one process at twice the batch on the same global batch (the ranks'
+    micro-batches joined): the ranks' all-reduced gradients per top-level
+    module (GRAD_REL_L2, GRAD_COSINE), the losses (PARALLEL_LOSS_RTOL), the
+    ranks' parameters bit for bit, checkpoint-final.pth written by rank 0
+    alone; each rank's forward launches exact; each rank's step seconds,
+    peak memory and the all-reduce's share printed."""
+    import gc
+
+    import numpy as np
+
+    from dust3r_tpu_torch.checkpoint import model_from_arch_string
+    from dust3r_tpu_torch.losses import build_criterion
+    from dust3r_tpu_torch.parallel.distributed import launch
+    from dust3r_tpu_torch.train import get_args_parser
+    from dust3r_tpu_torch.training import TrainSpec, make_optimizer, train_step
+
+    out = work / f"run_{backend}"
+    args = get_args_parser().parse_args(_parallel_argv(root, out, len(devices))
+                                        + ["--dist_backend", backend])
+    grads_path = work / "grads_rank0.pt"
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reports = launch(parallel_train_rank, devices, args=(args, str(grads_path)), timeout=900)
+    launch_s = time.perf_counter() - t0
+    for r, rep in enumerate(reports):
+        got = {k: rep["launches"][k] for k in rep["expected"]}
+        log(f"{tag} rank {r} on {devices[r]} ({backend}): loss {rep['metrics']['loss']:.6f}, "
+            f"grad norm {rep['metrics']['grad_norm']:.6f}, step {rep['step_s']:.3f} s (its "
+            f"first: cold), peak device memory {rep['peak']} bytes ({rep['peak'] / 2**30:.3f} "
+            f"GiB); an all-reduce of {rep['grad_bytes']} bytes (the gradients' size) alone "
+            f"{rep['all_reduce_s']:.3f} s = {rep['all_reduce_s'] / rep['step_s']:.3f} of the "
+            f"step's seconds; forward launches {got} (expected {rep['expected']}); "
+            f"checkpoints written {rep['saves']}")
+        if got != rep["expected"]:
+            raise AssertionError(f"{tag} rank {r} launches {got} != {rep['expected']}")
+    log(f"{tag} the two ranks: {launch_s:.3f} s from spawn to exit")
+    if reports[0]["metrics"] != reports[1]["metrics"]:
+        raise AssertionError(f"{tag} the ranks' metrics differ")
+    if reports[0]["param_sha256"] != reports[1]["param_sha256"]:
+        raise AssertionError(f"{tag} the ranks' parameters differ after the step")
+    if reports[0]["saves"] != ["checkpoint-final.pth"] or reports[1]["saves"] or sorted(
+            f.name for f in out.glob("*.pth")) != ["checkpoint-final.pth"]:
+        raise AssertionError(f"{tag} checkpoints {[r['saves'] for r in reports]}, files "
+                             f"{sorted(f.name for f in out.glob('*.pth'))}")
+
+    # one process on the joined global batch, from the same seeded weights
+    def joined(k, side):
+        views = [rep["micro_batches"][k][side] for rep in reports]
+        keys = set().union(*views)
+        view = {}
+        for key in sorted(keys):
+            parts = [v[key] if key in v else torch.zeros(len(v["img"]), dtype=torch.bool)
+                     for v in views]  # is_portrait where one rank's batch had none
+            view[key] = torch.cat(parts).to(devices[0])
+        return view
+    batches = [(joined(k, 0), joined(k, 1)) for k in range(PARALLEL_ACCUM)]
+    model = model_from_arch_string(PUBLISHED_ARCH, landscape_only=True, dtype=torch.bfloat16,
+                                   device=devices[0], seed=SEED)
+    spec = TrainSpec(lr=args.lr, min_lr=args.min_lr, warmup_epochs=0, epochs=1,
+                     weight_decay=args.weight_decay, accum_iter=PARALLEL_ACCUM, amp=True)
+    m = train_step(model, make_optimizer(model, spec), build_criterion(TRAIN_CRITERION),
+                   batches, 0.0, spec)
+    ref = {n: p.grad.detach().float() for n, p in model.named_parameters()}
+    ours = {n: g.to(devices[0]).float() for n, g in torch.load(grads_path).items()}
+    grads_path.unlink()
+    loss = reports[0]["metrics"]["loss"]
+    rel = abs(loss - m["loss"]) / abs(m["loss"])
+    log(f"{tag} one process at batch {PARALLEL_BATCH * len(devices)} x accum "
+        f"{PARALLEL_ACCUM} on the ranks' global batch ({batches[0][0]['img'].shape[0]} images "
+        f"a micro-batch): loss {m['loss']:.6f}, the ranks' {loss:.6f} (relative "
+        f"{rel:.3e}, limit {PARALLEL_LOSS_RTOL:g}); grad norm {m['grad_norm']:.6f}")
+    if not (np.isfinite(loss) and rel <= PARALLEL_LOSS_RTOL):
+        raise AssertionError(f"{tag} loss {loss} vs one process {m['loss']}")
+    _compare_grads(torch, model, ours, ref, f"{len(devices)} ranks ({backend}) vs one process",
+                   True)
+    del model, ref, ours, batches, reports
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_one_nccl(torch, root, work):
+    """(d) train(args) at --mesh 1 over NCCL in this process (a group of
+    one, DistributedDataParallel around the model): one step with exact
+    forward launches and checkpoint-final.pth."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from dust3r_tpu_torch.train import get_args_parser
+    from dust3r_tpu_torch.training import train
+
+    out = work / "run_mesh1"
+    args = get_args_parser().parse_args(_parallel_argv(root, out, 1)
+                                        + ["--dist_backend", "nccl"])
+    steps, last, first_grads = [], dict(read_launches(), time=time.perf_counter()), {}
+    reset_launches()
+    last.update(read_launches())
+    torch.cuda.reset_peak_memory_stats()
+    module, _ = train(args, on_step=step_gate(torch, "[parallel] (d) --mesh 1 (nccl)", steps,
+                                               last, first_grads))
+    final = out / "checkpoint-final.pth"
+    log(f"[parallel] (d) --mesh 1 over NCCL: {len(steps)} step, checkpoint-final.pth "
+        f"{final.stat().st_size if final.exists() else 0} bytes; the group is gone after "
+        f"train(): {not dist.is_initialized()}")
+    if len(steps) != 1 or not np.isfinite(steps[0]["loss"]) or not final.exists() \
+            or dist.is_initialized():
+        raise AssertionError("[parallel] (d) --mesh 1 over NCCL failed")
+    del module
+    torch.cuda.empty_cache()
+
+
+def parallel_phase(torch, pairs, refs, scene_losses):
+    """The data axis (phase 10 of the module's docstring): on one card, (a)
+    the engine on two replicas, (b) the aligner on two edge shards, (c) two
+    DDP ranks over gloo, (d) --mesh 1 over NCCL; with two cards, (a)-(c)
+    again across them, (c) over NCCL."""
+    import shutil
+
+    from dust3r_tpu_torch.tools.train_scenes import write_scenes
+
+    t_phase = time.perf_counter()
+    one_card = [torch.device("cuda", 0)] * 2
+    engine_shards(torch, one_card, pairs, refs, "[parallel] (a)")
+    aligner_shards(torch, one_card, scene_losses, "[parallel] (b)")
+    work = ROOT / "build" / "parallel"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    root = write_scenes(str(work / "co3d"), frames=PARALLEL_FRAMES, seed=SEED)
+    ddp_ranks(torch, one_card, "gloo", root, work, "[parallel] (c)")
+    mesh_one_nccl(torch, root, work)
+    if torch.cuda.device_count() >= 2:
+        two_cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+        engine_shards(torch, two_cards, pairs, refs, "[parallel] (e) (a)")
+        aligner_shards(torch, two_cards, scene_losses, "[parallel] (e) (b)")
+        ddp_ranks(torch, two_cards, "nccl", root, work, "[parallel] (e) (c)")
+    else:
+        log("[parallel] (e) one card visible: (a)-(c) across cuda:0 and cuda:1 (NCCL between "
+            "the ranks) were not run; they need two cards")
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"[parallel] phase: {time.perf_counter() - t_phase:.3f} s")
+
+
 def main(argv):
     if not (ROOT / "dust3r_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repo (dust3r_tpu_torch/ missing)",
@@ -2600,12 +2928,14 @@ def main(argv):
     serving_totals = serving_kernel_phase(torch)
     if "--kernels-only" in argv:
         return 0
-    launches, engine, pairs = slice_phase(torch)
-    scene_phase(torch, engine, pairs)
+    launches, engine, pairs, refs = slice_phase(torch)
+    scene_losses = scene_phase(torch, engine, pairs)
     demo_phase(torch, engine.model, pairs)
     print(json.dumps({"visloc": visloc_phase(torch)}), flush=True)
     train_phase(torch)
     serving_launches = serving_phase(torch, engine.model)
+    del engine
+    parallel_phase(torch, pairs, refs, scene_losses)
     # attention: the encoder's self-attention shape, read from the qkv
     # projection, on the sm90 kernel; its mma.sync core (the baseline) at
     # the same call; its grouped form: the variants phase's G = 2, 4 and 8

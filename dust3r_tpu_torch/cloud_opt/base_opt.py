@@ -17,7 +17,20 @@ JAX package's TPU layout (coordinate-planar observations grouped by image,
 the edge-chunk scan) is not carried over: at 512x384, a few thousand edges
 of bf16 observations fit the card's memory without chunking.
 
-The observations are built on the scene's device from the predictions as
+With `mesh=[devices]` the edge rows are split over the devices, in
+contiguous runs (JAX's `global_aligner(mesh=)` splits its grouped
+observations' image axis; the port holds one row per edge): each device
+holds its edges' observations (bf16, fp32 or int8, chunked as above) and
+indices, the parameters live on the first device (the scene's), and each
+iteration sends each shard the poses and adaptors of its edges and the
+world points, computes its partial sums there and moves them to the first
+device, where they are summed; autograd carries the gradients back. The
+normalisers (`total_area_i/j`) stay global. A repeated device holds one
+more shard. The observation tensors (`obs_pred_i`, ..., `idx_i`,
+`obs_scale`) read as wholes: the one shard's, or the shards' joined on the
+scene's device.
+
+The observations are built on their devices from the predictions as
 they come: device tensors from `InferenceEngine.infer_pairs(...,
 to_cpu=False)` stay there, host numpy is copied once (to the CUDA card
 unless a `device` is given). The init and the
@@ -35,6 +48,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.mesh import as_device_list
 from ..utils.device import default_device
 from ..utils.geometry import geotrf, inv
 from ..utils.image import rgb
@@ -119,9 +133,7 @@ class BasePCOptimizer:
                  base_scale=0.5, allow_pw_adaptors=False, pw_break=20, rand_pose=None,
                  seed=0, verbose=True, obs_dtype=torch.bfloat16, edge_chunk=64, device=None,
                  mesh=None, **_ignored):
-        if mesh is not None:
-            raise NotImplementedError("the aligner's mesh path is not ported "
-                                      "(ROADMAP.md, queue A item 10)")
+        mesh = as_device_list(mesh)
         if obs_dtype in ("int8", torch.int8):
             obs_dtype = torch.int8
         elif obs_dtype not in (torch.bfloat16, torch.float32):
@@ -139,7 +151,10 @@ class BasePCOptimizer:
         self.dist = ALL_DISTS[dist]
         self.conf_trf = get_conf_trf(conf)
         self.conf_trf_np = get_conf_trf_np(conf)
-        dev = self.device = _scene_device(device, pred1["pts3d"])
+        if mesh is not None:  # the parameters live on the mesh's first device
+            dev = self.device = mesh[0]
+        else:
+            dev = self.device = _scene_device(device, pred1["pts3d"])
 
         idx1 = [int(i) for i in np.asarray(view1["idx"]).reshape(-1)]
         idx2 = [int(j) for j in np.asarray(view2["idx"]).reshape(-1)]
@@ -164,36 +179,46 @@ class BasePCOptimizer:
         self.conf_i = dict(zip(strs, host_conf_i))
         self.conf_j = dict(zip(strs, host_conf_j))
 
-        # the observations, built on the device, zero-padded to A
-        def padded(rows, fn=None):
+        # the edge shards: contiguous runs of edges, one a device of the mesh
+        devices = mesh or [dev]
+        bounds = np.linspace(0, E, min(len(devices), E) + 1).round().astype(int)
+        self.shards = [dict(device=d, edges=slice(int(a), int(b)))
+                       for d, a, b in zip(devices, bounds[:-1], bounds[1:])]
+
+        # the observations, built on their shard's device, zero-padded to A
+        def padded(rows, device, fn=None):
             out = None
             for e, r in enumerate(rows):
-                r = torch.as_tensor(r, device=dev).float()
+                r = torch.as_tensor(r, device=device).float()
                 if fn is not None:
                     r = fn(r)
                 if out is None:
-                    out = torch.zeros((E, A) + r.shape[2:], dtype=obs_dtype, device=dev)
+                    out = torch.zeros((len(rows), A) + r.shape[2:], dtype=obs_dtype,
+                                      device=device)
                 out[e, :r.shape[0] * r.shape[1]] = r.flatten(0, 1)
             return out
 
-        self.obs_scale = {}
         if self.obs_quant:
             # quantized on the host from host copies, as the JAX package does,
-            # the weights through the numpy confidence transform
+            # the weights through the numpy confidence transform; per edge, so
+            # a shard's rows are its edges' rows
             w_i = [self.conf_trf_np(c) for c in host_conf_i]
             w_j = [self.conf_trf_np(c) for c in host_conf_j]
-            for name, rows in (("pred_i", host_pred_i), ("pred_j", host_pred_j),
-                               ("w_i", w_i), ("w_j", w_j)):
-                q, scale = quantize_int8(rows, A)
-                setattr(self, "obs_" + name, torch.from_numpy(q).to(dev))
-                self.obs_scale[name] = torch.from_numpy(scale).to(dev)
-        else:
-            self.obs_pred_i = padded(pred_i)
-            self.obs_pred_j = padded(pred_j)
-            self.obs_w_i = padded(conf_i, self.conf_trf)
-            self.obs_w_j = padded(conf_j, self.conf_trf)
-        self.idx_i = torch.tensor(idx1, device=dev)
-        self.idx_j = torch.tensor(idx2, device=dev)
+            quantized = {name: quantize_int8(rows, A) for name, rows in (
+                ("pred_i", host_pred_i), ("pred_j", host_pred_j), ("w_i", w_i), ("w_j", w_j))}
+        for sh in self.shards:
+            d, e = sh["device"], sh["edges"]
+            if self.obs_quant:
+                for name, (q, scale) in quantized.items():
+                    sh[name] = torch.from_numpy(q[e]).to(d)
+                    sh["scale_" + name] = torch.from_numpy(scale[e]).to(d)
+            else:
+                sh["pred_i"] = padded(pred_i[e], d)
+                sh["pred_j"] = padded(pred_j[e], d)
+                sh["w_i"] = padded(conf_i[e], d, self.conf_trf)
+                sh["w_j"] = padded(conf_j[e], d, self.conf_trf)
+            sh["idx_i"] = torch.tensor(idx1[e], device=d)
+            sh["idx_j"] = torch.tensor(idx2[e], device=d)
         self.total_area_i = float(sum(self.im_areas[i] for i, j in self.edges))
         self.total_area_j = float(sum(self.im_areas[j] for i, j in self.edges))
 
@@ -233,6 +258,26 @@ class BasePCOptimizer:
     @property
     def n_edges(self):
         return len(self.edges)
+
+    def _whole(self, key):
+        """An observation tensor of every edge: the one shard's, or the
+        shards' joined on the scene's device."""
+        parts = [sh[key] for sh in self.shards]
+        return parts[0] if len(parts) == 1 else torch.cat([p.to(self.device) for p in parts])
+
+    obs_pred_i = property(lambda self: self._whole("pred_i"))
+    obs_pred_j = property(lambda self: self._whole("pred_j"))
+    obs_w_i = property(lambda self: self._whole("w_i"))
+    obs_w_j = property(lambda self: self._whole("w_j"))
+    idx_i = property(lambda self: self._whole("idx_i"))
+    idx_j = property(lambda self: self._whole("idx_j"))
+
+    @property
+    def obs_scale(self):
+        """int8 observations' scales by name ({} otherwise)."""
+        if not self.obs_quant:
+            return {}
+        return {name: self._whole("scale_" + name) for name in ("pred_i", "pred_j", "w_i", "w_j")}
 
     @property
     def str_edges(self):
@@ -373,16 +418,25 @@ class BasePCOptimizer:
                                   adapt[:, None, :] * pred.float())
             return self.dist(proj.index_select(0, idx), aligned, w.float()).sum()
 
-        def side(name, idx, total):
-            pred, w = getattr(self, "obs_pred_" + name), getattr(self, "obs_w_" + name)
+        def side(sh, name, poses, adapt, proj):
+            pred, w, idx = sh["pred_" + name], sh["w_" + name], sh["idx_" + name]
             if not self.obs_quant:
-                return term(poses, adapt, proj, pred, w, idx) / total
+                return term(poses, adapt, proj, pred, w, idx)
             return self._chunked_term(term, poses, adapt, proj, pred, w, idx,
-                                      self.obs_scale["pred_" + name],
-                                      self.obs_scale["w_" + name]) / total
+                                      sh["scale_pred_" + name], sh["scale_w_" + name])
 
-        return (side("i", self.idx_i, self.total_area_i)
-                + side("j", self.idx_j, self.total_area_j))
+        if len(self.shards) == 1:
+            sh = self.shards[0]
+            return (side(sh, "i", poses, adapt, proj) / self.total_area_i
+                    + side(sh, "j", poses, adapt, proj) / self.total_area_j)
+        sums = {"i": [], "j": []}
+        for sh in self.shards:  # each shard's partial sums, on its device
+            d, e = sh["device"], sh["edges"]
+            shard_args = (poses[e].to(d), adapt[e].to(d), proj.to(d))
+            for name in sums:
+                sums[name].append(side(sh, name, *shard_args).to(self.device))
+        return (torch.stack(sums["i"]).sum() / self.total_area_i
+                + torch.stack(sums["j"]).sum() / self.total_area_j)
 
     def _chunked_term(self, term, poses, adapt, proj, q_pred, q_w, idx, s_pred, s_w):
         """The sum of `term` over edge chunks of int8 observations, each
@@ -395,7 +449,7 @@ class BasePCOptimizer:
                         self.dequantize(q_w, s_w), idx)
 
         total = 0.0
-        for a in range(0, self.n_edges, self.edge_chunk):
+        for a in range(0, len(idx), self.edge_chunk):
             e = slice(a, a + self.edge_chunk)
             args = (poses[e], adapt[e], proj, q_pred[e], q_w[e], idx[e], s_pred[e], s_w[e])
             if torch.is_grad_enabled():

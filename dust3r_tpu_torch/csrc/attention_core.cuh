@@ -62,6 +62,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "device_attr.cuh"
+
 namespace attn {
 
 constexpr int kRowsPerBlock = 64;  // query rows of each head in a block
@@ -653,9 +655,9 @@ template <int D, int G, int S>
 int launch_bf16(const Args& a, int batch, cudaStream_t stream) {
   constexpr size_t kSmem = Tiles<D>::smem_bytes(G);
   if constexpr (kSmem > 48 * 1024) {  // above 48 KB only when asked for
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        attn_bf16_kernel<D, G, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kSmem));
+    static devattr::SmemLimit limit;
+    const cudaError_t attr =
+        limit.raise_on_current_device(attn_bf16_kernel<D, G, S>, static_cast<int>(kSmem));
     if (attr != cudaSuccess) return static_cast<int>(attr);
   }
   const dim3 grid((a.nq + kRowsPerBlock - 1) / kRowsPerBlock, batch * (a.heads / G));

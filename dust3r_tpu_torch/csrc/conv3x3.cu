@@ -276,9 +276,9 @@ int launch(const CUtensorMap& xmap, const CUtensorMap& wmap, const float* bias, 
            int splits, cudaStream_t stream) {
   constexpr size_t kSmem = sizeof(Smem<BN, T>) + 1024;
   static_assert(kSmem <= 232448, "a block's shared memory on sm_90");
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      conv3x3_sm90_kernel<BN, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmem));
+  static devattr::SmemLimit limit;
+  const cudaError_t attr =
+      limit.raise_on_current_device(conv3x3_sm90_kernel<BN, T>, static_cast<int>(kSmem));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int tiles = batch * ((H + kBH - 1) / kBH) * ((W + kBW - 1) / kBW) * (cout / BN);
   const dim3 grid(tiles, splits);

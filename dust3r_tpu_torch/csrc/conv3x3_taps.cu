@@ -285,9 +285,9 @@ int launch(const void* x0, const void* x1, const void* x2, const void* wk, void*
   }
   if (err != 0) return err == sm90::kNoEncoder ? err : 1000 + err;
 
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      conv3x3_taps_sm90_kernel<BN, kChunk>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmem));
+  static devattr::SmemLimit limit;
+  const cudaError_t attr = limit.raise_on_current_device(conv3x3_taps_sm90_kernel<BN, kChunk>,
+                                                         static_cast<int>(kSmem));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   int device = 0, sms = 0;
   cudaError_t dev_err = cudaGetDevice(&device);

@@ -371,9 +371,9 @@ template <bool kBf16>
 int launch(const CUtensorMap& ymap, const void* w2p, const void* b2, const void* w3,
            const void* b3, float conf_vmin, void* pts, void* conf, int H, int W, int tiles_w,
            int tiles_img, int tiles, int grid, cudaStream_t stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      dpt_tail_sm90_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmem));
+  static devattr::SmemLimit limit;
+  const cudaError_t attr =
+      limit.raise_on_current_device(dpt_tail_sm90_kernel<kBf16>, static_cast<int>(kSmem));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   dpt_tail_sm90_kernel<kBf16><<<grid, kThreads, kSmem, stream>>>(
       ymap, static_cast<const __nv_bfloat16*>(w2p), static_cast<const float*>(b2),

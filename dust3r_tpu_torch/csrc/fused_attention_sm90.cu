@@ -665,9 +665,9 @@ int kv_map(CUtensorMap* map, const void* base, const attn::Strides& st, int batc
 template <bool kRope, int S>
 int launch(const CUtensorMap& kmap, const CUtensorMap& vmap, const Args& a, int batch, int group,
            cudaStream_t stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      attn_sm90_kernel<kRope, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
+  static devattr::SmemLimit limit;
+  const cudaError_t attr =
+      limit.raise_on_current_device(attn_sm90_kernel<kRope, S>, static_cast<int>(kSmemBytes));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);

@@ -38,6 +38,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_attr.cuh"
+
 namespace sm90 {
 
 // ---- shared memory and mbarriers ------------------------------------------

@@ -75,10 +75,13 @@ class DataLoader(torch.utils.data.DataLoader):
             self.dataset.set_epoch(epoch)
 
 
-def get_data_loader(dataset, batch_size, num_workers=4, shuffle=True, drop_last=True):
+def get_data_loader(dataset, batch_size, num_workers=4, shuffle=True, drop_last=True,
+                    world_size=1, rank=0):
     """The reference's entry: a DSL string or a dataset -> the loader. A
     shuffled loader walks the batch-aligned sampler (one resolution a
-    batch); an unshuffled one the indices in order."""
+    batch), rank `rank`'s share of it when `world_size` > 1; an unshuffled
+    one every index in order, on every rank (test loaders are not split,
+    as in JAX)."""
     if isinstance(dataset, str):
         dataset = build_dataset(dataset)
     workers = dict(num_workers=num_workers, collate_fn=collate_views,
@@ -86,7 +89,8 @@ def get_data_loader(dataset, batch_size, num_workers=4, shuffle=True, drop_last=
     if num_workers > 0:
         workers["multiprocessing_context"] = multiprocessing.get_context("spawn")
     try:
-        sampler = dataset.make_sampler(batch_size, shuffle=shuffle, drop_last=drop_last)
+        sampler = dataset.make_sampler(batch_size, shuffle=shuffle, world_size=world_size,
+                                       rank=rank, drop_last=drop_last)
     except NotImplementedError:
         return DataLoader(dataset, batch_size=batch_size, shuffle=False, drop_last=drop_last,
                           **workers)

@@ -27,11 +27,11 @@ class EasyDataset:
     def set_epoch(self, epoch):
         pass  # stateless datasets have nothing to reseed
 
-    def make_sampler(self, batch_size, shuffle=True, drop_last=True):
+    def make_sampler(self, batch_size, shuffle=True, world_size=1, rank=0, drop_last=True):
         if not shuffle:
             raise NotImplementedError("sequential sampling not supported")
         return BatchedRandomSampler(self, batch_size, len(self._resolutions),
-                                    drop_last=drop_last)
+                                    world_size=world_size, rank=rank, drop_last=drop_last)
 
 
 class _IndexMapped(EasyDataset):

@@ -17,8 +17,10 @@ JAX package does. `gradio` is imported only inside the UI functions.
 
 `--quantize int8` runs the transformer's projections on int8 operands
 (`ops/quant.py`); `--serving` is the JAX package's serving configuration:
-bf16 body, bf16 heads and `--quantize int8`. `--mesh` (data parallel over
-cards, ROADMAP.md queue A item 10) is not ported and raises.
+bf16 body, bf16 heads and `--quantize int8`. `--mesh N` splits each batch
+of N pairs over the first N cards (`InferenceEngine(mesh=)`, one replica a
+card) and the aligner's edges over the same cards, as the root `demo.py`
+does; more cards than are visible raises.
 """
 from __future__ import annotations
 
@@ -60,7 +62,8 @@ def get_args_parser():
     parser.add_argument("--device", type=str, default="cuda",
                         help="where the model and the aligner run")
     parser.add_argument("--mesh", type=int, default=0,
-                        help="shard inference over this many devices (not ported)")
+                        help="shard inference and the aligner's edges over this many cards "
+                             "(0: one device, --device)")
     parser.add_argument("--quantize", type=str, default=None, choices=["int8"],
                         help="int8 serving mode: the transformer's projections on int8 "
                              "operands (ops/quant.py)")
@@ -224,7 +227,8 @@ def get_reconstructed_scene(outdir, engine, device, silent, image_size, filelist
 
     mode = (GlobalAlignerMode.PointCloudOptimizer if len(imgs) > 2
             else GlobalAlignerMode.PairViewer)
-    scene = global_aligner(output, device=device, mode=mode, verbose=not silent)
+    scene = global_aligner(output, device=device, mode=mode, verbose=not silent,
+                           mesh=getattr(engine, "mesh", None))
     seconds["scene"] = lap()
     if mode == GlobalAlignerMode.PointCloudOptimizer:
         scene.compute_global_alignment(init="mst", niter=niter, schedule=schedule, lr=0.01)
@@ -325,10 +329,10 @@ def main(argv=None):
     """What the root `demo.py` does, on the port: load the weights, build
     the engine, then serve the UI (or, with --images, reconstruct once
     without it)."""
+    from .parallel.mesh import cli_pair_mesh
+
     args = get_args_parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("--mesh (inference over several cards) is not ported "
-                                  "(ROADMAP.md, queue A item 10)")
+    mesh, batch_size = cli_pair_mesh(args.mesh)
     set_print_with_timestamp()
     if args.tmp_dir is not None:
         os.makedirs(args.tmp_dir, exist_ok=True)
@@ -340,7 +344,12 @@ def main(argv=None):
 
     model = from_pretrained(args.weights or "naver/" + args.model_name, device=args.device,
                             verbose=not args.silent, **serving_overrides(args))
-    engine = InferenceEngine(model, quantize=args.quantize)
+    if mesh is None:
+        engine = InferenceEngine(model, quantize=args.quantize)
+    else:
+        print(f"data-parallel inference over {batch_size} devices")
+        engine = InferenceEngine(model, batch_size=batch_size, quantize=args.quantize,
+                                 mesh=mesh)
     if args.images is not None:
         filelist = args.images[0] if len(args.images) == 1 and os.path.isdir(args.images[0]) \
             else args.images

@@ -10,17 +10,31 @@ pred1, pred2} output dict):
   * predictions come back as numpy (`to_cpu=True`) or stay on the device;
   * `quantize="int8"` converts the model to the int8 serving mode
     (`ops/quant.py`) at construction, in place, unless it already holds
-    `QuantLinear`s.
-`encoder_batches` and `pair_batches` count the batches the engine ran.
+    `QuantLinear`s;
+  * `mesh=[devices]` splits each encoder batch and each pair batch over
+    the devices, as JAX's `InferenceEngine(mesh=)` shards them over its
+    mesh: one replica of the model a device (made after any int8
+    conversion; a repeated device holds one more replica), each shard run
+    on its device from a thread of its own under that device's guard and
+    current stream (as `torch.nn.parallel.parallel_apply` does; the
+    kernels' launchers release the GIL), the encoder features copied to
+    every device so the pair gathers stay local; the outputs are gathered
+    on the first device. batch_size must be a multiple of the devices.
+`encoder_batches` and `pair_batches` count the batches the engine ran (a
+batch of a mesh is one batch, whatever its shards).
 `get_pred_pts3d` and `find_opt_scaling` decode and scale predictions for
 the training losses (`dust3r_tpu/inference.py:295-369`).
 """
 from __future__ import annotations
 
+import copy
+import threading
 from collections import defaultdict
 
 import numpy as np
 import torch
+
+from .parallel.mesh import as_device_list
 
 
 def _pad_batch(arrs, bs):
@@ -31,11 +45,52 @@ def _pad_batch(arrs, bs):
     return x
 
 
+def _on_device(device, fn):
+    """fn() in inference mode under `device`'s guard and current stream
+    (grad modes and the current device are per thread)."""
+    with torch.inference_mode():
+        if device.type != "cuda":
+            return fn()
+        with torch.cuda.device(device), torch.cuda.stream(torch.cuda.current_stream(device)):
+            return fn()
+
+
+def run_shards(devices, fns):
+    """fns[k]() on devices[k], one thread a shard beyond the first (which
+    runs in the caller's thread); the results in order. A shard's
+    exception is raised here once every shard has ended."""
+    if len(fns) == 1:
+        return [_on_device(devices[0], fns[0])]
+    results, errors = [None] * len(fns), [None] * len(fns)
+
+    def worker(k):
+        try:
+            results[k] = _on_device(devices[k], fns[k])
+        except BaseException as e:  # noqa: BLE001 - re-raised by the caller
+            errors[k] = e
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(1, len(fns))]
+    for t in threads:
+        t.start()
+    worker(0)
+    for t in threads:
+        t.join()
+    for e in errors:
+        if e is not None:
+            raise e
+    return results
+
+
 class InferenceEngine:
     """Two-view inference over a scene graph with an AsymmetricCroCo3DStereo."""
 
-    def __init__(self, model, batch_size=8, quantize=None):
-        """quantize: None or "int8" (any other value raises, as in JAX)."""
+    def __init__(self, model, batch_size=8, quantize=None, mesh=None):
+        """quantize: None or "int8" (any other value raises, as in JAX).
+        mesh: None (the model's device) or a list of devices, the pair axis
+        (see the module docstring; JAX's `mesh=`)."""
+        devices = as_device_list(mesh)
+        if devices is not None and batch_size % len(devices):
+            raise ValueError(f"batch_size {batch_size} not divisible by {len(devices)} devices")
         if quantize is not None:
             if quantize != "int8":
                 raise ValueError(f"unsupported quantize mode {quantize!r}")
@@ -45,16 +100,28 @@ class InferenceEngine:
                 quantize_for_inference(model)
         self.model = model.eval()
         self.batch_size = batch_size
-        self.device = next(model.parameters()).device
+        self.mesh = devices
+        if devices is None:
+            self.devices = [next(model.parameters()).device]
+            self.replicas = [model]
+        else:
+            self.devices = devices
+            self.replicas = [model.to(devices[0])] + [copy.deepcopy(model).to(d)
+                                                      for d in devices[1:]]
+        self.device = self.devices[0]
         self.encoder_batches = 0
         self.pair_batches = 0
+
+    @property
+    def n_shards(self):
+        return len(self.devices)
 
     @torch.inference_mode()
     def encode_views(self, views):
         """Encode unique view dicts once each.
 
-        Returns ({id(view): (shape, slot)}, {shape: (feats, pos)}) with
-        features stacked (U, S, D) per shape bucket.
+        Returns ({id(view): (shape, slot)}, {shape: [(feats, pos) on each
+        device]}) with features stacked (U, S, D) per shape bucket.
         """
         unique = {}
         for v in views:
@@ -66,10 +133,10 @@ class InferenceEngine:
                 raise ValueError(f"views hold (1, H, W, 3) images, got {tuple(img.shape)}")
             by_shape[tuple(img.shape[1:3])].append(key)
 
-        bs = self.batch_size
+        bs, n = self.batch_size, self.n_shards
         slots, stacked = {}, {}
         for shape, keys in by_shape.items():
-            chunks_f, chunks_p = [], []
+            chunks = []  # (feats, pos) of each shard of each batch
             for i in range(0, len(keys), bs):
                 chunk = keys[i:i + bs]
                 arrs = [unique[k]["img"] for k in chunk]
@@ -77,13 +144,17 @@ class InferenceEngine:
                     imgs = torch.cat(arrs + arrs[-1:] * (bs - len(arrs)))
                 else:
                     imgs = torch.from_numpy(_pad_batch([np.asarray(a)[0] for a in arrs], bs))
-                f, pos = self.model.encode(imgs.to(self.device))
+                shards = imgs.split(bs // n)
+                chunks += run_shards(self.devices, [
+                    (lambda m=m, x=x, d=d: m.encode(x.to(d)))
+                    for m, x, d in zip(self.replicas, shards, self.devices)])
                 self.encoder_batches += 1
-                chunks_f.append(f[:len(chunk)])
-                chunks_p.append(pos[:len(chunk)])
-                for n, k in enumerate(chunk):
-                    slots[k] = (shape, i + n)
-            stacked[shape] = (torch.cat(chunks_f), torch.cat(chunks_p))
+                for m, k in enumerate(chunk):
+                    slots[k] = (shape, i + m)
+            total = len(keys)  # trim the pad; the stack on every device
+            stacked[shape] = [
+                tuple(torch.cat([c[j].to(d) for c in chunks])[:total] for j in (0, 1))
+                for d in self.devices]
         return slots, stacked
 
     @torch.inference_mode()
@@ -91,9 +162,8 @@ class InferenceEngine:
         """Run the two-view model over a list of (view1, view2) dict pairs.
 
         Returns the reference-format output dict; predictions are numpy
-        when to_cpu, else tensors on the device.
+        when to_cpu, else tensors on the (first) device.
         """
-        model = self.model
         views = [v for pair in pairs for v in pair]
         slots, stacked = self.encode_views(views)
 
@@ -104,29 +174,39 @@ class InferenceEngine:
         pred1 = [None] * len(pairs)
         pred2 = [None] * len(pairs)
         bs = self.batch_size
+        per_shard = bs // self.n_shards
+
+        def shard(k, s1, s2, i1, i2):
+            (feats1, pos1), (feats2, pos2) = stacked[s1][k], stacked[s2][k]
+            model, dev = self.replicas[k], self.devices[k]
+            i1, i2 = i1.to(dev), i2.to(dev)
+            dec1, dec2 = model.decode(feats1.index_select(0, i1), pos1.index_select(0, i1),
+                                      feats2.index_select(0, i2), pos2.index_select(0, i2))
+            r1 = model.head(1, dec1, s1)
+            r2 = model.head(2, dec2, s2)
+            r2["pts3d_in_other_view"] = r2.pop("pts3d")
+            return r1, r2
+
         for (s1, s2), idxs in by_bucket.items():
-            feats1, pos1 = stacked[s1]
-            feats2, pos2 = stacked[s2]
             parts1, parts2 = [], []
             for i in range(0, len(idxs), bs):
                 chunk = idxs[i:i + bs]
                 pad = bs - len(chunk)
                 slot1 = [slots[id(pairs[n][0])][1] for n in chunk]
                 slot2 = [slots[id(pairs[n][1])][1] for n in chunk]
-                i1 = torch.tensor(slot1 + slot1[-1:] * pad, device=self.device)
-                i2 = torch.tensor(slot2 + slot2[-1:] * pad, device=self.device)
-                dec1, dec2 = model.decode(feats1.index_select(0, i1), pos1.index_select(0, i1),
-                                          feats2.index_select(0, i2), pos2.index_select(0, i2))
-                r1 = model.head(1, dec1, s1)
-                r2 = model.head(2, dec2, s2)
-                r2["pts3d_in_other_view"] = r2.pop("pts3d")
+                i1 = torch.tensor(slot1 + slot1[-1:] * pad).split(per_shard)
+                i2 = torch.tensor(slot2 + slot2[-1:] * pad).split(per_shard)
+                outs = run_shards(self.devices, [
+                    (lambda k=k: shard(k, s1, s2, i1[k], i2[k])) for k in range(self.n_shards)])
                 self.pair_batches += 1
-                parts1.append(r1)
-                parts2.append(r2)
+                parts1 += [r1 for r1, _ in outs]
+                parts2 += [r2 for _, r2 in outs]
 
             total = len(idxs)  # concatenate once per bucket, trim the pad
-            bucket1 = {k: torch.cat([p[k] for p in parts1])[:total] for k in parts1[0]}
-            bucket2 = {k: torch.cat([p[k] for p in parts2])[:total] for k in parts2[0]}
+            bucket1 = {k: torch.cat([p[k].to(self.device) for p in parts1])[:total]
+                       for k in parts1[0]}
+            bucket2 = {k: torch.cat([p[k].to(self.device) for p in parts2])[:total]
+                       for k in parts2[0]}
             if to_cpu:
                 bucket1 = {k: v.cpu().numpy() for k, v in bucket1.items()}
                 bucket2 = {k: v.cpu().numpy() for k, v in bucket2.items()}

@@ -8,16 +8,75 @@ The DSL of the reference's command lines holds:
     ConfLoss(Regr3D(L21, norm_mode='avg_dis'), alpha=0.2)
     Regr3D_ScaleShiftInv(L21, gt_scale=True)
     loss_a + 0.1 * loss_b
+
+In a data-parallel step each rank holds a slice of the batch; inside
+`global_batch(group)` every batch-wide masked mean (`batch_mean`: the
+pixel losses' mean, ConfLoss's, Regr3D's details) is the mean over the
+valid pixels of the whole batch across the ranks, as JAX's sharded step
+computes it on its global batch: the valid count is all-reduced (no
+gradient) and each rank's masked sum is scaled by world_size / count, so
+DistributedDataParallel's average of the ranks' gradients is the gradient
+of the global mean, and the mean of the ranks' losses its value. (The
+reference's DDP averages each rank's own mean instead, which differs
+wherever the ranks' valid counts do: ROADMAP.md §C.)
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 
 import torch
+import torch.distributed as dist
 
 from .inference import get_pred_pts3d
 from .utils.geometry import (geotrf, get_joint_pointcloud_center_scale,
                              get_joint_pointcloud_depth, masked_mean, normalize_pointcloud)
+
+
+class _GlobalBatch:
+    """The ranks of `group` share one batch: each mask's valid count is
+    all-reduced once (cached by the mask tensor's identity while the
+    context lasts)."""
+
+    def __init__(self, group):
+        self.group = group
+        self.world_size = dist.get_world_size(group)
+        self.counts = []
+
+    def count(self, mask, dtype):
+        for m, d, c in self.counts:
+            if m is mask and d == dtype:
+                return c
+        c = mask.detach().to(dtype).sum()
+        dist.all_reduce(c, group=self.group)
+        self.counts.append((mask, dtype, c))
+        return c
+
+
+_GLOBAL_BATCH = None
+
+
+@contextlib.contextmanager
+def global_batch(group=None):
+    """Within: `batch_mean` is the mean over the batch of every rank of
+    `group` (torch.distributed's default group for None)."""
+    global _GLOBAL_BATCH
+    prev, _GLOBAL_BATCH = _GLOBAL_BATCH, _GlobalBatch(group)
+    try:
+        yield
+    finally:
+        _GLOBAL_BATCH = prev
+
+
+def batch_mean(x, mask):
+    """The mean of x over the batch's valid pixels, 0 where none is: this
+    process's batch (`masked_mean`), or inside `global_batch` the ranks'
+    whole batch, as world_size / global count times this rank's masked
+    sum."""
+    if _GLOBAL_BATCH is None:
+        return masked_mean(x, mask)
+    count = _GLOBAL_BATCH.count(mask, x.dtype)
+    return (x * mask.to(x.dtype)).sum() * (_GLOBAL_BATCH.world_size / count.clamp(min=1e-8))
 
 
 class BaseCriterion:
@@ -36,9 +95,11 @@ class LLoss(BaseCriterion):
         if mask is None:
             mask = torch.ones_like(dist, dtype=torch.bool)
         if self.reduction == "sum":
-            return torch.where(mask, dist, torch.zeros_like(dist)).sum()
+            total = torch.where(mask, dist, torch.zeros_like(dist)).sum()
+            # the ranks' whole batch: DDP's average of world_size x each sum
+            return total if _GLOBAL_BATCH is None else total * _GLOBAL_BATCH.world_size
         if self.reduction == "mean":
-            return masked_mean(dist, mask)
+            return batch_mean(dist, mask)
         raise ValueError(f"bad reduction {self.reduction}")
 
     def distance(self, a, b):
@@ -172,8 +233,8 @@ class Regr3D(Criterion, MultiLoss):
         l2 = self.criterion(pred_pts2, gt_pts2, mask2)
         name = type(self).__name__
         if self.criterion.reduction == "none":
-            details = {name + "_pts3d_1": masked_mean(l1, mask1),
-                       name + "_pts3d_2": masked_mean(l2, mask2)}
+            details = {name + "_pts3d_1": batch_mean(l1, mask1),
+                       name + "_pts3d_2": batch_mean(l2, mask2)}
             return ((l1, mask1), (l2, mask2)), {**details, **monitoring}
         details = {name + "_pts3d_1": l1, name + "_pts3d_2": l2}
         return l1 + l2, {**details, **monitoring}
@@ -196,8 +257,8 @@ class ConfLoss(MultiLoss):
     def compute_loss(self, gt1, gt2, pred1, pred2, **kw):
         ((loss1, msk1), (loss2, msk2)), details = self.pixel_loss(gt1, gt2, pred1, pred2, **kw)
         conf1, conf2 = pred1["conf"], pred2["conf"]
-        conf_loss1 = masked_mean(loss1 * conf1 - self.alpha * torch.log(conf1), msk1)
-        conf_loss2 = masked_mean(loss2 * conf2 - self.alpha * torch.log(conf2), msk2)
+        conf_loss1 = batch_mean(loss1 * conf1 - self.alpha * torch.log(conf1), msk1)
+        conf_loss2 = batch_mean(loss2 * conf2 - self.alpha * torch.log(conf2), msk2)
         return conf_loss1 + conf_loss2, {"conf_loss_1": conf_loss1, "conf_loss2": conf_loss2,
                                          **details}
 

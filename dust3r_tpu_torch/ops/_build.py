@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -24,7 +25,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
+_count_lock = threading.Lock()
 build_seconds: dict[str, float] = {}  # seconds each library took to build
+
+
+def count_launch(fn, attr="launches", n=1):
+    """Add n to a wrapper's launch counter `fn.<attr>`, under a lock: the
+    inference engine runs the shards of a mesh from one thread each."""
+    with _count_lock:
+        setattr(fn, attr, getattr(fn, attr) + n)
 
 
 def nvcc_path():
@@ -86,7 +96,8 @@ def library_path(name):
 
 def load_library(name):
     """Build (if needed) and load `csrc/<name>.cu` as a ctypes library."""
-    if name not in _loaded:
-        build([name])
-        _loaded[name] = ctypes.CDLL(str(library_path(name)))
-    return _loaded[name]
+    with _load_lock:  # the engine's shard threads may ask at once
+        if name not in _loaded:
+            build([name])
+            _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        return _loaded[name]

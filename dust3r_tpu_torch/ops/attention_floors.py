@@ -49,6 +49,7 @@ import numbers
 
 import torch
 
+from ._build import count_launch
 from .fused_attention import CORES, check, kernel_heads_per_program, launch, launch_sm90
 from .rope import apply_rope2d, rope_tables
 
@@ -171,11 +172,11 @@ def attention_floor(q, k, v, positions_q, positions_k, rope_base=100.0, *, mode,
     if core == "sm90":
         out = launch_sm90(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k, G,
                           softmax=SM90_CODES[mode])
-        attention_floor.launches += 1
+        count_launch(attention_floor, "launches")
         return out
     out = launch(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k, G,
                  softmax=MODES.index(mode), entry=_kernel())
-    attention_floor.core_launches += 1
+    count_launch(attention_floor, "core_launches")
     return out
 
 

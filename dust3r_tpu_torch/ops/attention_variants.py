@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import torch
 
+from ._build import count_launch
 from .attention_floors import check_heads_per_program
 from .fused_attention import CORES, SM90_HEAD_DIM, check, launch, launch_sm90, route
 from .rope import apply_rope2d
@@ -98,11 +99,11 @@ def attention_variant(q, k, v, positions_q=None, positions_k=None, rope_base=100
     if core == "sm90":
         out = launch_sm90(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k, G,
                           softmax=_CODES[softmax])
-        attention_variant.launches += 1
+        count_launch(attention_variant, "launches")
         return out
     out = launch(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k,
                  softmax=_CODES[softmax])
-    attention_variant.core_launches += 1
+    count_launch(attention_variant, "core_launches")
     return out
 
 

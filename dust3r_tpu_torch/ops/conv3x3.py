@@ -44,6 +44,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ._build import count_launch
+
 IMPLS = ("ref", "kernel")
 CHANNEL_MULTIPLE = 32  # the kernel's k-tile (Cin) and narrowest n-tile (Cout)
 
@@ -201,8 +203,8 @@ def conv3x3_kernel(x, w, b=None, packed=None):
         raise RuntimeError(f"conv3x3 kernel launch failed: error {err} (x {tuple(x.shape)}, "
                            f"Cout {cout}, {bn} channels a block, {splits} splits; above 1000: "
                            f"1000 + the CUresult of encoding a tensor map)")
-    conv3x3_kernel.launches += 1
-    conv3x3_kernel.bf16_launches += int(x.dtype == torch.bfloat16)
+    count_launch(conv3x3_kernel, "launches")
+    count_launch(conv3x3_kernel, "bf16_launches", int(x.dtype == torch.bfloat16))
     return y
 
 

@@ -51,6 +51,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ._build import count_launch
+
 VARIANTS = ("slices", "copies")
 CORES = ("sm90", "mma")  # csrc/conv3x3_taps.cu, csrc/conv3x3_taps_mma.cu (the baseline)
 CHANNEL_MULTIPLE = 32  # the kernels' narrowest k-step (Cin) and n-tile (Cout)
@@ -193,11 +195,11 @@ def tap_sums(taps, wt, variant, core=None):
         raise RuntimeError(f"conv3x3_taps {core} kernel launch failed: CUDA error {err} "
                            f"(x {(B, H, W, cin)}, Cout {n // 3}, {variant})")
     if core == "mma":
-        tap_sums.mma_launches += 1
+        count_launch(tap_sums, "mma_launches")
     elif variant == "copies":
-        tap_sums.copies_launches += 1
+        count_launch(tap_sums, "copies_launches")
     else:
-        tap_sums.slices_launches += 1
+        count_launch(tap_sums, "slices_launches")
     return z
 
 

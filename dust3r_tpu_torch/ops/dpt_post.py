@@ -29,6 +29,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ._build import count_launch
 from .dpt_tail import HIDDEN, NOUT, _postprocess
 
 
@@ -92,7 +93,7 @@ def dpt_post_kernel(h, w3, b3, conf_vmin=1.0):
     if err != 0:
         raise RuntimeError(f"dpt_post kernel launch failed: CUDA error {err} "
                            f"(h {tuple(h.shape)})")
-    dpt_post_kernel.launches += 1
+    count_launch(dpt_post_kernel, "launches")
     return pts, conf
 
 

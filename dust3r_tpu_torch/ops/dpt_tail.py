@@ -51,6 +51,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ._build import count_launch
+
 IMPLS = ("ref", "kernel")
 CIN, HIDDEN, NOUT = 128, 32, 4  # y's channels, conv2's outputs, conv3's outputs
 
@@ -183,8 +185,8 @@ def dpt_tail_kernel(y, w2, b2, w3, b3, conf_vmin, packed=None):
         raise RuntimeError(f"dpt_tail kernel launch failed: error {err} (y {tuple(y.shape)}; "
                            f"-1: a size it does not take; above 1000: 1000 + the CUresult "
                            f"of encoding y's tensor map)")
-    dpt_tail_kernel.launches += 1
-    dpt_tail_kernel.bf16_launches += int(y.dtype == torch.bfloat16)
+    count_launch(dpt_tail_kernel, "launches")
+    count_launch(dpt_tail_kernel, "bf16_launches", int(y.dtype == torch.bfloat16))
     return pts, conf
 
 

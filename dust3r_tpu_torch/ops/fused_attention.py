@@ -49,6 +49,7 @@ import numbers
 
 import torch
 
+from ._build import count_launch
 from .rope import apply_rope2d, rope_tables
 
 SUPPORTED_HEAD_DIMS = (16, 24, 32, 64)
@@ -317,13 +318,14 @@ def fused_attention(q, k, v, positions_q=None, positions_k=None, rope_base=100.0
     check(q, k, v, positions_q, positions_k, G)
     if core == "sm90":
         out = launch_sm90(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k, G)
-        fused_attention.launches += 1
-        fused_attention.grouped_launches += int(G > 1)
+        count_launch(fused_attention, "launches")
+        count_launch(fused_attention, "grouped_launches", int(G > 1))
         return out
     out = launch(q, k, v, positions_q, positions_k, rope_base, tables_q, tables_k, G)
-    fused_attention.core_launches += 1
+    count_launch(fused_attention, "core_launches")
     # the core's fp32 kernel runs one head a block for any G
-    fused_attention.core_grouped_launches += int(G > 1 and q.dtype == torch.bfloat16)
+    count_launch(fused_attention, "core_grouped_launches",
+                 int(G > 1 and q.dtype == torch.bfloat16))
     return out
 
 

@@ -45,6 +45,8 @@ import ctypes
 import torch
 from torch import nn
 
+from ._build import count_launch
+
 # Linear names quantized inside the encoder and decoder blocks
 BLOCK_TARGETS = frozenset({"qkv", "proj", "projq", "projk", "projv", "fc1", "fc2"})
 BLOCK_STACKS = ("enc_blocks", "dec_blocks", "dec_blocks2")
@@ -120,7 +122,7 @@ def quantize_rows(x):
     if err != 0:
         raise RuntimeError(f"quantize kernel launch failed: CUDA error {err} "
                            f"(x {tuple(x.shape)} {x.dtype})")
-    quantize_rows.launches += 1
+    count_launch(quantize_rows, "launches")
     return xq, inv_r
 
 
@@ -160,7 +162,7 @@ def dequant(acc, inv_r, scale, bias, dtype):
     if err != 0:
         raise RuntimeError(f"dequant kernel launch failed: CUDA error {err} "
                            f"(acc {tuple(acc.shape)})")
-    dequant.launches += 1
+    count_launch(dequant, "launches")
     return y
 
 

@@ -35,6 +35,8 @@ import ctypes
 
 import torch
 
+from ._build import count_launch
+
 IMPLS = ("ref", "kernel")
 # the kernel moves 16 bytes an access: 4 fp32 or 8 bf16 channels
 CHANNEL_MULTIPLE = {torch.float32: 4, torch.bfloat16: 8}
@@ -119,8 +121,8 @@ def up2x_kernel(x):
     if err != 0:
         raise RuntimeError(f"up2x kernel launch failed: CUDA error {err} "
                            f"(x {tuple(x.shape)})")
-    up2x_kernel.launches += 1
-    up2x_kernel.bf16_launches += int(x.dtype == torch.bfloat16)
+    count_launch(up2x_kernel, "launches")
+    count_launch(up2x_kernel, "bf16_launches", int(x.dtype == torch.bfloat16))
     return y
 
 

@@ -2,9 +2,15 @@
 
 The root `train.py`'s flags (the reference's), driving
 `dust3r_tpu_torch.training.train` on the CUDA card (`--device cpu` for the
-CPU). `--mesh` (several cards) is not ported yet and raises (ROADMAP.md
-queue A item 10); `--scan_layers` is an XLA compile-time option with no
-effect here; `--remat_policy` takes 'full' only.
+CPU). `--mesh N` trains data-parallel, one process a card
+(`DistributedDataParallel` over `--dist_backend`, nccl by default):
+
+    python -m dust3r_tpu_torch.train --mesh 4 ...                    # starts 4 ranks
+    torchrun --nproc_per_node 4 -m dust3r_tpu_torch.train --mesh 4 ...  # the launcher's
+
+`--mesh N,F[,M]` with F or M above 1 (parameter sharding, the tensor-parallel
+MLP) raises (ROADMAP.md A10b); `--scan_layers` is an XLA compile-time option
+with no effect here; `--remat_policy` takes 'full' only.
 """
 import argparse
 
@@ -47,11 +53,19 @@ def get_args_parser():
                         help="'full' only: 'dots' is an XLA checkpoint policy and raises")
     parser.add_argument("--num_workers", default=8, type=int)
     parser.add_argument("--mesh", default="", type=str,
-                        help="several cards: not ported yet, raises")
+                        help="data-parallel ranks, one a card: 'N' or 'auto' (every visible "
+                             "card); 'N,F[,M]' with F or M > 1 is not ported (A10b)")
+    parser.add_argument("--dist_backend", default="nccl", type=str, choices=["nccl", "gloo"],
+                        help="torch.distributed backend of --mesh: nccl on the cards, gloo on "
+                             "the CPU or for several ranks on one card")
     parser.add_argument("--device", default=None, type=str,
                         help="torch device; default: the CUDA card")
-    parser.add_argument("--world_size", default=1, type=int, help="accepted; unused")
-    parser.add_argument("--local_rank", default=-1, type=int, help="accepted; unused")
+    parser.add_argument("--world_size", default=1, type=int,
+                        help="the ranks the run expects: a launcher that started another "
+                             "number is refused (1: any)")
+    parser.add_argument("--local_rank", default=-1, type=int,
+                        help="this rank's card where LOCAL_RANK is unset (the flag of "
+                             "torch.distributed.launch)")
     parser.add_argument("--dist_url", default="env://", type=str, help="accepted; unused")
     parser.add_argument("--disable_cudnn_benchmark", action="store_true", default=False,
                         help="accepted; unused")

@@ -15,8 +15,9 @@ and errors; `main` adds the LTVL export and the stats line that
 on the card, fp32 on the CPU), the model comes from `from_pretrained`.
 `--quantize int8` runs the transformer's projections on int8 operands;
 `--serving` sets bf16 body, bf16 heads and `--quantize int8`, as the root
-`visloc.py` does. `--mesh` > 0 (inference over several cards, ROADMAP.md
-queue A item 10) is not ported and raises.
+`visloc.py` does. `--mesh N` runs each map view's pair padded to a batch
+of N over the first N cards (`InferenceEngine(mesh=)`), as `visloc.py`
+does; more cards than are visible raises.
 """
 from __future__ import annotations
 
@@ -63,7 +64,7 @@ def get_args_parser():
                         help="the serving configuration: bf16 body, bf16 heads and "
                              "--quantize int8")
     parser.add_argument("--mesh", type=int, default=0,
-                        help="shard inference over this many devices (not ported)")
+                        help="shard inference over this many cards (0: one device, --device)")
     parser.add_argument("--output_dir", type=str, default=None)
     parser.add_argument("--output_label", type=str, default="")
     return parser
@@ -208,17 +209,17 @@ def main(argv=None):
     from ..inference import InferenceEngine, serving_overrides
     from ..utils.device import default_device
 
+    from ..parallel.mesh import cli_pair_mesh
+
     args = get_args_parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("--mesh (inference over several cards) is not ported "
-                                  "(ROADMAP.md, queue A item 10)")
+    mesh, batch_size = cli_pair_mesh(args.mesh)
     device = torch.device(args.device) if args.device else \
         default_device("dust3r_tpu_torch.visloc (--device)")
     args.device = str(device)
     model = from_pretrained(args.weights or "naver/" + args.model_name, device=device,
                             **serving_overrides(args))
-    # visloc.py's batch without --mesh
-    engine = InferenceEngine(model, batch_size=1, quantize=args.quantize)
+    # visloc.py's batch: one pair, or one a card with --mesh
+    engine = InferenceEngine(model, batch_size=batch_size, quantize=args.quantize, mesh=mesh)
 
     dataset = eval(args.dataset)  # noqa: S307 - the reference's CLI DSL, in this module's names
     dataset.set_resolution(model)

@@ -432,12 +432,14 @@ def test_device_tensor_predictions_build_the_same_scene():
 
 
 def test_not_ported_paths_raise():
-    """The mesh path (several cards) and `show` (trimesh) are not ported and
-    say which queue item holds them; an observation type the JAX package
-    does not store is refused."""
+    """`show` (trimesh) is not ported and says which queue item holds it; a
+    `mesh=` that is not a list of devices (JAX's takes a jax Mesh, the
+    port's a device list: tests/test_torch_port_parallel.py drives it) and
+    an observation type the JAX package does not store are refused."""
     out, *_ = make_synthetic_scene(n_imgs=3)
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        global_aligner(out, mesh=object(), device="cpu")
+    for mesh in (object(), [], "cpu", [object()]):
+        with pytest.raises(TypeError, match="list of devices"):
+            global_aligner(out, mesh=mesh, device="cpu")
     scene = global_aligner(out, device="cpu", verbose=False)
     with pytest.raises(NotImplementedError, match="trimesh"):
         scene.show()

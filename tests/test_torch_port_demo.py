@@ -383,8 +383,12 @@ def test_cli_parses_and_refuses_what_is_not_ported():
     args = demo.get_args_parser().parse_args(["--weights", "w.pth", "--serving", "--quantize",
                                               "int8"])
     assert args.serving and args.quantize == "int8"
-    with pytest.raises(NotImplementedError, match="item 10"):
-        demo.main(["--weights", "w.pth", "--mesh", "2"])
+    # --mesh N takes the first N cards, and is refused, with the JAX CLI's
+    # message, before any weights are read where fewer are visible
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError, match=f"--mesh {n} requested but only {n - 1} devices "
+                                         f"visible"):
+        demo.main(["--weights", "w.pth", "--mesh", str(n)])
 
 
 def test_headless_main_writes_the_scene(engines, imagefiles, tmp_path, monkeypatch):

@@ -255,7 +255,8 @@ def _engines(monkeypatch):
 def test_clis_build_an_int8_engine(tiny_weights, monkeypatch, flags, dtypes):
     """With --device cpu, --serving gives a quantized engine on a bf16 body
     and bf16 heads (as the JAX CLIs do); --quantize int8 a quantized fp32
-    model; --mesh still raises."""
+    model; --mesh 2 is refused where fewer than two cards are visible, with
+    the JAX CLIs' message."""
     import builtins
 
     from dust3r_tpu_torch import demo
@@ -272,6 +273,7 @@ def test_clis_build_an_int8_engine(tiny_weights, monkeypatch, flags, dtypes):
         assert quant.is_quantized(model)
         assert (model.dtype, model.head_dtype) == dtypes
         assert next(model.parameters()).device == torch.device("cpu")
-        with pytest.raises(NotImplementedError, match="item 10"):
-            main(argv + flags + ["--mesh", "2"])
+        n = torch.cuda.device_count() + 1
+        with pytest.raises(ValueError, match=f"--mesh {n} requested but only {n - 1} devices"):
+            main(argv + flags + ["--mesh", str(n)])
     assert len(built) == 2

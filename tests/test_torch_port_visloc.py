@@ -626,15 +626,18 @@ def test_main_on_a_tiny_checkpoint_matches_jax(tiny_checkpoint, tmp_path, monkey
 
 def test_main_device_and_unported_flags(tiny_checkpoint, monkeypatch):
     """No card and no --device: raises through default_device, naming the
-    CPU; --mesh 2 raises, naming ROADMAP.md (--quantize and --serving are
-    ported: tests/test_torch_port_serving.py drives them)."""
+    CPU; --mesh N with fewer than N cards visible is refused with the JAX
+    CLI's message, whatever the other flags (--quantize and --serving are
+    ported: tests/test_torch_port_serving.py drives them; the mesh engine:
+    tests/test_torch_port_parallel.py)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     base = ["--dataset", "SyntheticVislocDataset()", "--weights", str(tiny_checkpoint)]
     with pytest.raises(RuntimeError, match='device="cpu"'):
         cli.main(base)
+    n = torch.cuda.device_count() + 1
     for extra in ([], ["--serving"], ["--quantize", "int8"]):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            cli.main(base + ["--device", "cpu", "--mesh", "2"] + extra)
+        with pytest.raises(ValueError, match=f"--mesh {n} requested but only {n - 1} devices"):
+            cli.main(base + ["--device", "cpu", "--mesh", str(n)] + extra)
 
 
 def test_dataset_registry_and_python_m_entry_point():
