@@ -189,6 +189,26 @@ Phases (each prints its lines; a failed phase raises and the exit code is 1):
      `--mesh 1` over NCCL in this process: one step, exact launches, the
      checkpoint; (e) with two cards, (a)-(c) across cuda:0 and cuda:1, (c)
      over NCCL; with one, a line that says they were not run.
+  11. sharding: the fsdp and model axes of `--mesh` at full width on one
+     card: the 512_dpt, bf16, Co3d-layout scenes at 512x384 (PARALLEL_DATASET
+     without ColorJitter, whose draws are unseeded in each process), batch 2
+     x accum 2, two optimizer steps. A reference: `train(args)` at `--mesh 1`
+     over NCCL in this process. Then ranks of `train(args)` spawned by
+     `parallel.distributed.launch` over gloo on cuda:0: (a) `--mesh 1,2`
+     (two ranks), (b) `--mesh 1,2,2` (four). Gated for each: both steps'
+     loss and grad norm within PARALLEL_LOSS_RTOL of the reference's, the
+     same on every rank; step 0's gradients per top-level module
+     (GRAD_REL_L2, GRAD_COSINE; each rank's blocks against the same blocks
+     of the reference's, summed); after step 1's forward, every Conv3x3's
+     and tail's kept packing bit-equal to a fresh packing of the whole
+     current weight; each rank's forward launches exact; in (b) fc1's and
+     fc2's local weights halved on the axes JAX's specs name;
+     checkpoint-final.pth written by rank 0 alone, in the reference's
+     layout, its weights within GRAD_REL_L2. Printed: each rank's step
+     seconds, peak memory and the bytes of parameters, gradients and AdamW
+     state it holds, beside the reference's. (c) With enough cards, (a) and
+     (b) across them over NCCL (one rank a card); else a line that says
+     they were not run.
 The visloc phase's JSON line comes before the kernels' line. The
 second-to-last line is a JSON object of the kernels, with the launches
 of the slice's run (of the variants and experiments phases for theirs, of
@@ -361,6 +381,17 @@ PARALLEL_BATCH, PARALLEL_ACCUM, PARALLEL_FRAMES = 2, 2, 12
 PARALLEL_DATASET = ("{n} @ Co3d(split='train', ROOT='{root}', aug_crop=16, mask_bg='rand', "
                     "resolution=[(512, 384)], transform=ColorJitter, seed=777)")
 PARALLEL_LOSS_RTOL = 1e-2
+# the sharding phase (11): the fsdp and model axes of --mesh on one card,
+# (a) --mesh 1,2 (two ranks) and (b) --mesh 1,2,2 (four) over gloo, each
+# SHARD_STEPS steps at PARALLEL_BATCH x PARALLEL_ACCUM on Co3d at 512x384,
+# against one process at --mesh 1 on the same batches (n_data is 1 in each);
+# (c) across cards over NCCL where there are enough
+# (PARALLEL_DATASET without ColorJitter, whose draws come from an unseeded
+# generator in each process: the reference must see the ranks' batches)
+SHARD_MESHES = (("(a)", "1,2"), ("(b)", "1,2,2"))
+SHARD_DATASET = PARALLEL_DATASET.replace(", transform=ColorJitter", "")
+SHARD_STEPS = 2
+FOUR_KERNELS = ("fused_attention", "conv3x3", "up2x", "dpt_tail")
 # the int8 serving pointmaps against the fp32 plain forward, as
 # tests/test_quant.py gates them: relative L2 of pts3d within max(4x the
 # default bf16 body's, 2e-2), of conf within 2e-2
@@ -2907,6 +2938,335 @@ def parallel_phase(torch, pairs, refs, scene_losses):
     log(f"[parallel] phase: {time.perf_counter() - t_phase:.3f} s")
 
 
+def _held_bytes(torch, model, optimizer):
+    """The bytes of parameters, gradients and AdamW state this process holds
+    (a sharded model's local shards)."""
+    def nbytes(t):
+        t = t.to_local() if hasattr(t, "to_local") else t
+        return t.numel() * t.element_size()
+    params = sum(nbytes(p) for p in model.parameters())
+    grads = sum(nbytes(p.grad) for p in model.parameters() if p.grad is not None)
+    state = sum(nbytes(v) for st in optimizer.state.values() for v in st.values()
+                if isinstance(v, torch.Tensor))
+    return dict(params=params, grads=grads, state=state, total=params + grads + state)
+
+
+def _shard_argv(root, out, mesh_arg):
+    argv = _parallel_argv(root, out, 1, SHARD_STEPS)
+    argv[argv.index("--mesh") + 1] = mesh_arg
+    data = argv.index("--train_dataset") + 1
+    argv[data] = SHARD_DATASET.format(n=argv[data].split(" @ ")[0], root=root)
+    return argv
+
+
+def _step_timer(torch, device, steps, barrier):
+    """training.train_step, timed from a common start to the card's end."""
+    from dust3r_tpu_torch import training
+
+    step = training.train_step
+
+    def timed_step(*a, **kw):
+        if barrier:
+            import torch.distributed as dist
+            dist.barrier()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        metrics = step(*a, **kw)
+        torch.cuda.synchronize(device)
+        steps.append(dict(seconds=time.perf_counter() - t0))
+        return metrics
+    return step, timed_step
+
+
+def sharding_reference(torch, root, work):
+    """Phase 11's reference: train(args) at --mesh 1 over NCCL in this
+    process (a group of one) on the sharded runs' batches, SHARD_STEPS
+    steps: each step's metrics, seconds and forward launches, the first
+    step's gradients (written for the ranks to read), the bytes of
+    parameters, gradients and AdamW state, peak memory, the checkpoint."""
+    from dust3r_tpu_torch import training
+    from dust3r_tpu_torch.train import get_args_parser
+
+    out = work / "ref"
+    args = get_args_parser().parse_args(_shard_argv(root, out, "1") + ["--dist_backend", "nccl"])
+    grads_path = work / "grads_ref.pt"
+    device = torch.device("cuda", 0)
+    steps, last = [], {}
+    step, timed = _step_timer(torch, device, steps, barrier=False)
+
+    def on_step(module, epoch, i, metrics, micro_batches):
+        now = read_launches()
+        steps[-1].update(metrics=metrics, launches={k: now[k] - last[k] for k in FOUR_KERNELS},
+                         expected=forward_launches(module, ["is_portrait" in mb[0]
+                                                            for mb in micro_batches]))
+        last.update(now)
+        if i == 0:
+            torch.save({n: p.grad.detach().float().cpu() for n, p in module.named_parameters()},
+                       grads_path)
+            steps[-1]["grads"] = True
+
+    training.train_step = timed
+    try:
+        reset_launches()
+        last.update(read_launches())
+        torch.cuda.reset_peak_memory_stats(device)
+        module, optimizer = training.train(args, on_step=on_step)
+    finally:
+        training.train_step = step
+    ref = dict(steps=steps, peak=torch.cuda.max_memory_allocated(device),
+               held=_held_bytes(torch, module, optimizer), grads=grads_path,
+               ckpt=out / "checkpoint-final.pth")
+    for k, st in enumerate(steps):
+        log(f"[sharding] reference --mesh 1 (nccl) step {k}: loss {st['metrics']['loss']:.6f}, "
+            f"grad norm {st['metrics']['grad_norm']:.6f}, {st['seconds']:.3f} s, forward "
+            f"launches {st['launches']} (expected {st['expected']})")
+        if st["launches"] != st["expected"]:
+            raise AssertionError(f"[sharding] reference launches {st['launches']}")
+    h = ref["held"]
+    log(f"[sharding] reference --mesh 1: parameters {h['params']} + gradients {h['grads']} + "
+        f"AdamW state {h['state']} = {h['total']} bytes ({h['total'] / 2**30:.3f} GiB); peak "
+        f"device memory {ref['peak']} bytes ({ref['peak'] / 2**30:.3f} GiB)")
+    del module, optimizer
+    torch.cuda.empty_cache()
+    return ref
+
+
+def sharded_train_rank(rank, world_size, device, args, grads_path):
+    """Phase 11 in a spawned rank: train(args) on a sharded --mesh, its steps
+    timed and its checkpoint writes counted. After step 1's first forward,
+    rank 0 holds every Conv3x3's and tail's kept packing against a fresh
+    packing of the whole current weight (`full_tensor`); after step 0, the
+    bytes of its shards of parameters, gradients and AdamW state, fc1's and
+    fc2's local shapes, and the gradients' distance from the reference's per
+    top-level module (each rank's blocks, summed); each step's metrics and forward
+    launches; the peak memory. Returns that report."""
+    import torch
+    import torch.distributed as dist
+
+    from dust3r_tpu_torch import checkpoint, training
+    from dust3r_tpu_torch.models.heads import Conv3x3, DPTOutputAdapter
+    from dust3r_tpu_torch.ops.conv3x3 import pack_weight
+    from dust3r_tpu_torch.ops.dpt_tail import pack_w2
+    from dust3r_tpu_torch.parallel import mesh as pmesh
+
+    report, held = dict(saves=[], steps=[]), dict(forwards=0)
+    save, shard, make_opt = (checkpoint.save_train_checkpoint, pmesh.shard_params,
+                             training.make_optimizer)
+    step, timed = _step_timer(torch, device, report["steps"], barrier=True)
+
+    def counted_save(path, *a, **kw):
+        report["saves"].append(Path(path).name)
+        return save(path, *a, **kw)
+
+    def check_packings(model, inputs, outputs):
+        held["forwards"] += 1
+        if held["forwards"] != PARALLEL_ACCUM + 1:  # step 1's first forward
+            return
+        fresh = stale = 0
+        tails = {id(m.head[2]) for m in model.modules() if isinstance(m, DPTOutputAdapter)}
+        for m in model.modules():
+            if id(m) in tails:  # its weight is the tail kernel's (packed_w2), its forward unused
+                continue
+            if isinstance(m, Conv3x3):
+                w, kept, pack = m.weight, m._packed, pack_weight
+            elif isinstance(m, DPTOutputAdapter):
+                w, kept, pack = m.head[2].weight, m._packed_w2, pack_w2
+            else:
+                continue
+            whole = pmesh.full_tensor(w, model.train_mesh)  # every rank takes part
+            if whole is not None:
+                same = kept is not None and torch.equal(kept[1], pack(whole.to(device)))
+                fresh, stale = fresh + same, stale + (not same)
+        report["packings"] = (fresh, stale)
+
+    def sharded(mesh, model):
+        shard(mesh, model)
+        model.register_forward_hook(check_packings)
+        return model
+
+    def made_optimizer(model, spec):
+        held["optimizer"] = make_opt(model, spec)
+        return held["optimizer"]
+
+    def on_step(module, epoch, i, metrics, micro_batches):
+        now = read_launches()
+        report["steps"][-1].update(
+            metrics=metrics, launches={k: now[k] - held["last"][k] for k in FOUR_KERNELS},
+            expected=forward_launches(module, ["is_portrait" in mb[0] for mb in micro_batches]))
+        held["last"] = now
+        if i:
+            return
+        report["held"] = _held_bytes(torch, module, held["optimizer"])
+        report["local"] = {n: tuple(training._local(p).shape) for n, p in
+                           module.named_parameters() if n.startswith("enc_blocks.0.mlp.fc")}
+        # each first-held block of a gradient against the same block of the
+        # reference's, the sums all-reduced: no gradient is gathered whole
+        ref = torch.load(grads_path, map_location="cpu", mmap=True)
+        report["grad_parity"] = {}
+        for group, named in _groups(torch, module).items():
+            acc = torch.zeros(4, dtype=torch.float64, device=device)
+            for n, p in named:
+                index, local, first = pmesh.local_block(p.grad, module.train_mesh)
+                if first:
+                    a, b = local.double(), ref[n][index].to(device).double()
+                    acc += torch.stack([(a - b).square().sum(), b.square().sum(),
+                                        (a * b).sum(), a.square().sum()])
+            dist.all_reduce(acc)
+            d2, b2, ab, a2 = acc.tolist()
+            report["grad_parity"][group] = (d2 ** 0.5 / max(b2 ** 0.5, 1e-30),
+                                            ab / max((a2 * b2) ** 0.5, 1e-30))
+
+    checkpoint.save_train_checkpoint, pmesh.shard_params = counted_save, sharded
+    training.train_step, training.make_optimizer = timed, made_optimizer
+    torch.cuda.set_device(device)  # CUDA's first use in this process
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    held["last"] = read_launches()
+    training.train_rank(rank, world_size, device, args, on_step)
+    report["peak"] = torch.cuda.max_memory_allocated(device)
+    return report
+
+
+def _weight_distances(torch, ours, ref):
+    """Per top-level module: the relative L2 of a checkpoint's weights
+    against the reference's."""
+    groups = {}
+    for name in ref["model"]:
+        groups.setdefault(name.split(".")[0], []).append(name)
+    out = {}
+    for group, names in groups.items():
+        a = torch.cat([ours["model"][n].float().flatten() for n in names])
+        b = torch.cat([ref["model"][n].float().flatten() for n in names])
+        out[group] = float((a - b).norm() / b.norm().clamp(min=1e-30))
+    return out
+
+
+def sharded_ranks(torch, devices, backend, root, work, ref, tag, mesh_arg):
+    """Phase 11's (a) or (b): the ranks of train(args) at `--mesh mesh_arg`
+    on `devices` over `backend`, against the reference (see the module
+    docstring)."""
+    import gc
+
+    import numpy as np
+
+    from dust3r_tpu_torch.parallel.distributed import launch
+    from dust3r_tpu_torch.train import get_args_parser
+
+    out = work / f"run_{mesh_arg.replace(',', '_')}_{backend}"
+    args = get_args_parser().parse_args(_shard_argv(root, out, mesh_arg)
+                                        + ["--dist_backend", backend])
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reports = launch(sharded_train_rank, devices, args=(args, str(ref["grads"])), timeout=900)
+    launch_s = time.perf_counter() - t0
+    rh = ref["held"]["total"]
+    for r, rep in enumerate(reports):
+        h = rep["held"]
+        log(f"{tag} --mesh {mesh_arg} rank {r} on {devices[r]} ({backend}): steps "
+            f"{[round(st['seconds'], 3) for st in rep['steps']]} s (the first cold); peak "
+            f"device memory {rep['peak']} bytes ({rep['peak'] / 2**30:.3f} GiB; --mesh 1 "
+            f"{ref['peak'] / 2**30:.3f}); holds parameters {h['params']} + gradients "
+            f"{h['grads']} + AdamW state {h['state']} = {h['total']} bytes "
+            f"({h['total'] / 2**30:.3f} GiB, {h['total'] / rh:.3f} of --mesh 1's "
+            f"{rh / 2**30:.3f}); forward launches {[st['launches'] for st in rep['steps']]}; "
+            f"checkpoints written {rep['saves']}")
+        for k, st in enumerate(rep["steps"]):
+            if st["launches"] != st["expected"]:
+                raise AssertionError(f"{tag} rank {r} step {k} launches {st['launches']} != "
+                                     f"{st['expected']}")
+        if [st["metrics"] for st in rep["steps"]] != [st["metrics"] for st in
+                                                       reports[0]["steps"]]:
+            raise AssertionError(f"{tag} the ranks' metrics differ")
+    log(f"{tag} --mesh {mesh_arg}: {len(devices)} ranks, {launch_s:.3f} s from spawn to exit")
+    for k, (st, want) in enumerate(zip(reports[0]["steps"], ref["steps"])):
+        rel = {key: abs(st["metrics"][key] - want["metrics"][key]) / abs(want["metrics"][key])
+               for key in ("loss", "grad_norm")}
+        log(f"{tag} step {k}: loss {st['metrics']['loss']:.6f} (--mesh 1 "
+            f"{want['metrics']['loss']:.6f}, relative {rel['loss']:.3e}), grad norm "
+            f"{st['metrics']['grad_norm']:.6f} ({want['metrics']['grad_norm']:.6f}, relative "
+            f"{rel['grad_norm']:.3e}); limit {PARALLEL_LOSS_RTOL:g}")
+        if not all(np.isfinite(v) and v <= PARALLEL_LOSS_RTOL for v in rel.values()):
+            raise AssertionError(f"{tag} step {k} metrics {st['metrics']} vs {want['metrics']}")
+    for group, (rel, cos) in reports[0]["grad_parity"].items():
+        log(f"{tag} step 0 gradients against --mesh 1's, {group}: rel L2 {rel:.3e}, "
+            f"cosine {cos:.6f} (limits {GRAD_REL_L2:g}, {GRAD_COSINE:g})")
+        if not (rel <= GRAD_REL_L2 and cos >= GRAD_COSINE):
+            raise AssertionError(f"{tag} gradient parity {group}: {rel:.3e}, {cos:.6f}")
+    fresh, stale = reports[0]["packings"]
+    log(f"{tag} after step 0's update, step 1's kept conv3x3 and tail packings against fresh "
+        f"packings of the whole weights: {fresh} equal, {stale} stale")
+    if stale or fresh != 2 * (PER_HEAD["conv3x3"] + PER_HEAD["dpt_tail"]):
+        raise AssertionError(f"{tag} kept packings: {fresh} fresh, {stale} stale")
+    files = sorted(f.name for f in out.glob("*.pth"))
+    if reports[0]["saves"] != ["checkpoint-final.pth"] or any(r["saves"] for r in reports[1:]) \
+            or files != ["checkpoint-final.pth"]:
+        raise AssertionError(f"{tag} checkpoints {[r['saves'] for r in reports]}, files {files}")
+    # mapped, not read: the weights and first moments are what is compared
+    ours = torch.load(out / "checkpoint-final.pth", map_location="cpu", weights_only=False,
+                      mmap=True)
+    if "ckpt_sd" not in ref:
+        ref["ckpt_sd"] = torch.load(ref["ckpt"], map_location="cpu", weights_only=False,
+                                    mmap=True)
+    theirs = ref["ckpt_sd"]
+    same_layout = (list(ours["model"]) == list(theirs["model"])
+                   and all(ours["model"][k].shape == v.shape for k, v in theirs["model"].items())
+                   and sorted(ours["optimizer"]["state"]) == sorted(theirs["optimizer"]["state"])
+                   and ours["optimizer"]["param_groups"] == theirs["optimizer"]["param_groups"])
+    if mesh_arg == "1,2,2":  # JAX's specs: fc1 (in, hidden) on (fsdp, model), fc2 its transpose
+        hidden, dim = theirs["model"]["enc_blocks.0.mlp.fc1.weight"].shape
+        want = {"enc_blocks.0.mlp.fc1.weight": (hidden // 2, dim // 2),
+                "enc_blocks.0.mlp.fc1.bias": (hidden // 2,),
+                "enc_blocks.0.mlp.fc2.weight": (dim // 2, hidden // 2),
+                "enc_blocks.0.mlp.fc2.bias": (dim // 2,)}
+        log(f"{tag} rank 0's local MLP shapes {reports[0]['local']} (JAX's specs: {want})")
+        if reports[0]["local"] != want:
+            raise AssertionError(f"{tag} local shapes {reports[0]['local']}")
+    dists = _weight_distances(torch, ours, theirs)
+    worst = max(dists.values())
+    moments = [float((ours["optimizer"]["state"][i]["exp_avg"] - st["exp_avg"]).norm()
+                     / st["exp_avg"].norm().clamp(min=1e-30))
+               for i, st in theirs["optimizer"]["state"].items()]
+    log(f"{tag} checkpoint-final.pth: the --mesh 1 layout {same_layout} ({len(ours['model'])} "
+        f"tensors); weights per top-level module within {worst:.3e} (relative L2, limit "
+        f"{GRAD_REL_L2:g}) of --mesh 1's; AdamW first moments within {max(moments):.3e} "
+        f"(information)")
+    if not (same_layout and worst <= GRAD_REL_L2):
+        raise AssertionError(f"{tag} checkpoint {dists}")
+    del ours, reports
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def sharding_phase(torch):
+    """The fsdp and model axes (phase 11 of the module's docstring)."""
+    import math
+    import shutil
+
+    from dust3r_tpu_torch.tools.train_scenes import write_scenes
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "sharding"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    root = write_scenes(str(work / "co3d"), frames=PARALLEL_FRAMES, seed=SEED)
+    ref = sharding_reference(torch, root, work)
+    for tag, mesh_arg in SHARD_MESHES:
+        n = math.prod(int(x) for x in mesh_arg.split(","))
+        sharded_ranks(torch, [torch.device("cuda", 0)] * n, "gloo", root, work, ref,
+                      f"[sharding] {tag}", mesh_arg)
+    for tag, mesh_arg in SHARD_MESHES:
+        n = math.prod(int(x) for x in mesh_arg.split(","))
+        if torch.cuda.device_count() >= n:
+            sharded_ranks(torch, [torch.device("cuda", i) for i in range(n)], "nccl", root,
+                          work, ref, f"[sharding] (c) {tag}", mesh_arg)
+        else:
+            log(f"[sharding] (c) {tag} {torch.cuda.device_count()} card(s) visible: --mesh "
+                f"{mesh_arg} across {n} cards over NCCL was not run; it needs {n} cards")
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"[sharding] phase: {time.perf_counter() - t_phase:.3f} s")
+
+
 def main(argv):
     if not (ROOT / "dust3r_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repo (dust3r_tpu_torch/ missing)",
@@ -2936,6 +3296,7 @@ def main(argv):
     serving_launches = serving_phase(torch, engine.model)
     del engine
     parallel_phase(torch, pairs, refs, scene_losses)
+    sharding_phase(torch)
     # attention: the encoder's self-attention shape, read from the qkv
     # projection, on the sm90 kernel; its mma.sync core (the baseline) at
     # the same call; its grouped form: the variants phase's G = 2, 4 and 8

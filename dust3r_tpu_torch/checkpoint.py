@@ -62,6 +62,7 @@ import re
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 # what the port's constructor takes from an arch string or a hub config;
 # the rest of its arguments (dtype, device, ...) are the caller's overrides
@@ -309,22 +310,111 @@ def save_torch_checkpoint(path, model, extra=None):
 # training
 # ---------------------------------------------------------------------- #
 
-def save_train_checkpoint(path, model, optimizer, epoch, best_so_far, args):
+def save_train_checkpoint(path, model, optimizer, epoch, best_so_far, args, state=None):
     """The reference's training checkpoint: {model, optimizer, epoch,
     best_so_far, args}, host tensors. `args.model` is the arch string, so
-    `load_torch_checkpoint` / `load_model` read the file."""
-    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    torch.save(dict(model=sd, optimizer=optimizer.state_dict(), epoch=epoch,
-                    best_so_far=best_so_far, args=args), path)
+    `load_torch_checkpoint` / `load_model` read the file. state: the
+    (model, optimizer) state dicts `full_train_state` gathered from a
+    sharded model, else those of `model` and `optimizer`."""
+    if state is None:
+        state = ({k: v.detach().cpu() for k, v in model.state_dict().items()},
+                 optimizer.state_dict())
+    torch.save(dict(model=state[0], optimizer=state[1], epoch=epoch, best_so_far=best_so_far,
+                    args=args), path)
+
+
+def _sharded_entries(model, optimizer):
+    """The tensors of a sharded model's and its optimizer's state in one
+    order, the same on every rank: ("model", name, tensor) for each
+    `state_dict` entry, ("optimizer", index, key, tensor) for each AdamW
+    state tensor, the index that of `optimizer.state_dict()` (the order of
+    the parameter groups, as `--mesh 1` numbers them)."""
+    for name, t in model.state_dict().items():
+        yield ("model", name), t
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    for i, p in enumerate(params):
+        for key, t in sorted(optimizer.state.get(p, {}).items()):
+            if isinstance(t, torch.Tensor):
+                yield ("optimizer", i, key), t
+
+
+def full_train_state(model, optimizer):
+    """(model state dict, optimizer state dict) of a model sharded by
+    `parallel.mesh.shard_params`, whole and on the host, in the layout
+    `--mesh 1` writes (`model.state_dict()` and `optimizer.state_dict()` of
+    the unsharded model: the same keys, shapes and numbering) on rank 0;
+    (None, None) on the other ranks. A collective: every rank calls it."""
+    from .parallel.mesh import full_tensor
+
+    mesh = model.train_mesh
+    osd = optimizer.state_dict()  # its state dicts are the optimizer's own: copied
+    model_sd, state = {}, {i: dict(st) for i, st in osd["state"].items()}
+    for where, t in _sharded_entries(model, optimizer):
+        whole = full_tensor(t, mesh)
+        if whole is None:
+            continue
+        if where[0] == "model":
+            model_sd[where[1]] = whole
+        else:
+            state[where[1]][where[2]] = whole
+    if dist.get_rank() != 0:
+        return None, None
+    return model_sd, dict(state=state, param_groups=osd["param_groups"])
 
 
 def load_train_checkpoint(path, model, optimizer):
     """Resume from a `save_train_checkpoint` file: the weights and the
-    optimizer state in place; returns (epoch, best_so_far)."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
-    model.load_state_dict(ckpt["model"], strict=True)
-    optimizer.load_state_dict(ckpt["optimizer"])
-    return ckpt.get("epoch", -1), ckpt.get("best_so_far", math.inf)
+    optimizer state in place; returns (epoch, best_so_far). A model sharded
+    by `parallel.mesh.shard_params` reads the `--mesh 1` layout from rank
+    0, which broadcasts each tensor; every rank keeps its shards (a
+    collective: every rank calls it)."""
+    mesh = getattr(model, "train_mesh", None)
+    if mesh is None:
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+        model.load_state_dict(ckpt["model"], strict=True)
+        optimizer.load_state_dict(ckpt["optimizer"])
+        return ckpt.get("epoch", -1), ckpt.get("best_so_far", math.inf)
+    return _load_sharded(path, model, optimizer, mesh)
+
+
+def _load_sharded(path, model, optimizer, mesh):
+    from .parallel.mesh import load_full
+
+    ckpt = torch.load(path, map_location="cpu", weights_only=False) if dist.get_rank() == 0 \
+        else None
+    head = [None]
+    if ckpt is not None:
+        osd = ckpt["optimizer"]
+        head[0] = dict(epoch=ckpt.get("epoch", -1), best=ckpt.get("best_so_far", math.inf),
+                       keys=sorted(ckpt["model"]), param_groups=osd["param_groups"],
+                       state={i: {k: (tuple(v.shape) if isinstance(v, torch.Tensor) else v)
+                                  for k, v in st.items()} for i, st in osd["state"].items()})
+    dist.broadcast_object_list(head, 0)
+    head = head[0]
+    own = model.state_dict()
+    if head["keys"] != sorted(own):
+        missing, extra = set(own) - set(head["keys"]), set(head["keys"]) - set(own)
+        raise KeyError(f"{path}: missing {sorted(missing)[:5]}, unexpected {sorted(extra)[:5]}")
+    for name, t in own.items():
+        load_full(t, ckpt["model"][name] if ckpt is not None else None, mesh)
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    state = {}
+    for i, entry in sorted(head["state"].items()):
+        p, st = params[i], {}
+        for key, v in sorted(entry.items()):
+            if not isinstance(v, tuple):
+                st[key] = v
+            elif v == tuple(p.shape):  # a moment: sharded as its parameter
+                st[key] = torch.empty_like(p)
+                load_full(st[key], ckpt["optimizer"]["state"][i][key] if ckpt is not None
+                          else None, mesh)
+            else:  # the step count: every rank's whole
+                st[key] = torch.empty(v)
+                load_full(st[key], ckpt["optimizer"]["state"][i][key] if ckpt is not None
+                          else None, mesh)
+        state[i] = st
+    optimizer.load_state_dict(dict(state=state, param_groups=head["param_groups"]))
+    return head["epoch"], head["best"]
 
 
 def warm_start(path, model, verbose=True):

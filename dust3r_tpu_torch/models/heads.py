@@ -131,10 +131,13 @@ class Upsample2x(nn.Module):
 def _kept_packing(module, attr, w, pack):
     """`pack(w)`, kept on `module` as `attr` = (key, packing) and made again
     when the weight changes: another version (as an in-place update or a
-    load makes), another tensor or another device."""
+    load makes), another tensor or another device. A module whose
+    `keep_packing` is cleared packs at every call: a sharded model's
+    (`parallel.mesh.shard_params`), whose weights FSDP2 gathers in place
+    under `_unsafe_preserve_version_counter`, a change no key can see."""
     key = (w._version, w.data_ptr(), w.device)
     kept = getattr(module, attr)
-    if kept is None or kept[0] != key:
+    if kept is None or kept[0] != key or not module.keep_packing:
         kept = (key, pack(w))
         setattr(module, attr, kept)
     return kept[1]
@@ -146,7 +149,9 @@ class Conv3x3(nn.Conv2d):
     JAX `Conv3x3` keeps `nn.Conv`'s. `impl` is the dispatcher's. The
     kernel's packed weight is kept between calls and packed again when the
     weight changes (another version, as an in-place update or a load makes,
-    or another tensor)."""
+    or another tensor; `_kept_packing`)."""
+
+    keep_packing = True  # False: packed at every call (a sharded model's)
 
     def __init__(self, cin, cout, bias=True, impl=None):
         super().__init__(cin, cout, 3, padding=1, bias=bias)
@@ -213,6 +218,8 @@ class DPTOutputAdapter(nn.Module):
     postprocessed pointmap and confidence. `conv_impl` goes to its
     `Conv3x3`s, its `Upsample2x`s and its tail. The tail kernel's packing of
     head[2]'s weight is kept between calls, as `Conv3x3` keeps its own."""
+
+    keep_packing = True
 
     def __init__(self, dim_tokens, hooks, nch, depth_mode, conf_mode,
                  layer_dims=(96, 192, 384, 768), feature_dim=256, conv_impl=None):

@@ -1,6 +1,6 @@
-"""Data parallelism over devices: processes and their group
-(`distributed.py`), device lists (`mesh.py`).
+"""Parallelism over devices: processes and their group (`distributed.py`),
+the axes of `--mesh` (`mesh.py`: device lists for the data axis, the
+parameter shardings of the fsdp and model axes in training).
 
-Counterpart of `dust3r_tpu/parallel/`. The data axis only: the `fsdp` and
-`model` axes of `--mesh` raise (ROADMAP.md A10b).
+Counterpart of `dust3r_tpu/parallel/`.
 """

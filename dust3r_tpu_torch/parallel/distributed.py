@@ -63,8 +63,9 @@ def is_main_process():
 
 
 def _collective_device():
-    """Where a host value is reduced: the current card under NCCL (it
-    reduces CUDA tensors only), the host otherwise."""
+    """Where a host value is reduced, or a sharded tensor joined: the
+    current card under NCCL (it reduces CUDA tensors only), the host
+    otherwise."""
     if dist.get_backend() == "nccl":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
@@ -77,6 +78,26 @@ def all_reduce_mean(x):
     t = torch.tensor(float(x), dtype=torch.float64, device=_collective_device())
     dist.all_reduce(t)
     return float(t) / get_world_size()
+
+
+def replica_batches(n_data, n_replicas):
+    """share(x): the host object x (a step's loader batches) of the first
+    rank of this rank's data index, on each of that index's `n_replicas`
+    ranks (ranks d * n_replicas ... d * n_replicas + n_replicas - 1, as a
+    (data, fsdp, model) mesh numbers them); x itself with one replica.
+    Makes one process group a data index (a collective: every rank calls
+    it)."""
+    if n_replicas == 1:
+        return lambda x: x
+    groups = [dist.new_group(list(range(d * n_replicas, (d + 1) * n_replicas)))
+              for d in range(n_data)]
+    d = get_rank() // n_replicas
+
+    def share(x):
+        box = [x]
+        dist.broadcast_object_list(box, d * n_replicas, group=groups[d])
+        return box[0]
+    return share
 
 
 def save_on_master(save_fn, *args, **kwargs):

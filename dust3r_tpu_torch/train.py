@@ -2,15 +2,21 @@
 
 The root `train.py`'s flags (the reference's), driving
 `dust3r_tpu_torch.training.train` on the CUDA card (`--device cpu` for the
-CPU). `--mesh N` trains data-parallel, one process a card
-(`DistributedDataParallel` over `--dist_backend`, nccl by default):
+CPU). `--mesh N[,F[,M]]` is JAX's `--mesh data,fsdp,model`, one process a
+card over `--dist_backend` (nccl by default; gloo on the CPU or for several
+ranks on one card):
 
     python -m dust3r_tpu_torch.train --mesh 4 ...                    # starts 4 ranks
     torchrun --nproc_per_node 4 -m dust3r_tpu_torch.train --mesh 4 ...  # the launcher's
+    python -m dust3r_tpu_torch.train --mesh 2,2,2 ...                # 8 ranks
 
-`--mesh N,F[,M]` with F or M above 1 (parameter sharding, the tensor-parallel
-MLP) raises (ROADMAP.md A10b); `--scan_layers` is an XLA compile-time option
-with no effect here; `--remat_policy` takes 'full' only.
+N alone is data parallelism (`DistributedDataParallel`, each rank its slice
+of the batch). F or M above 1 shards the model over a (data, fsdp, model)
+mesh as JAX does: every parameter, its gradient and its AdamW state split F
+ways (FSDP2, on the axis JAX's `_fsdp_spec` picks), each block's MLP split M
+ways (fc1 by columns, fc2 by rows); the batch is split over the N data
+ranks only. `--batch_size` is per data rank. `--scan_layers` is an XLA
+compile-time option with no effect here; `--remat_policy` takes 'full' only.
 """
 import argparse
 
@@ -53,8 +59,9 @@ def get_args_parser():
                         help="'full' only: 'dots' is an XLA checkpoint policy and raises")
     parser.add_argument("--num_workers", default=8, type=int)
     parser.add_argument("--mesh", default="", type=str,
-                        help="data-parallel ranks, one a card: 'N' or 'auto' (every visible "
-                             "card); 'N,F[,M]' with F or M > 1 is not ported (A10b)")
+                        help="'N[,F[,M]]': a (data, fsdp, model) mesh of N x F x M ranks, one a "
+                             "card: the batch split N ways, parameters F ways, the MLPs M ways; "
+                             "'auto': every visible card on the data axis")
     parser.add_argument("--dist_backend", default="nccl", type=str, choices=["nccl", "gloo"],
                         help="torch.distributed backend of --mesh: nccl on the cards, gloo on "
                              "the CPU or for several ranks on one card")

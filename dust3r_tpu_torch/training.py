@@ -5,7 +5,9 @@ AdamW (0.9, 0.95), lr = blr * eff_bs / 256, a per-iteration cosine
 schedule with linear warmup, gradient accumulation, bf16 compute in the
 model body, the non-finite loss abort). One process a device: with
 `--mesh N` the ranks of a process group (`parallel/`), the model wrapped
-in `DistributedDataParallel`.
+in `DistributedDataParallel`; with `--mesh N,F,M` (F or M above 1) the
+ranks of a (data, fsdp, model) mesh, the model's parameters sharded over
+fsdp and its MLPs split over model (`parallel.mesh.shard_params`).
 
 The step (`train_step`) follows the JAX step, `build_train_step`:
 * each micro-batch's loss is back-propagated in turn, so the gradients
@@ -16,9 +18,17 @@ The step (`train_step`) follows the JAX step, `build_train_step`:
   every masked mean of the criterion is the global batch's
   (`losses.global_batch`), and the loss and details are averaged over the
   ranks: the JAX step on the global batch;
+* on a sharded model the slices are the data axis's (the fsdp and model
+  ranks of one data index hold the same one, as JAX's `P("data")`), FSDP2
+  reduce-scatters the gradients once a step (`set_requires_gradient_sync`
+  off on all but the last micro-batch), the parameters it leaves whole
+  have theirs averaged over the data axis here, and every gradient below
+  is a rank's local shard;
 * the freeze mask multiplies the gradients, and AdamW still runs on every
   parameter (a frozen matrix keeps decaying, as in JAX);
-* the global grad norm, then the optional clip;
+* the global grad norm (on a sharded model each shard's sum of squares,
+  summed over the ranks that shard it, a replicated block once), then the
+  optional clip;
 * AdamW with weight decay on the parameters of more than one dimension
   (the JAX `wd_mask`), the LR set per iteration at the fractional epoch;
 * a step whose loss or grad norm is not finite changes nothing: neither
@@ -86,7 +96,8 @@ def decays(param):
 
 def make_optimizer(model, spec):
     """AdamW over every parameter, in two groups: with and without weight
-    decay. Its LR is set per iteration."""
+    decay. Its LR is set per iteration. A sharded model's is made after
+    `parallel.mesh.shard_params`, over its shards."""
     params = list(model.parameters())
     groups = [dict(params=[p for p in params if decays(p)], weight_decay=spec.weight_decay),
               dict(params=[p for p in params if not decays(p)], weight_decay=0.0)]
@@ -182,11 +193,17 @@ def global_norm(grads):
     return torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
 
 
+def _local(t):
+    """A DTensor's local shard; a plain tensor itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 def train_step(model, optimizer, criterion, micro_batches, epoch_f, spec, symmetrized=True,
                fmask=None):
     """One optimizer step over `accum_iter` micro-batches of device tensors
     (see the module docstring); `model` may be a DistributedDataParallel
-    (each rank passes its slice of every micro-batch). fmask:
+    or a model `parallel.mesh.shard_params` sharded (each rank passes its
+    slice of every micro-batch: its data index's). fmask:
     `freeze_mask(module, spec.freeze)`, made once by the caller. Returns the
     step's metrics as floats, the same on every rank: loss, lr, grad_norm,
     skipped and the criterion's details."""
@@ -197,15 +214,24 @@ def train_step(model, optimizer, criterion, micro_batches, epoch_f, spec, symmet
                          "inference-only: rounding has no gradient")
     ddp = isinstance(model, DistributedDataParallel)
     module = model.module if ddp else model
-    world = dist.get_world_size(model.process_group) if ddp else 1
+    mesh = getattr(module, "train_mesh", None)
+    if mesh is not None:  # the losses' global batch is the data axis's
+        group = data_group = mesh.get_group("data")
+        world, n_data = dist.get_world_size(), mesh["data"].size()
+    else:
+        group = model.process_group if ddp else None
+        world = n_data = dist.get_world_size(group) if ddp else 1
+        data_group = group
     params = dict(module.named_parameters())
     for p in params.values():
         p.grad = None
     loss_sum = 0.0
     for k, batch in enumerate(micro_batches):
         last = k == len(micro_batches) - 1
+        if mesh is not None:
+            module.set_requires_gradient_sync(last)
         with (model.no_sync() if ddp and not last else contextlib.nullcontext()), \
-                (global_batch(model.process_group) if world > 1 else contextlib.nullcontext()):
+                (global_batch(data_group) if n_data > 1 else contextlib.nullcontext()):
             (loss, details), _ = loss_of_one_batch(model, criterion, batch, symmetrized)
             loss.backward()
         loss_sum = loss_sum + loss.detach()
@@ -213,19 +239,28 @@ def train_step(model, optimizer, criterion, micro_batches, epoch_f, spec, symmet
     details = {k: v.detach() for k, v in details.items() if v.ndim == 0}
     if world > 1:  # the global batch's loss and details: the ranks' mean
         packed = torch.stack([loss.float()] + [v.float() for v in details.values()])
-        dist.all_reduce(packed, group=model.process_group)
+        dist.all_reduce(packed, group=group if mesh is None else None)
         packed /= world
         loss, details = packed[0], dict(zip(details, packed[1:]))
     grads = []
     for name, p in params.items():
         if p.grad is None:  # a parameter the loss does not reach: a zero gradient
             p.grad = torch.zeros_like(p)
+        g = _local(p.grad)
+        if mesh is not None and n_data > 1 and name in module.unsharded_params:
+            dist.all_reduce(g, group=data_group)  # FSDP2 leaves these: the data mean
+            g.div_(n_data)
         if spec.accum_iter > 1:
-            p.grad.div_(spec.accum_iter)
+            g.div_(spec.accum_iter)
         if spec.freeze != "none":
-            p.grad.mul_(fmask[name])
-        grads.append(p.grad)
-    grad_norm = global_norm(grads)
+            g.mul_(fmask[name])
+        grads.append(g)
+    if mesh is None:
+        grad_norm = global_norm(grads)
+    else:
+        from .parallel.mesh import sum_squares
+
+        grad_norm = sum_squares([p.grad for p in params.values()], mesh).sqrt()
     lr = cosine_warmup_lr(float(epoch_f), spec.lr, spec.min_lr, spec.warmup_epochs,
                           spec.epochs)
     finite = bool(torch.isfinite(grad_norm) & torch.isfinite(loss))
@@ -345,11 +380,13 @@ def symmetric_micro_batches(group, device, img_dtype):
 
 
 def train_one_epoch(model, optimizer, criterion, data_loader, epoch, spec, device,
-                    print_freq=20, log_writer=None, on_step=None):
+                    print_freq=20, log_writer=None, on_step=None, share=None):
     """One epoch of optimizer steps; returns the meters' global means.
     `model` may be a DistributedDataParallel, `data_loader` then this
     rank's share. on_step(module, epoch, i, metrics, micro_batches), when
-    given, is called after each step with the unwrapped module."""
+    given, is called after each step with the unwrapped module. share(x),
+    when given, returns the loader batches this rank trains on (a sharded
+    run's: its data index's first rank's)."""
     from .parallel.distributed import all_reduce_mean
 
     module = model.module if isinstance(model, DistributedDataParallel) else model
@@ -363,7 +400,8 @@ def train_one_epoch(model, optimizer, criterion, data_loader, epoch, spec, devic
     groups = _grouped(iter(data_loader), spec.accum_iter)
     for i, group in metric_logger.log_every(groups, print_freq, header):
         epoch_f = epoch + (i * spec.accum_iter) / max(n_iters, 1)
-        batches = symmetric_micro_batches(group, device, img_dtype)
+        batches = symmetric_micro_batches(group if share is None else share(group), device,
+                                          img_dtype)
         metrics = train_step(model, optimizer, criterion, batches, epoch_f, spec, fmask=fmask)
         check_finite_or_die(metrics["loss"])
         loss_value_reduce = all_reduce_mean(metrics["loss"])  # every rank, every step
@@ -383,7 +421,7 @@ def train_one_epoch(model, optimizer, criterion, data_loader, epoch, spec, devic
 
 @torch.no_grad()
 def test_one_epoch(model, criterion, data_loader, epoch, device, print_freq=20, prefix="test",
-                   img_dtype=None):
+                   img_dtype=None, share=None):
     """The criterion over a test loader (the whole epoch in each meter's
     window); returns {name_avg, name_med} of every scalar. Over several
     ranks each runs the whole loader (it is not split, as in JAX) on its
@@ -395,6 +433,8 @@ def test_one_epoch(model, criterion, data_loader, epoch, device, print_freq=20, 
     header = f"Test Epoch: [{epoch}]"
     data_loader.set_epoch(epoch)
     for _, (view1, view2) in metric_logger.log_every(iter(data_loader), print_freq, header):
+        if share is not None:
+            view1, view2 = share((view1, view2))
         view1, view2 = add_manyar_flags(*make_batch_symmetric(view1, view2))
         batch = (to_device_view(view1, device, img_dtype), to_device_view(view2, device, img_dtype))
         (loss, details), _ = loss_of_one_batch(model, criterion, batch, symmetrized=True)
@@ -422,15 +462,15 @@ def train_rank(rank, world_size, device, args, on_step=None):
     return train(args, on_step=on_step)
 
 
-def _data_devices(args, n_data):
-    """The devices of `--mesh n_data` without a launcher: n_data CPU ranks
-    with `--device cpu`, else the first n_data visible cards (JAX's error
-    when fewer are visible)."""
+def _rank_devices(args, dims):
+    """The devices of `--mesh N,F,M` without a launcher, in rank order:
+    N x F x M CPU ranks with `--device cpu`, else the first N x F x M
+    visible cards (JAX's error when fewer are visible)."""
     from .parallel.mesh import make_mesh
 
     if getattr(args, "device", None) and torch.device(args.device).type == "cpu":
-        return [torch.device("cpu")] * n_data
-    return make_mesh(n_data)
+        return [torch.device("cpu")] * math.prod(dims)
+    return make_mesh(*dims)
 
 
 def train(args, on_step=None):
@@ -440,24 +480,30 @@ def train(args, on_step=None):
     (a caller's probe). Returns the trained (unwrapped) model and its
     optimizer.
 
-    `--mesh N` (the data axis; JAX's `--mesh data[,fsdp[,model]]` with fsdp
-    and model 1) runs one process a device over the backend
-    `--dist_backend`: under a launcher (torchrun: RANK, WORLD_SIZE set), this
-    process is one rank and N must equal WORLD_SIZE; without one, N > 1
-    starts N ranks on the first N cards (N CPU processes with `--device
-    cpu`) and returns None once they end, and N = 1 makes this process a
-    group of one. Each rank loads its share of the train set
-    (`BatchedRandomSampler`'s rank split) at `--batch_size` and seeds numpy
-    with seed + rank; the LR rule counts the global batch (batch_size x
-    accum_iter x N); rank 0 writes the checkpoints and the logs, every rank
-    resumes from checkpoint-last.pth."""
-    from .checkpoint import load_train_checkpoint, save_train_checkpoint, warm_start
+    `--mesh N[,F[,M]]` (JAX's `--mesh data,fsdp,model`) runs one process a
+    device over the backend `--dist_backend`: under a launcher (torchrun:
+    RANK, WORLD_SIZE set), this process is one rank and N x F x M must
+    equal WORLD_SIZE; without one, N x F x M > 1 starts that many ranks on
+    the first cards (CPU processes with `--device cpu`) and returns None
+    once they end, and 1 makes this process a group of one. F = M = 1 is
+    the data axis alone: the model wrapped in DistributedDataParallel. F or
+    M above 1 shards the model over a (data, fsdp, model) mesh
+    (`parallel.mesh.shard_params`: parameters, gradients and AdamW state
+    split F ways, the MLPs M ways) before the optimizer is made. Each data
+    index loads its share of the train set (`BatchedRandomSampler`'s split
+    over N) at `--batch_size` and seeds numpy with seed + data index, so
+    the F x M ranks of one index load the same batches; the LR rule counts
+    the global batch (batch_size x accum_iter x N); rank 0 writes the
+    checkpoints (a sharded model's gathered to the `--mesh 1` layout) and
+    the logs, every rank resumes from checkpoint-last.pth."""
+    from .checkpoint import (full_train_state, load_train_checkpoint, save_train_checkpoint,
+                             warm_start)
     from .datasets import get_data_loader
     from .losses import build_criterion
     from .parallel.distributed import (free_port, get_rank, get_world_size,
                                        init_distributed_mode, is_main_process, launch,
-                                       rank_device, save_on_master)
-    from .parallel.mesh import make_mesh, parse_mesh_arg
+                                       rank_device, replica_batches, save_on_master)
+    from .parallel.mesh import make_mesh, parse_mesh_arg, shard_params, train_mesh
     from .utils.device import default_device
 
     if getattr(args, "remat_policy", "full") != "full":
@@ -465,17 +511,17 @@ def train(args, on_step=None):
                                   "--remat 1 recomputes whole blocks (policy 'full')")
     backend = getattr(args, "dist_backend", "nccl")
     mesh_dims = parse_mesh_arg(getattr(args, "mesh", ""))
-    n_data = 1
+    n_data, n_fsdp, n_model = mesh_dims or (1, 1, 1)
+    sharded = n_fsdp > 1 or n_model > 1
+    n_ranks = n_data * n_fsdp * n_model
     if mesh_dims is not None:
-        n_data, n_fsdp, n_model = mesh_dims
-        if n_fsdp > 1 or n_model > 1:
-            make_mesh(n_data, n_fsdp, n_model)  # raises: ROADMAP.md A10b
-        print(f"mesh: data={n_data} fsdp=1 model=1")
+        print(f"mesh: data={n_data} fsdp={n_fsdp} model={n_model}")
     launched = dist.is_initialized() or ("RANK" in os.environ and "WORLD_SIZE" in os.environ)
     if launched and getattr(args, "local_rank", -1) >= 0:  # torch.distributed.launch's flag
         os.environ.setdefault("LOCAL_RANK", str(args.local_rank))
-    if not launched and n_data > 1:  # --mesh N in one command, as in JAX
-        launch(train_rank, _data_devices(args, n_data), args=(args, on_step))
+    if not launched and n_ranks > 1:  # --mesh N[,F[,M]] in one command, as in JAX
+        launch(train_rank, _rank_devices(args, (n_data, n_fsdp, n_model)),
+               args=(args, on_step))
         return None
     own_group = False
     if launched:
@@ -493,21 +539,27 @@ def train(args, on_step=None):
             init_distributed_mode(backend)
         else:  # --mesh 1 without a launcher: a group of one
             own_group = init_distributed_mode(backend, f"tcp://localhost:{free_port()}", 1, 0)
-        if get_world_size() != n_data:
-            raise ValueError(f"--mesh {getattr(args, 'mesh', '') or 1} asks for {n_data} data "
+        if get_world_size() != n_ranks:
+            raise ValueError(f"--mesh {getattr(args, 'mesh', '') or 1} asks for {n_ranks} "
                              f"ranks but the launcher started {get_world_size()}")
         if getattr(args, "world_size", 1) not in (1, get_world_size()):
             raise ValueError(f"--world_size {args.world_size} but the launcher started "
                              f"{get_world_size()} ranks")
     rank, world = get_rank(), get_world_size()
+    mesh = train_mesh(n_data, n_fsdp, n_model, device.type) if sharded else None
+    data_rank = mesh.get_coordinate()[0] if sharded else rank  # this rank's data index
+    # the fsdp and model ranks of a data index train on one slice, its first
+    # rank's: a loader's draws (ColorJitter's) differ from process to process
+    share = replica_batches(n_data, n_fsdp * n_model) if sharded else None
     os.makedirs(args.output_dir, exist_ok=True)
     print("output_dir: " + args.output_dir)
-    np.random.seed(args.seed + rank)
+    np.random.seed(args.seed + data_rank)
     torch.manual_seed(args.seed)
 
     print(f"Building train dataset {args.train_dataset}")
     loader_train = get_data_loader(args.train_dataset, batch_size=args.batch_size,
-                                   num_workers=args.num_workers, world_size=world, rank=rank)
+                                   num_workers=args.num_workers, world_size=n_data,
+                                   rank=data_rank)
     loaders_test = {}
     if args.test_dataset and args.test_dataset != "[None]":
         for dataset in args.test_dataset.split("+"):
@@ -522,7 +574,7 @@ def train(args, on_step=None):
     train_criterion = build_criterion(args.train_criterion)
     test_criterion = build_criterion(args.test_criterion or args.train_criterion)
 
-    eff_batch_size = args.batch_size * args.accum_iter * world
+    eff_batch_size = args.batch_size * args.accum_iter * n_data
     if args.lr is None:
         args.lr = args.blr * eff_batch_size / 256
     print(f"actual lr: {args.lr:.2e}  effective batch size: {eff_batch_size}")
@@ -532,6 +584,8 @@ def train(args, on_step=None):
     if args.pretrained:
         print("Loading pretrained:", args.pretrained)
         warm_start(args.pretrained, model)
+    if sharded:  # every rank built the same weights; each keeps its shards
+        shard_params(mesh, model)
     optimizer = make_optimizer(model, spec)
     start_epoch, best_so_far = 0, math.inf
     last_ckpt = os.path.join(args.output_dir, "checkpoint-last.pth")
@@ -540,7 +594,7 @@ def train(args, on_step=None):
         epoch, best_so_far = load_train_checkpoint(last_ckpt, model, optimizer)
         start_epoch = epoch + 1
     module = model
-    if dist.is_initialized():  # the ranks start from rank 0's weights
+    if dist.is_initialized() and not sharded:  # the ranks start from rank 0's weights
         model = DistributedDataParallel(
             model, device_ids=[device.index] if device.type == "cuda" else None)
 
@@ -554,9 +608,11 @@ def train(args, on_step=None):
             log_writer = SummaryWriter(log_dir=args.output_dir)
 
     def save_model(epoch, fname, best):
+        # a sharded model's state is gathered to rank 0 by every rank first
+        state = full_train_state(module, optimizer) if sharded else None
         save_on_master(save_train_checkpoint,
                        os.path.join(args.output_dir, f"checkpoint-{fname}.pth"), module,
-                       optimizer, epoch, best, args)
+                       optimizer, epoch, best, args, state=state)
 
     def write_log_stats(epoch, train_stats, test_stats):
         if not is_main_process():
@@ -581,7 +637,8 @@ def train(args, on_step=None):
                 for name, loader in loaders_test.items():
                     stats = test_one_epoch(model, test_criterion, loader, epoch, device,
                                            print_freq=args.print_freq, prefix=name,
-                                           img_dtype=torch.bfloat16 if spec.amp else None)
+                                           img_dtype=torch.bfloat16 if spec.amp else None,
+                                           share=share)
                     test_stats[name] = stats
                     if stats["loss_med"] < best_so_far:
                         best_so_far = stats["loss_med"]
@@ -596,7 +653,7 @@ def train(args, on_step=None):
                 break
             train_stats = train_one_epoch(model, optimizer, train_criterion, loader_train,
                                           epoch, spec, device, print_freq=args.print_freq,
-                                          log_writer=log_writer, on_step=on_step)
+                                          log_writer=log_writer, on_step=on_step, share=share)
         print(f"Training time {time.time() - t_start:.0f}s")
         save_model(args.epochs, "final", best_so_far)
         if world > 1:  # every rank returns once rank 0's checkpoints are on disk

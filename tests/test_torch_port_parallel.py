@@ -6,8 +6,9 @@ engine's and the aligner's shards) against the JAX package on the CPU.
   epochs: the same (sample, bucket) tuples and batches as JAX's, bit for
   bit.
 * `parse_mesh_arg`, `cli_pair_mesh` and `make_mesh` take JAX's arguments
-  and give JAX's values and messages; an fsdp or model width above 1
-  raises, naming ROADMAP.md A10b, through `train(args)` too.
+  and give JAX's values and messages; an fsdp or model width above 1 takes
+  N x F x M devices in rank order, and `train(args)` starts that many
+  ranks (tests/test_torch_port_sharding.py runs them).
 * `InferenceEngine(mesh=["cpu", "cpu"])` against the one-device engine
   and JAX's engine on a mesh of two of its CPU devices, at 1e-5 as
   tests/test_inference.py holds JAX's mesh engine; a batch size the
@@ -160,21 +161,24 @@ def test_mesh_arguments_as_jax():
         jmesh.make_mesh(n)
     assert _count_free(str(ours.value)) == _count_free(str(theirs.value))
     assert mesh.make_mesh(2, devices=["cpu", "cpu"]) == [torch.device("cpu")] * 2
+    devices = [torch.device("cpu", i) for i in range(8)]  # distinct, to see the order
     for dims in ((2, 2, 1), (2, 1, 2)):
-        with pytest.raises(NotImplementedError, match="A10b"):
-            mesh.make_mesh(*dims)
+        assert mesh.make_mesh(*dims, devices=devices) == devices[:4]
+        assert jmesh.make_mesh(*dims).devices.shape == dims
+    assert mesh.make_mesh(None, 2, 2, devices=devices) == devices
 
 
 def test_train_mesh_refusals_and_its_ranks(tmp_path, monkeypatch):
-    """--mesh 2,2 names A10b; --mesh N with fewer cards raises JAX's
-    make_mesh message; both before any data is read. Without a launcher,
-    --mesh 2 --device cpu starts two CPU ranks of `train_rank` (stubbed
-    here: tests below run ranks) and returns None."""
+    """--mesh N (and N,F) with fewer cards raises JAX's make_mesh message,
+    before any data is read. Without a launcher, --mesh 2 --device cpu
+    starts two CPU ranks of `train_rank` (stubbed here: tests below run
+    ranks) and returns None, --mesh 2,2 four."""
     def args(*extra):
         return get_args_parser().parse_args(["--train_dataset", "missing",
                                              "--output_dir", str(tmp_path), *extra])
-    with pytest.raises(NotImplementedError, match="A10b"):
-        training.train(args("--mesh", "2,2", "--device", "cpu"))
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"needs {4 * (n + 1)} devices but only {n} are"):
+        training.train(args("--mesh", f"{n + 1},2,2"))
     n = torch.cuda.device_count() + 1
     with pytest.raises(ValueError, match=f"needs {n} devices but only {n - 1} are visible"):
         training.train(args("--mesh", str(n)))
@@ -184,6 +188,9 @@ def test_train_mesh_refusals_and_its_ranks(tmp_path, monkeypatch):
     run = args("--mesh", "2", "--device", "cpu", "--dist_backend", "gloo")
     assert training.train(run) is None
     assert started == [(training.train_rank, [torch.device("cpu")] * 2, (run, None))]
+    sharded = args("--mesh", "2,2", "--device", "cpu", "--dist_backend", "gloo")
+    assert training.train(sharded) is None
+    assert started[1] == (training.train_rank, [torch.device("cpu")] * 4, (sharded, None))
 
 
 # ---------------------------------------------------------------------- #
