@@ -7,7 +7,8 @@
 Phases (each prints its lines; a failed phase raises and the exit code is 1):
   1. device: requires CUDA; prints the card's name and power limit;
   2. build: compiles the ten kernel sources from `dust3r_tpu_torch/csrc/`
-     (one nvcc per source, all started together, sm_90a);
+     (one nvcc per source, all started together, sm_90a), then the
+     loaders' host image core `csrc/fastimg.cpp` (g++, OpenMP);
   3. kernels: each kernel of the main path (fused_attention's sm90 kernel,
      conv3x3, up2x, dpt_tail) against its plain PyTorch version on the card,
      at the shapes the main path gives it (attention in the main path's
@@ -209,6 +210,29 @@ Phases (each prints its lines; a failed phase raises and the exit code is 1):
      state it holds, beside the reference's. (c) With enough cards, (a) and
      (b) across them over NCCL (one rank a card); else a line that says
      they were not run.
+  12. the host image core, --remat_policy dots, profiling and flops, on
+     Co3d-layout scenes written as phase 8 writes them: (a) the image core
+     (`utils/fastimg.py`, `csrc/fastimg.cpp` built by g++) loads;
+     `color_jitter_norm` against `color_jitter_norm_ref` (the PIL path) on
+     a 512x384 image, each op alone and the four mixed, within JAX's bounds
+     (0.01, hue 0.08, mix 0.09), `imgnorm` within 3e-7 of the numpy
+     formula; the Co3d loader's host ms a pair on the core and on the plain
+     path; the training loader (num_workers 0) calls the core once a view.
+     (b) The 512_dpt at full width, bf16, batch 4 x accum 2, built as
+     `train(args)` builds it from `--remat 0`, `--remat 1` and `--remat 1
+     --remat_policy dots`: one micro-batch's gradients of each remat way
+     against --remat 0's (relative L2 per top-level module within
+     TRAIN_RTOL, both with deterministic algorithms: without them two
+     --remat 0 backwards part by the card's run-to-run noise, printed),
+     then one cold and two warm steps each: seconds, peak
+     memory, forward launches; dots's peak strictly between full's and
+     none's, attention's launches under each remat twice --remat 0's (the
+     recompute), the heads' the same. (c) One more dots step under
+     `utils.profiling.trace` with `annotate` spans (forward, backward,
+     optimizer): the Chrome trace must hold the spans and CUDA events of
+     the four kernels; request (c)'s MFU from phase 4's pairs/s
+     (`utils.flops.mfu_pct`, up2x as lerps, and as dense matmuls). Prints
+     the phase's seconds.
 The visloc phase's JSON line comes before the kernels' line. The
 second-to-last line is a JSON object of the kernels, with the launches
 of the slice's run (of the variants and experiments phases for theirs, of
@@ -223,6 +247,7 @@ rows 3-9) and `dust3r_tpu_torch/tools/conv_variants.py` (rows 10, 11, 13).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import sys
 import time
@@ -392,6 +417,22 @@ SHARD_MESHES = (("(a)", "1,2"), ("(b)", "1,2,2"))
 SHARD_DATASET = PARALLEL_DATASET.replace(", transform=ColorJitter", "")
 SHARD_STEPS = 2
 FOUR_KERNELS = ("fused_attention", "conv3x3", "up2x", "dpt_tail")
+# phase 12: the host image core against its plain version on a 512x384 image
+# within JAX's own bounds (tests/test_fastimg.py), the loader's host ms a
+# pair on each path over CORE_PAIRS pairs; the remat ways' steps (one cold,
+# two warm); the kernels' symbols that the profiler's trace must hold
+CORE_JITTERS = ((("brightness", 1.3),), (("contrast", 0.7),), (("saturation", 1.4),),
+                (("hue", 0.08),),
+                (("saturation", 0.6), ("hue", 0.05), ("brightness", 1.2), ("contrast", 1.3)))
+CORE_BOUNDS = dict(brightness=0.01, contrast=0.01, saturation=0.01, hue=0.08, mix=0.09)
+IMGNORM_ATOL = 3e-7
+CORE_PAIRS = 8
+REMAT_WAYS = (("--remat 0", []), ("--remat 1", ["--remat", "1"]),
+              ("--remat 1 --remat_policy dots", ["--remat", "1", "--remat_policy", "dots"]))
+REMAT_STEPS = 3
+KERNEL_SYMBOLS = dict(fused_attention="attn_sm90_kernel", conv3x3="conv3x3_sm90_kernel",
+                      up2x="up2x_align_corners_kernel", dpt_tail="dpt_tail_sm90_kernel")
+SPANS = ("forward", "backward", "optimizer")
 # the int8 serving pointmaps against the fp32 plain forward, as
 # tests/test_quant.py gates them: relative L2 of pts3d within max(4x the
 # default bf16 body's, 2e-2), of conf within 2e-2
@@ -430,6 +471,11 @@ def build_phase():
         for line in _build.ptxas_log(name).splitlines():
             if "Used" in line or "spill" in line or "arning" in line:
                 log(f"[build] {name}: {line.strip()}")
+    t0 = time.perf_counter()
+    _build.load_host_library("fastimg")  # the loaders' host image core
+    log(f"[build] fastimg.cpp by g++ ({' '.join(_build.HOST_FLAGS)}): "
+        f"{time.perf_counter() - t0:.2f} s (g++ {_build.build_seconds.get('fastimg', 0.0):.2f} s; "
+        f"0 means the library was already built)")
 
 
 def summed(rows, count_key="count"):
@@ -3267,6 +3313,290 @@ def sharding_phase(torch):
     log(f"[sharding] phase: {time.perf_counter() - t_phase:.3f} s")
 
 
+# ---------------------------------------------------------------------- #
+# phase 12: the image core, --remat_policy dots, profiling and flops
+# ---------------------------------------------------------------------- #
+
+def image_core_phase(torch, root):
+    """Step (a) of phase 12: the host image core (`utils/fastimg.py`, built
+    by g++ from `csrc/fastimg.cpp`) against its plain version, the Co3d
+    loader's host ms a pair on each path, and the training loader on the
+    core by its call counter. Returns the micro-batches of one step of
+    TRAIN_DATASET, drawn in this process."""
+    import numpy as np
+    import PIL.Image
+
+    from dust3r_tpu_torch.datasets import build_dataset, get_data_loader
+    from dust3r_tpu_torch.datasets.utils import transforms
+    from dust3r_tpu_torch.ops import _build
+    from dust3r_tpu_torch.training import symmetric_micro_batches
+    from dust3r_tpu_torch.utils import fastimg
+
+    if not fastimg.available():
+        raise AssertionError("the host image core did not build")
+    log(f"[core] csrc/fastimg.cpp, built by g++ ({' '.join(_build.HOST_FLAGS)}): "
+        f"{fastimg.ensure_built()}")
+    arr = np.random.default_rng(SEED).integers(0, 256, (H384, W, 3), dtype=np.uint8)
+    for params in CORE_JITTERS:
+        ops, factors = [n for n, _ in params], [f for _, f in params]
+        got = fastimg.color_jitter_norm(arr, ops, factors)
+        ref = transforms.color_jitter_norm_ref(PIL.Image.fromarray(arr), list(params))
+        err = float(np.abs(got - ref).max())
+        bound = CORE_BOUNDS["mix" if len(ops) > 1 else ops[0]]
+        log(f"[core] color_jitter_norm {params} on {H384}x{W}: max |core - plain| {err:.4e} "
+            f"(JAX's bound {bound:g})")
+        if not err < bound:
+            raise AssertionError(f"color_jitter_norm {params}: {err:.4e} >= {bound:g}")
+    err = float(np.abs(fastimg.imgnorm(arr) - transforms.img_norm_ref(arr)).max())
+    log(f"[core] imgnorm on {H384}x{W}: max |core - numpy formula| {err:.3e} "
+        f"(limit {IMGNORM_ATOL:g})")
+    if not err <= IMGNORM_ATOL:
+        raise AssertionError(f"imgnorm {err:.3e} > {IMGNORM_ATOL:g}")
+
+    # the loader's host time a pair on the core, then on the plain path
+    dataset = TRAIN_DATASET.format(n=TRAIN_BATCH * TRAIN_ACCUM, root=root)
+    ms = {}
+    real = fastimg.imgnorm, fastimg.color_jitter_norm
+    plain = (transforms.img_norm_ref, lambda a, o, f: transforms.color_jitter_norm_ref(
+        PIL.Image.fromarray(a), list(zip(o, f))))
+    for path, (norm, jitter) in (("core", real), ("plain", plain), ("core again", real)):
+        fastimg.imgnorm, fastimg.color_jitter_norm = norm, jitter
+        try:
+            ds = build_dataset(dataset)
+            ds.set_epoch(0)
+            ds[0, 0]  # the first read of the files
+            t0 = time.perf_counter()
+            for i in range(CORE_PAIRS):
+                ds[i % len(ds), i % len(TRAIN_RESOLUTIONS)]
+            ms[path] = 1e3 * (time.perf_counter() - t0) / CORE_PAIRS
+        finally:
+            fastimg.imgnorm, fastimg.color_jitter_norm = real
+    log(f"[core] Co3d loader ({TRAIN_RESOLUTIONS} in turn, ColorJitter): host ms a pair, "
+        f"{CORE_PAIRS} pairs each: core {ms['core']:.2f}, plain {ms['plain']:.2f}, core "
+        f"again {ms['core again']:.2f} (this process, one host thread a pair)")
+
+    # the training loader takes the core: one call a view, in this process
+    before = fastimg.color_jitter_norm.launches, fastimg.imgnorm.launches
+    loader = get_data_loader(dataset, batch_size=TRAIN_BATCH, num_workers=0)
+    loader.set_epoch(0)
+    group = list(loader)
+    views = sum(len(v["img"]) for views in group for v in views)
+    calls = (fastimg.color_jitter_norm.launches - before[0],
+             fastimg.imgnorm.launches - before[1])
+    log(f"[core] the training loader (num_workers 0): {len(group)} batches, {views} views; "
+        f"color_jitter_norm calls {calls[0]}, imgnorm calls {calls[1]} (expected {views}, 0)")
+    if calls != (views, 0):
+        raise AssertionError(f"the loader's core calls {calls} != ({views}, 0)")
+    return symmetric_micro_batches(group, torch.device("cuda"), torch.bfloat16)
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """Deterministic algorithms (PyTorch's own, cuDNN's; cuBLAS's workspace
+    config) for a comparison whose sides must not differ by the card's
+    run-to-run noise: two bf16 512_dpt backwards on one batch part by
+    ~1.8e-3 without them and by 0 with them (phase 12 prints both)."""
+    import os
+
+    cudnn = torch.backends.cudnn
+    before = (torch.are_deterministic_algorithms_enabled(), cudnn.deterministic,
+              cudnn.benchmark, os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0])
+        cudnn.deterministic, cudnn.benchmark = before[1], before[2]
+        if before[3] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = before[3]
+
+
+def _rel_l2_by_module(torch, model, ours, ref):
+    """Relative L2 of `ours` against `ref` (on the host) per top-level module."""
+    errs = {}
+    for group, named in _groups(torch, model).items():
+        a = torch.cat([ours[n].flatten() for n, _ in named])
+        b = torch.cat([ref[n].flatten() for n, _ in named]).to(a.device)
+        errs[group] = float((a - b).norm() / b.norm().clamp(min=1e-30))
+    return errs
+
+
+def remat_phase(torch, mbs):
+    """Step (b) of phase 12: the 512_dpt at full width, bf16, batch 4 x accum
+    2, built as `train(args)` builds it from each REMAT_WAYS's flags; each
+    way's gradients of one micro-batch against --remat 0's (relative L2 per
+    top-level module, TRAIN_RTOL), all under `deterministic` (--remat 0's
+    also without it, to show the noise it removes), then REMAT_STEPS
+    optimizer steps on the
+    same micro-batches (one cold, the rest warm): seconds, peak memory and
+    forward launches. Gates: dots's peak strictly between full's and none's;
+    under a remat, attention's launches twice --remat 0's (each block's
+    forward again in its recompute), the heads' the same. Returns the dots
+    way's model and optimizer, warm."""
+    import math
+
+    from dust3r_tpu_torch.losses import build_criterion
+    from dust3r_tpu_torch.train import get_args_parser
+    from dust3r_tpu_torch.training import TrainSpec, build_model, make_optimizer, train_step
+
+    criterion = build_criterion(TRAIN_CRITERION)
+    spec = TrainSpec(lr=TRAIN_LR, min_lr=0.0, warmup_epochs=0, epochs=1, accum_iter=TRAIN_ACCUM)
+    flagged = ["is_portrait" in mb[0] for mb in mbs]
+    ref_grads, rows, want = None, {}, None
+    for way, flags in REMAT_WAYS:
+        args = get_args_parser().parse_args(["--model", PUBLISHED_ARCH, "--train_dataset", "x",
+                                             "--amp", "1", *flags])
+        model = build_model(args.model, torch.device("cuda"), dtype=torch.bfloat16,
+                            remat=bool(args.remat), seed=SEED, remat_policy=args.remat_policy)
+        want = want or forward_launches(model, flagged)
+        with deterministic(torch):
+            loss, grads = _grads(torch, model, criterion, mbs[0])
+        if ref_grads is None:
+            ref_loss, ref_grads = loss, {k: g.cpu() for k, g in grads.items()}
+            del grads
+            loss, grads = _grads(torch, model, criterion, mbs[0])
+            errs = _rel_l2_by_module(torch, model, grads, ref_grads)
+            log(f"[remat] {way}: one micro-batch's gradients without deterministic algorithms "
+                f"against with them (the card's run-to-run noise): loss {loss:.6f} / "
+                f"{ref_loss:.6f}, relative L2 per module "
+                + ", ".join(f"{g} {e:.3e}" for g, e in errs.items()) + " (information)")
+        else:
+            errs = _rel_l2_by_module(torch, model, grads, ref_grads)
+            log(f"[remat] {way}: one micro-batch's loss {loss:.6f} (--remat 0: {ref_loss:.6f}); "
+                f"gradients against --remat 0's, both with deterministic algorithms, relative "
+                f"L2 per module " + ", ".join(f"{g} {e:.3e}" for g, e in errs.items())
+                + f" (limit {TRAIN_RTOL:g})")
+            if not max(errs.values()) <= TRAIN_RTOL:
+                raise AssertionError(f"{way}: gradients off --remat 0's: {errs}")
+        del grads
+        opt = make_optimizer(model, spec)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        seconds, launches = [], []
+        for step in range(REMAT_STEPS):
+            reset_launches()
+            t0 = time.perf_counter()
+            m = train_step(model, opt, criterion, mbs, step / REMAT_STEPS, spec)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            launches.append({k: v for k, v in read_launches().items() if k in FOUR_KERNELS})
+            if not math.isfinite(m["loss"]):
+                raise AssertionError(f"{way} step {step}: loss {m['loss']}")
+        peak = torch.cuda.max_memory_allocated()
+        rows[way] = dict(peak=peak, launches=launches[-1])
+        log(f"[remat] {way} (remat {model.remat}, policy {model.remat_policy}): "
+            f"{REMAT_STEPS} steps of batch {TRAIN_BATCH} x accum {TRAIN_ACCUM} (ManyAR flags "
+            f"{flagged}) in " + ", ".join(f"{t:.3f}" for t in seconds) + " s (the first "
+            f"cold); peak device memory {peak} bytes ({peak / 2**30:.3f} GiB); forward launches "
+            f"a step {launches[-1]}")
+        if any(n != launches[0] for n in launches):
+            raise AssertionError(f"{way}: launches differ between steps: {launches}")
+        if way != REMAT_WAYS[-1][0]:
+            del model, opt
+            torch.cuda.empty_cache()
+    none, full, dots = (rows[w]["peak"] for w, _ in REMAT_WAYS)
+    base = rows[REMAT_WAYS[0][0]]["launches"]
+    log(f"[remat] peaks: --remat 0 {none}, --remat 1 {full}, dots {dots} bytes (dots strictly "
+        f"between: {full < dots < none}); --remat 0's forward launches {base} (expected {want})")
+    if base != want:
+        raise AssertionError(f"--remat 0 launches {base} != {want}")
+    for way, _ in REMAT_WAYS[1:]:
+        got = rows[way]["launches"]
+        twice = dict(base, fused_attention=2 * base["fused_attention"])
+        if got != twice:
+            raise AssertionError(f"{way}: launches {got} != {twice} (attention twice, the "
+                                 f"heads once)")
+    if not full < dots < none:
+        raise AssertionError(f"dots's peak {dots} not strictly between full's {full} and "
+                             f"none's {none}")
+    return model, opt
+
+
+def profile_phase(torch, mbs, model, opt, card, pairs_per_s):
+    """Step (c) of phase 12: one more step of (b)'s warm dots model (each
+    micro-batch's forward and backward, then AdamW's step, each in an
+    `annotate` span) under `utils.profiling.trace`; its Chrome trace must
+    hold the three spans and CUDA events of the four kernels. Then the
+    slice's MFU by `utils.flops.mfu_pct` from phase 4's pairs/s."""
+    import shutil
+
+    from dust3r_tpu_torch.losses import build_criterion
+    from dust3r_tpu_torch.training import loss_of_one_batch
+    from dust3r_tpu_torch.utils import flops, profiling
+
+    criterion = build_criterion(TRAIN_CRITERION)
+
+    def step():
+        for mb in mbs:
+            with profiling.annotate("forward"):
+                (loss, _), _ = loss_of_one_batch(model, criterion, mb, symmetrized=True)
+            with profiling.annotate("backward"):
+                (loss / len(mbs)).backward()
+        with profiling.annotate("optimizer"):
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+
+    out = ROOT / "build" / "profile"
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    with profiling.trace(str(out)) as prof:
+        step()
+    traced_s = time.perf_counter() - t0
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(sym in e.get("name", "") for e in kernels) for k, sym in KERNEL_SYMBOLS.items()}
+    device_ms = sum(e.get("dur", 0) for e in kernels) / 1e3
+    size = Path(prof.trace_path).stat().st_size
+    log(f"[profile] one warm dots step under profiling.trace in {traced_s:.3f} s: "
+        f"{prof.trace_path} ({size} bytes, {len(events)} events, {len(kernels)} CUDA kernel "
+        f"events, {device_ms:.3f} ms of kernel time); spans {[s for s in SPANS if s in names]}; "
+        f"CUDA events of the four kernels {found}")
+    shutil.rmtree(out, ignore_errors=True)
+    del model, opt
+    torch.cuda.empty_cache()
+    if not all(s in names for s in SPANS) or not all(found.values()):
+        raise AssertionError(f"the trace lacks a span of {SPANS} or a kernel: {found}")
+    lerp = flops.mfu_pct(pairs_per_s, H384, W, "dpt", upsample="lerp")
+    matmul = flops.mfu_pct(pairs_per_s, H384, W, "dpt", upsample="matmul")
+    log(f"[profile] request (c) of phase 4: {pairs_per_s:.3f} pairs/s at {W}x{H384} = MFU "
+        f"{lerp:.3f} % of {flops.PEAK_TFLOPS_BF16:g} TFLOP/s bf16 "
+        f"({flops.pair_forward_flops(H384, W, 'dpt', 'lerp'):.6e} FLOP a pair, up2x counted "
+        f"as lerps: the port's kernel); {matmul:.3f} % counting up2x as dense matmuls "
+        f"({flops.pair_forward_flops(H384, W, 'dpt', 'matmul'):.6e} FLOP a pair); {card}")
+
+
+def core_remat_profile_phase(torch, card, pairs_per_s):
+    """The image core, --remat_policy dots, profiling and flops (phase 12 of
+    the module's docstring)."""
+    import shutil
+
+    from dust3r_tpu_torch.tools.train_scenes import write_scenes
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "phase12"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    root = write_scenes(str(work / "co3d"), frames=PARALLEL_FRAMES, seed=SEED)
+    log(f"[core] Co3d-layout scenes (phase 8's, {PARALLEL_FRAMES} frames each) written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    mbs = image_core_phase(torch, root)
+    model, opt = remat_phase(torch, mbs)
+    profile_phase(torch, mbs, model, opt, card, pairs_per_s)
+    del model, opt, mbs
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"[phase 12] {time.perf_counter() - t_phase:.3f} s")
+
+
 def main(argv):
     if not (ROOT / "dust3r_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repo (dust3r_tpu_torch/ missing)",
@@ -3277,7 +3607,7 @@ def main(argv):
 
     import dust3r_tpu_torch  # noqa: F401  (sets the TF32 policy)
 
-    device_phase(torch)
+    card = device_phase(torch)
     build_phase()
     attn_rows = attention_kernel_phase(torch)
     variant_rows, variant_launches = variants_phase(torch)
@@ -3297,6 +3627,7 @@ def main(argv):
     del engine
     parallel_phase(torch, pairs, refs, scene_losses)
     sharding_phase(torch)
+    core_remat_profile_phase(torch, card, len(pairs) / refs["seconds_c"])
     # attention: the encoder's self-attention shape, read from the qkv
     # projection, on the sm90 kernel; its mma.sync core (the baseline) at
     # the same call; its grouped form: the variants phase's G = 2, 4 and 8

@@ -66,7 +66,8 @@ import torch.distributed as dist
 
 # what the port's constructor takes from an arch string or a hub config;
 # the rest of its arguments (dtype, device, ...) are the caller's overrides
-_OVERRIDES = ("dtype", "head_dtype", "attn_impl", "conv_impl", "device", "seed", "remat")
+_OVERRIDES = ("dtype", "head_dtype", "attn_impl", "conv_impl", "device", "seed", "remat",
+              "remat_policy")
 _HUB_WEIGHT_NAMES = ("model.safetensors", "pytorch_model.bin")
 # the DPT head's dead unit: real checkpoints carry it, nothing reads it
 _DEAD_UNIT = re.compile(r"^downstream_head[12]\.dpt\.scratch\.refinenet4\.resConfUnit1\.")
@@ -442,9 +443,32 @@ def warm_start(path, model, verbose=True):
 # the JAX bridge
 # ---------------------------------------------------------------------- #
 
+def unstack_scan_params(variables, enc_depth, dec_depth):
+    """A `scan_layers=True` tree (blocks stacked on a leading depth axis in
+    `enc_blocks_scan/block` and `dec_blocks_scan/block1|block2`) -> the
+    per-layer tree; the JAX `checkpoint.unstack_scan_params`, on numpy."""
+    params = dict(variables["params"])
+    enc = params.pop("enc_blocks_scan")["block"]
+    dec = params.pop("dec_blocks_scan")
+
+    def layer(tree, i):
+        return {k: layer(v, i) if isinstance(v, dict) else np.asarray(v)[i]
+                for k, v in tree.items()}
+
+    for i in range(enc_depth):
+        params[f"enc_blocks_{i}"] = layer(enc, i)
+    for i in range(dec_depth):
+        params[f"dec_blocks_{i}"] = layer(dec["block1"], i)
+        params[f"dec_blocks2_{i}"] = layer(dec["block2"], i)
+    return {"params": params}
+
+
 def state_dict_from_jax(variables, enc_depth=24, dec_depth=12, head_type="linear"):
     """flax `{"params": ...}` tree with numpy leaves -> {name: tensor}: fp32,
-    and int8 for the `weight_q` of a quantized tree's QuantDense leaves."""
+    and int8 for the `weight_q` of a quantized tree's QuantDense leaves. A
+    `scan_layers=True` tree is unstacked first, as JAX's exporter does."""
+    if "enc_blocks_scan" in variables["params"]:
+        variables = unstack_scan_params(variables, enc_depth, dec_depth)
     params = variables["params"]
     sd = {}
 

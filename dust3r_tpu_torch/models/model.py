@@ -8,7 +8,9 @@ landscape with per-sample `is_portrait` flags (the ManyAR path: both
 patchify orientations, both head orientations, selected per sample);
 `symmetrized=True` encodes view1 only and swaps pairs for view2; `remat`
 recomputes each block's activations in the backward (torch activation
-checkpointing, memory only); params are fp32,
+checkpointing, memory only), all of them under `remat_policy="full"` and,
+under "dots", all but the 2-D GEMM outputs (`DotsPolicy`, JAX's
+`dots_with_no_batch_dims_saveable`); params are fp32,
 the transformer body computes in `dtype` (bf16 on the card) and the heads
 in `head_dtype` (fp32, the parity default; bf16 in the serving
 configuration, `--serving`), their postprocess in fp32. The int8 serving
@@ -25,11 +27,13 @@ CPU, device="meta" for shapes only).
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops.rope import rope_tables
 from ..utils.device import default_device
@@ -38,6 +42,31 @@ from .heads import head_factory
 
 inf = math.inf
 INIT_STD = 0.02  # normal init of every weight; biases 0, norms 1
+REMAT_POLICIES = ("full", "dots")
+
+
+class DotsPolicy:
+    """The "dots" remat policy, JAX's `dots_with_no_batch_dims_saveable` as
+    a policy of torch's selective activation checkpointing: the outputs of
+    the 2-D GEMMs (`aten.mm`, `aten.addmm`: qkv, proj, projq / projk /
+    projv, fc1, fc2) are saved, everything else is recomputed in the
+    backward (the attention's batched products, LayerNorm, GELU, RoPE and
+    the attention kernel's Function, whose launch is repeated, as JAX
+    recomputes its pallas_call). `record`: None, or a list that gets the
+    (op, output shape, dtype) of each output saved in a forward."""
+
+    SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+    def __init__(self):
+        self.record = None
+
+    def __call__(self, ctx, op, *args, **kwargs):
+        if op in self.SAVED:
+            if self.record is not None and not ctx.is_recompute:
+                a, b = args[-2:]  # mm(a, b), addmm(bias, a, b)
+                self.record.append((str(op), (a.shape[0], b.shape[1]), a.dtype))
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 class AsymmetricCroCo3DStereo(nn.Module):
@@ -48,10 +77,12 @@ class AsymmetricCroCo3DStereo(nn.Module):
                  head_type="linear", depth_mode=("exp", -inf, inf),
                  conf_mode: Optional[tuple] = ("exp", 1, inf),
                  dtype=torch.float32, head_dtype=torch.float32, attn_impl=None,
-                 conv_impl=None, device=None, seed=0, remat=False):
+                 conv_impl=None, device=None, seed=0, remat=False, remat_policy="full"):
         super().__init__()
         if not pos_embed.startswith("RoPE"):
             raise NotImplementedError(f"unsupported pos_embed {pos_embed}")
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {remat_policy!r} not in {REMAT_POLICIES}")
         device = (torch.device(device) if device is not None
                   else default_device(type(self).__name__))
         self.img_size = tuple(img_size)
@@ -69,6 +100,8 @@ class AsymmetricCroCo3DStereo(nn.Module):
         self.dtype = dtype
         self.head_dtype = head_dtype
         self.remat = remat
+        self.remat_policy = remat_policy
+        self.dots_policy = DotsPolicy()
         rope_base = float(pos_embed[len("RoPE"):])
         self.rope_base = rope_base
         self.enc_head_dim = enc_embed_dim // enc_num_heads
@@ -114,9 +147,14 @@ class AsymmetricCroCo3DStereo(nn.Module):
 
     def _block(self, blk, *args):
         """blk(*args), its activations recomputed in the backward under
-        `remat` while autograd records."""
+        `remat` while autograd records: all of them, or under "dots" all
+        but its GEMMs' outputs."""
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(blk, *args, use_reentrant=False)
+            kw = {}
+            if self.remat_policy == "dots":
+                kw["context_fn"] = partial(create_selective_checkpoint_contexts,
+                                           self.dots_policy)
+            return checkpoint(blk, *args, use_reentrant=False, **kw)
         return blk(*args)
 
     def encode(self, img, is_portrait=None):

@@ -1,12 +1,16 @@
-"""Build the port's CUDA kernels at first use and load them with ctypes.
+"""Build the port's CUDA kernels and its host image core at first use and
+load them with ctypes.
 
 Each `csrc/*.cu` is compiled by `nvcc` for `sm_90a` into a shared library
 with a plain C interface (no PyTorch headers: seconds, not minutes). The
 library lands in `build/dust3r_tpu_torch/<hash>/`, keyed by a hash of the
 source, the shared headers (`csrc/*.cuh`) and the flags, so an edited
 source or header builds anew and an unchanged one is loaded as it is.
-`build` starts one nvcc per source, all at once. A failed build raises;
-nothing falls back.
+`build` starts one nvcc per source, all at once. The host route builds a
+`csrc/*.cpp` (the image core, `csrc/fastimg.cpp`) with `g++` and the JAX
+package's flags (OpenMP, `-march=native`) the same way, keyed also by what
+`-march=native` means on this host. A failed build raises; nothing falls
+back.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -23,6 +28,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "dust3r_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_FLAGS = ("-O3", "-march=native", "-fopenmp", "-shared", "-fPIC")  # the JAX core's
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _load_lock = threading.Lock()
@@ -87,6 +93,60 @@ def build(names):
         (lib.parent / "ptxas.log").write_text(err)
     if failed:
         raise RuntimeError("\n".join(failed))
+
+
+def gxx_path():
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: the port's host image core (csrc/fastimg.cpp) is "
+                           "built from source at first use; nothing falls back")
+    return found
+
+
+def _host_out_dir(name):
+    """The build directory of `csrc/<name>.cpp`: a hash of the source, the
+    flags and g++'s version and expansion of `-march=native` (a library
+    built for another host's CPU is never loaded)."""
+    src = CSRC / f"{name}.cpp"
+    gxx = gxx_path()
+    digest = hashlib.sha256(src.read_bytes() + " ".join(HOST_FLAGS).encode())
+    for query in (["-dumpfullversion"], ["-march=native", "-Q", "--help=target"]):
+        digest.update(subprocess.run([gxx, *query], capture_output=True, check=True).stdout)
+    return src, BUILD_ROOT / digest.hexdigest()[:16]
+
+
+def build_host(name):
+    """Compile `csrc/<name>.cpp` with g++ unless built; returns the library's
+    path. Each builder writes its own temporary file and publishes it with
+    an atomic rename, so processes that race the first build (test
+    workers, spawned loader workers) all load a whole library."""
+    src, out_dir = _host_out_dir(name)
+    lib = out_dir / f"lib{name}.so"
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".tmp.so", dir=out_dir)
+    os.close(fd)
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run([gxx_path(), *HOST_FLAGS, "-o", tmp, str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed to build {src.name}:\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, lib)
+        build_seconds[name] = time.perf_counter() - t0
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib
+
+
+def load_host_library(name):
+    """Build (if needed) and load `csrc/<name>.cpp` as a ctypes library."""
+    with _load_lock:
+        if name not in _loaded:
+            _loaded[name] = ctypes.CDLL(str(build_host(name)))
+        return _loaded[name]
 
 
 def library_path(name):

@@ -16,7 +16,11 @@ mesh as JAX does: every parameter, its gradient and its AdamW state split F
 ways (FSDP2, on the axis JAX's `_fsdp_spec` picks), each block's MLP split M
 ways (fc1 by columns, fc2 by rows); the batch is split over the N data
 ranks only. `--batch_size` is per data rank. `--scan_layers` is an XLA
-compile-time option with no effect here; `--remat_policy` takes 'full' only.
+compile-time option with no effect here. `--remat 1` recomputes each
+block's activations in the backward: all of them (`--remat_policy full`)
+or all but its GEMMs' outputs (`dots`, JAX's
+`dots_with_no_batch_dims_saveable` as selective activation checkpointing);
+without `--remat 1` the policy does nothing, as in JAX.
 """
 import argparse
 
@@ -56,7 +60,10 @@ def get_args_parser():
                         help="recompute each block's activations in the backward "
                              "(activation checkpointing: less memory, more time)")
     parser.add_argument("--remat_policy", type=str, default="full", choices=["full", "dots"],
-                        help="'full' only: 'dots' is an XLA checkpoint policy and raises")
+                        help="what --remat 1 recomputes: 'full' every activation of a "
+                             "block; 'dots' all but the outputs of its 2-D GEMMs (qkv, proj, "
+                             "q/k/v, fc1, fc2), which are kept (less recompute, more memory); "
+                             "no effect without --remat 1")
     parser.add_argument("--num_workers", default=8, type=int)
     parser.add_argument("--mesh", default="", type=str,
                         help="'N[,F[,M]]': a (data, fsdp, model) mesh of N x F x M ranks, one a "

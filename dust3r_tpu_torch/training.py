@@ -445,11 +445,11 @@ def test_one_epoch(model, criterion, data_loader, epoch, device, print_freq=20, 
             for tag, attr in (("avg", "global_avg"), ("med", "median"))}
 
 
-def build_model(model_str, device, dtype=None, remat=False, seed=0):
+def build_model(model_str, device, dtype=None, remat=False, seed=0, remat_policy="full"):
     """The model of an arch string (landscape_only as JAX passes it)."""
     from .checkpoint import model_from_arch_string
 
-    overrides = dict(device=device, remat=remat, seed=seed)
+    overrides = dict(device=device, remat=remat, remat_policy=remat_policy, seed=seed)
     if dtype is not None:
         overrides["dtype"] = dtype
     return model_from_arch_string(model_str, landscape_only=True, **overrides)
@@ -506,9 +506,6 @@ def train(args, on_step=None):
     from .parallel.mesh import make_mesh, parse_mesh_arg, shard_params, train_mesh
     from .utils.device import default_device
 
-    if getattr(args, "remat_policy", "full") != "full":
-        raise NotImplementedError("--remat_policy dots is an XLA checkpoint policy; the port's "
-                                  "--remat 1 recomputes whole blocks (policy 'full')")
     backend = getattr(args, "dist_backend", "nccl")
     mesh_dims = parse_mesh_arg(getattr(args, "mesh", ""))
     n_data, n_fsdp, n_model = mesh_dims or (1, 1, 1)
@@ -570,7 +567,8 @@ def train(args, on_step=None):
 
     print(f"Loading model: {args.model}")
     model = build_model(args.model, device, dtype=torch.bfloat16 if args.amp else None,
-                        remat=bool(getattr(args, "remat", 0)), seed=args.seed)
+                        remat=bool(getattr(args, "remat", 0)), seed=args.seed,
+                        remat_policy=getattr(args, "remat_policy", "full"))
     train_criterion = build_criterion(args.train_criterion)
     test_criterion = build_criterion(args.test_criterion or args.train_criterion)
 

@@ -8,8 +8,9 @@ JPEGs, the port's EXR writer; 128 pixels on the long edge, read at
   and Habitat views equal JAX's bit for bit (img, depthmap, pts3d,
   valid_mask, camera_pose, camera_intrinsics, true_shape, dataset, label,
   instance, idx, rng) through aug_crop, ColorJitter (both packages'
-  unseeded generator seeded alike, JAX's native image core patched away)
-  and mask_bg, over the splits; Habitat's walk past a view with a
+  unseeded generator seeded alike; on both packages' host image core,
+  JAX's default path, and again on JAX's fallback, its core patched away,
+  against the port's plain versions) and mask_bg, over the splits; Habitat's walk past a view with a
   non-finite pose, MegaDepth's `select_scene`, Habitat's `filter_scene`;
 * each layout's pts3d lies on the tool's plane (world z = PLANE_Z) to
   1e-3 of its depth, which a wrong convention (mm, cam2world against
@@ -32,6 +33,7 @@ import dust3r_tpu_torch.datasets as tds  # noqa: E402
 from dust3r_tpu_torch.tools.train_scenes import (PLANE_Z, TRAIN_ARGS, camera,  # noqa: E402
                                                  mix_dsl, write_mix)
 from test_exr_loaders import _write_frame  # noqa: E402
+from test_torch_port_train_data import patch_port_to_plain  # noqa: E402
 
 RESOLUTIONS = "[(64, 48), (64, 32)]"
 
@@ -59,15 +61,20 @@ def jax_written(tmp_path_factory):
     return root
 
 
-@pytest.fixture
-def same_jitter(monkeypatch):
+@pytest.fixture(params=["native", "fallback"])
+def same_jitter(request, monkeypatch):
     """Both packages' ColorJitter draw from np.random.default_rng() with no
-    seed: seed those calls alike. JAX's native image core is patched away,
-    so JAX takes its PIL / cv2 path."""
+    seed: seed those calls alike. "native": both on their host image core
+    (JAX's default path); "fallback": JAX's core patched away, so JAX takes
+    its PIL / cv2 path, and the port its plain versions."""
     orig = np.random.default_rng
     monkeypatch.setattr(np.random, "default_rng",
                         lambda seed=None: orig(1234 if seed is None else seed))
-    monkeypatch.setattr(jfastimg, "_load", lambda: None)
+    if request.param == "native":
+        assert jfastimg.available()
+    else:
+        monkeypatch.setattr(jfastimg, "_load", lambda: None)
+        patch_port_to_plain(monkeypatch)
 
 
 def _same_views(got, want, where):

@@ -15,7 +15,9 @@ against the JAX package on the CPU.
   and 1 lie within 2e-5 and 2e-4 of JAX's single-device step, the same on
   every rank; fc1's and fc2's local weights have the shapes JAX's specs
   give. The `--mesh 1,2,2` case freezes the encoder: its frozen matrices
-  decay as in JAX, its frozen vectors stay.
+  decay as in JAX, its frozen vectors stay. A third case, `--mesh 1,2,2`
+  with `--remat 1 --remat_policy dots`, holds the selective checkpointing
+  under FSDP2 and the model axis's DTensors to JAX's step alike.
 * `train(args)` at `--mesh 1,2 --device cpu`: rank 0 alone writes a
   `checkpoint-final.pth` with `--mesh 1`'s keys, shapes and optimizer
   numbering, values within 1e-5 of the `--mesh 1` run's on the same batches,
@@ -125,7 +127,11 @@ def test_param_placements_are_jax_param_shardings(which, dims):
 # the sharded step against JAX's single-device step
 # ---------------------------------------------------------------------- #
 
-STEP_CASES = [((2, 2, 1), "none"), ((1, 2, 2), "encoder")]  # four ranks each
+# (dims, freeze, remat policy or None), four ranks each; the last case runs
+# the "dots" selective checkpointing under FSDP2 and the model axis's DTensors
+STEP_CASES = [((2, 2, 1), "none", None), ((1, 2, 2), "encoder", None),
+              ((1, 2, 2), "none", "dots")]
+STEP_IDS = ["dims0-none", "dims1-encoder", "dims2-none-dots"]
 EPOCHS_F = [0.25, 0.75]
 
 
@@ -154,17 +160,18 @@ def sharded_ranks():
     _, _, sd, steps = _step_inputs()
     cases = [(dims, _step_args(freeze),
               [[[_half(b, d, dims[0]) for b in group] for group in steps]
-               for d in range(dims[0])])
-             for dims, freeze in STEP_CASES]
-    assert all(np.prod(dims) == 4 for dims, _ in STEP_CASES)
+               for d in range(dims[0])],
+              dict(remat=True, remat_policy=policy) if policy else {})
+             for dims, freeze, policy in STEP_CASES]
+    assert all(np.prod(dims) == 4 for dims, _, _ in STEP_CASES)
     with ThreadPoolExecutor(1) as pool:
         yield pool.submit(launch, sharded_steps, ["cpu"] * 4,
                           args=(cases, CFG, sd, EPOCHS_F, CRITERION), timeout=120)
 
 
-@pytest.mark.parametrize("dims,freeze", STEP_CASES)
+@pytest.mark.parametrize("dims,freeze,policy", STEP_CASES, ids=STEP_IDS)
 def test_sharded_ranks_step_as_jax_on_the_global_batch(jax_decays, sharded_ranks, dims,
-                                                       freeze):
+                                                       freeze, policy):
     jmodel, variables, sd, steps = _step_inputs()
     args = _step_args(freeze)
     jspec = jtraining.TrainSpec(**args)
@@ -175,7 +182,7 @@ def test_sharded_ranks_step_as_jax_on_the_global_batch(jax_decays, sharded_ranks
     for group, epoch_f in zip(steps, EPOCHS_F):
         state, m = step_fn(state, _jax_step_batch(group), jnp.asarray(epoch_f))
         jm.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
-    case = STEP_CASES.index((dims, freeze))
+    case = STEP_CASES.index((dims, freeze, policy))
     ranks = [out[case] for out in sharded_ranks.result()]
     for r, out in enumerate(ranks):
         for k, (m, want) in enumerate(zip(out["metrics"], jm)):

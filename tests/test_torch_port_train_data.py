@@ -8,9 +8,10 @@ plus one portrait sequence) and its WildRGB-D twin.
   the hue turn's HSV -> RGB equals cv2's on every HSV triple;
 * `Co3d` / `WildRGBD` views equal JAX's bit for bit at several
   resolutions, portrait ones among them, through ColorJitter and ImgNorm
-  (both packages' unseeded jitter generator seeded alike, and the JAX
-  native image core patched away, as its fallback runs when the library
-  is absent);
+  (both packages' unseeded jitter generator seeded alike), on both
+  packages' host image core (JAX's default path) and, as a second case,
+  on JAX's fallback (its core patched away) against the port's plain
+  versions;
 * the sampler yields JAX's (idx, ar_idx), the loader JAX's batches (with
   worker processes too), the dataset DSL JAX's lengths and items;
 * the misc and device helpers equal JAX's.
@@ -96,18 +97,37 @@ def roots(tmp_path_factory):
                 WildRGBD=_write_wildrgbd(str(tmp_path_factory.mktemp("wildrgbd")), 1))
 
 
-@pytest.fixture
-def same_jitter(monkeypatch):
+@pytest.fixture(params=["native", "fallback"])
+def same_jitter(request, monkeypatch):
     """Both packages' ColorJitter draw from np.random.default_rng() with no
-    seed; seed those calls alike. The JAX native image core is patched
-    away (its library absent), so JAX takes its PIL / cv2 path."""
+    seed; seed those calls alike. "native": both take their host image core
+    (JAX's default path, its core built as tests/test_fastimg.py builds
+    it). "fallback": JAX's core patched away (its library absent), so JAX
+    takes its PIL / cv2 path, and the port its plain versions
+    (`img_norm_ref`, `color_jitter_norm_ref`)."""
     orig = np.random.default_rng
 
     def seeded(seed=None):
         return orig(1234 if seed is None else seed)
 
     monkeypatch.setattr(np.random, "default_rng", seeded)
-    monkeypatch.setattr(jfastimg, "_load", lambda: None)
+    if request.param == "native":
+        assert jfastimg.available()
+    else:
+        monkeypatch.setattr(jfastimg, "_load", lambda: None)
+        patch_port_to_plain(monkeypatch)
+
+
+def patch_port_to_plain(monkeypatch):
+    """The port's transforms on their plain versions instead of the core."""
+    import PIL.Image
+
+    from dust3r_tpu_torch.datasets.utils import transforms
+    from dust3r_tpu_torch.utils import fastimg
+
+    monkeypatch.setattr(fastimg, "imgnorm", transforms.img_norm_ref)
+    monkeypatch.setattr(fastimg, "color_jitter_norm", lambda arr, ops, factors: (
+        transforms.color_jitter_norm_ref(PIL.Image.fromarray(arr), list(zip(ops, factors)))))
 
 
 def test_imread_equals_cv2(roots):
@@ -199,16 +219,23 @@ def _same_batch(got, want):
 
 def test_loader_workers_give_the_same_batches(roots):
     """Spawned workers and pinned memory (where there is a card) change
-    nothing in the batches."""
+    nothing in the batches, the main process having run the host image
+    core (ImgNorm) before the workers start and load it again."""
+    from dust3r_tpu_torch.utils import fastimg
+
     dsl = f"Co3d(split='train', ROOT='{roots['Co3d']}', resolution={RESOLUTIONS}, seed=3)"
     serial = tds.get_data_loader(dsl, batch_size=2, num_workers=0)
     workers = tds.get_data_loader(dsl, batch_size=2, num_workers=2)
     serial.set_epoch(2)
     workers.set_epoch(2)
+    before = fastimg.imgnorm.launches
+    iter_serial = iter(serial)
+    wants = [next(iter_serial) for _ in range(3)]
+    assert fastimg.imgnorm.launches - before == 3 * 2 * 2  # a call a view
     it = iter(workers)
     try:
         for n, got in enumerate(it):
-            want = next(iter_serial) if n else next(iter_serial := iter(serial))
+            want = wants[n]
             for g, w in zip(got, want):
                 for k in w:
                     if isinstance(w[k], torch.Tensor):

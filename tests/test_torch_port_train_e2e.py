@@ -28,7 +28,7 @@ ARCH = ("AsymmetricCroCo3DStereo(pos_embed='RoPE100', patch_embed_cls='ManyAR_Pa
         "landscape_only=True)")
 
 
-def _run(monkeypatch, root, out, epochs):
+def _run(monkeypatch, root, out, epochs, extra=()):
     argv = ["dust3r_tpu_torch.train", "--model", ARCH,
             "--train_dataset", f"8 @ Co3d(split='train', ROOT='{root}', resolution=[(64, 48), "
                                f"(64, 32)], seed=3, transform=ColorJitter, mask_bg='rand')",
@@ -36,7 +36,7 @@ def _run(monkeypatch, root, out, epochs):
                               f"seed=4)",
             "--batch_size", "2", "--accum_iter", "2", "--epochs", str(epochs),
             "--warmup_epochs", "1", "--lr", "1e-4", "--keep_freq", "1", "--print_freq", "1",
-            "--num_workers", "0", "--device", "cpu", "--output_dir", out]
+            "--num_workers", "0", "--device", "cpu", "--output_dir", out, *extra]
     monkeypatch.setattr(sys, "argv", argv)
     runpy.run_module("dust3r_tpu_torch.train", run_name="__main__")
 
@@ -82,6 +82,31 @@ def test_train_cli_cadence_resume_and_final(tmp_path, monkeypatch, capsys):
     final = _ckpt(out, "final")
     assert final["epoch"] == 3
     assert {int(s["step"]) for s in final["optimizer"]["state"].values()} == {3 * 2}
+
+
+def test_train_cli_remat_policies_train_alike(tmp_path, monkeypatch):
+    """`--remat 1 --remat_policy dots` trains through the CLI: one epoch
+    (ColorJitter's unseeded draws seeded alike) ends on `--remat 0`'s
+    weights bit for bit, the CPU's recompute being exact."""
+    import dust3r_tpu_torch.training as training
+
+    root = _write_co3d(str(tmp_path / "co3d"), 0)
+    built = []
+    real = training.build_model
+    monkeypatch.setattr(training, "build_model",
+                        lambda *a, **kw: built.append(kw) or real(*a, **kw))
+    orig = np.random.default_rng  # ColorJitter's unseeded draws, seeded alike in each run
+    monkeypatch.setattr(np.random, "default_rng",
+                        lambda seed=None: orig(1234 if seed is None else seed))
+    finals = {}
+    for tag, extra in (("none", ()), ("dots", ("--remat", "1", "--remat_policy", "dots"))):
+        out = str(tmp_path / tag)
+        _run(monkeypatch, root, out, 1, extra)
+        finals[tag] = _ckpt(out, "final")["model"]
+    assert [(kw["remat"], kw["remat_policy"]) for kw in built] == [(False, "full"),
+                                                                  (True, "dots")]
+    for k, v in finals["none"].items():
+        assert torch.equal(finals["dots"][k], v), k
 
 
 def test_train_on_the_nine_dataset_mix_with_a_test_set(tmp_path):

@@ -121,10 +121,12 @@ def test_training_forward_and_gradients_match_jax(name, manyar):
         assert np.abs(got.numpy() - w).max() <= 1e-5 * max(np.abs(w).max(), 1e-6), key
 
 
-@pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_remat_gives_the_same_gradients(name):
+@pytest.mark.parametrize("name,policy", [
+    *(pytest.param(name, "full", id=name) for name in sorted(CONFIGS)),
+    pytest.param("tiny_linear", "dots", id="tiny_linear-dots")])  # heads run outside remat
+def test_remat_gives_the_same_gradients(name, policy):
     name, _, variables, port = _models(name)
-    remat = _port(name, variables, remat=True)
+    remat = _port(name, variables, remat=True, remat_policy=policy)
     img1, img2, _, _ = _forward_inputs(4)
     grads = []
     for model in (port, remat):
@@ -132,6 +134,98 @@ def test_remat_gives_the_same_gradients(name):
         grads.append(torch.autograd.grad(_scalar(r1, r2, torch), list(model.parameters())))
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+
+
+def test_dots_remat_gradients_match_jax():
+    """The port's "dots" remat against JAX's TINY `remat=True,
+    remat_policy="dots"` (tests/test_scan_layers.py's case, on the per-layer
+    blocks): outputs and every gradient at
+    test_training_forward_and_gradients_match_jax's tolerance."""
+    name, _, variables, _ = _models("tiny_linear")
+    jmodel = JaxModel(**CONFIGS[name], attn_impl="ref", remat=True, remat_policy="dots")
+    port = _port(name, variables, remat=True, remat_policy="dots")
+    img1, img2, _, _ = _forward_inputs(5)
+
+    def scalar_and_outputs(params):
+        out = jmodel.apply({"params": params}, jnp.asarray(img1), jnp.asarray(img2),
+                           symmetrized=True)
+        return _scalar(*out, jnp), out
+
+    (_, (jr1, jr2)), jgrad = jax.jit(jax.value_and_grad(scalar_and_outputs, has_aux=True))(
+        variables["params"])
+    r1, r2 = port(torch.from_numpy(img1), torch.from_numpy(img2), symmetrized=True)
+    for key, ours, theirs in (("pts3d", r1, jr1), ("conf", r1, jr1), ("conf", r2, jr2),
+                              ("pts3d_in_other_view", r2, jr2)):
+        assert_model_close(ours[key].detach().numpy(), theirs[key])
+    names = dict(port.named_parameters())
+    grads = torch.autograd.grad(_scalar(r1, r2, torch), list(names.values()))
+    cfg = CONFIGS[name]
+    want = state_dict_from_jax({"params": jax.tree.map(np.asarray, jgrad)}, cfg["enc_depth"],
+                               cfg["dec_depth"], cfg["head_type"])
+    for (key, _), got in zip(names.items(), grads):
+        w = want[key].numpy()
+        assert np.abs(got.numpy() - w).max() <= 1e-5 * max(np.abs(w).max(), 1e-6), key
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dots_saves_the_block_gemms_and_nothing_else(dtype, monkeypatch):
+    """The policy's own record: an encoder block saves its four GEMM
+    outputs (qkv, proj, fc1, fc2), a decoder block its eight (qkv, proj,
+    projq, projk, projv, proj, fc1, fc2), in the body's dtype; the heads
+    and the rest of the model run outside remat. `--remat 0 --remat_policy
+    dots` is no remat: no block is checkpointed and nothing is recorded."""
+    import dust3r_tpu_torch.models.model as model_module
+
+    cfg = dict(CONFIGS["tiny_linear"], enc_depth=1, dec_depth=1)
+    B, (H, W) = 2, HW
+    n_enc, n_dec = 2 * B * (H // 16) * (W // 16), B * (H // 16) * (W // 16)
+    ce, cd = cfg["enc_embed_dim"], cfg["dec_embed_dim"]
+    calls = []
+    real = model_module.checkpoint
+    monkeypatch.setattr(model_module, "checkpoint",
+                        lambda *a, **kw: calls.append(kw) or real(*a, **kw))
+    img = torch.from_numpy(np.random.default_rng(0).standard_normal((B, H, W, 3),
+                                                                   dtype=np.float32))
+    for remat in (True, False):
+        calls.clear()
+        model = AsymmetricCroCo3DStereo(**cfg, device="cpu", dtype=dtype, remat=remat,
+                                        remat_policy="dots")
+        model.dots_policy.record = []
+        r1, r2 = model(img, img.flip(0))
+        record = list(model.dots_policy.record)
+        (r1["pts3d"].sum() + r2["conf"].sum()).backward()
+        assert model.dots_policy.record == record  # the recompute saves nothing more
+        if not remat:
+            assert calls == [] and record == []
+            continue
+        assert len(calls) == 3 and all("context_fn" in kw for kw in calls)
+        mm = "aten.addmm.default"
+        want = [(mm, (n_enc, 3 * ce), dtype), (mm, (n_enc, ce), dtype),
+                (mm, (n_enc, 4 * ce), dtype), (mm, (n_enc, ce), dtype)]
+        for _ in range(2):  # dec_blocks.0, then dec_blocks2.0
+            want += [(mm, (n_dec, 3 * cd), dtype)] + [(mm, (n_dec, cd), dtype)] * 5 + [
+                (mm, (n_dec, 4 * cd), dtype), (mm, (n_dec, cd), dtype)]
+        assert record == want
+        assert all(p.grad is not None for p in model.parameters())
+
+
+def test_scan_layout_bridges_to_the_port():
+    """A JAX TINY model built with scan_layers=True (its blocks stacked),
+    seeded: the port loaded from its stacked tree gives its forward."""
+    cfg = CONFIGS["tiny_linear"]
+    jmodel = JaxModel(**cfg, attn_impl="ref", scan_layers=True)
+    variables = seeded_variables(jmodel, 23, HW)
+    assert "enc_blocks_scan" in variables["params"]
+    port = AsymmetricCroCo3DStereo(**cfg, device="cpu")
+    port.load_state_dict(state_dict_from_jax(variables, cfg["enc_depth"], cfg["dec_depth"],
+                                             cfg["head_type"]), strict=True)
+    img1, img2, _, _ = _forward_inputs(6)
+    jr1, jr2 = jmodel.apply(variables, jnp.asarray(img1), jnp.asarray(img2))
+    with torch.no_grad():
+        r1, r2 = port(torch.from_numpy(img1), torch.from_numpy(img2))
+    for key, ours, theirs in (("pts3d", r1, jr1), ("conf", r1, jr1), ("conf", r2, jr2),
+                              ("pts3d_in_other_view", r2, jr2)):
+        assert_model_close(ours[key].numpy(), theirs[key])
 
 
 # ---------------------------------------------------------------------- #

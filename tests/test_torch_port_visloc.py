@@ -4,10 +4,9 @@ Each ported function is held to its JAX counterpart on the same seeded
 inputs: the bucket table and the resize plumbing (exact), COLMAP and
 pairsfile parsing (equal dicts), the LTVL export and the stats line (byte
 for byte), the intrinsics converters and the reciprocal matches (exact),
-`ImgNorm` (the numpy formula bit for bit; the JAX one, which goes
-through the native image core where it is built, within 2^-23, one fp32
-ulp at 1: `x * (2 / 255) - 1` rounds otherwise than `(x / 255 - 0.5) /
-0.5`). `run_pnp`'s numpy solver is held to the JAX
+`ImgNorm` (the JAX one bit for bit, both through their native image
+core; the numpy formula within 2^-23, one fp32 ulp at 1: `x * (2 / 255) -
+1` rounds otherwise than `(x / 255 - 0.5) / 0.5`). `run_pnp`'s numpy solver is held to the JAX
 `run_pnp` (cv2's undistortPoints + solvePnPRansac(SQPNP)): on exact
 correspondences, in general position and on a plane, with and without
 k1, the pose within 1e-5 of JAX's; with 1 px noise and 30 % outliers over
@@ -201,17 +200,21 @@ def test_intrinsics_and_reciprocal_matches_match_jax():
 
 
 def test_imgnorm_matches_jax():
-    """Every uint8 value and a seeded image: the numpy formula (the JAX
-    package's fallback) bit for bit; the JAX ImgNorm (the native core where
-    built) within one fp32 ulp at 1; PIL and float input as JAX takes them."""
+    """Every uint8 value and a seeded image: the JAX ImgNorm (the native
+    core, built here) bit for bit, both on their host image core; the
+    numpy formula (the JAX package's fallback, the port's `img_norm_ref`)
+    within one fp32 ulp at 1; PIL and float input as JAX takes them."""
+    from dust3r_tpu_torch.datasets.utils.transforms import img_norm_ref
+
     rng = np.random.default_rng(6)
     img = np.concatenate([np.arange(256, dtype=np.uint8).repeat(3).reshape(16, 16, 3),
                           rng.integers(0, 256, (16, 16, 3), dtype=np.uint8)])
     got = ImgNorm(img)
     assert got.dtype == np.float32 and got.shape == img.shape
-    assert_same(got, (img.astype(np.float32) / 255.0 - 0.5) / 0.5)
-    want = jImgNorm(img)
-    assert np.abs(got - want).max() <= 2.0 ** -23
+    assert_same(got, jImgNorm(img))
+    formula = (img.astype(np.float32) / 255.0 - 0.5) / 0.5
+    assert_same(img_norm_ref(img), formula)
+    assert np.abs(got - formula).max() <= 2.0 ** -23
     assert_same(ImgNorm(PIL.Image.fromarray(img)), got)
     f = rng.uniform(0, 255, (8, 8, 3)).astype(np.float32)
     assert_same(ImgNorm(f), jImgNorm(f))

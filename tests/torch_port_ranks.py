@@ -69,7 +69,8 @@ def train_runs(rank, world_size, device, args, epochs):
 def sharded_steps(rank, world_size, device, cases, cfg, state_dict, epochs_f, criterion):
     """`training.train_step` on the model `parallel.mesh.shard_params`
     sharded over a (data, fsdp, model) mesh, over gloo, for each case
-    (dims, spec_kw, groups_of_data) of `cases` in turn, each from
+    (dims, spec_kw, groups_of_data, model_kw) of `cases` in turn (model_kw:
+    more arguments of the model, e.g. its remat policy), each from
     `state_dict`: one step a group of this rank's data index's loader
     batches (`groups_of_data[data index]`). Returns, for each case, each
     step's metrics, the local shapes and placements of every parameter,
@@ -80,9 +81,9 @@ def sharded_steps(rank, world_size, device, cases, cfg, state_dict, epochs_f, cr
     init_distributed_mode("gloo")
     crit = build_criterion(criterion)
     out = []
-    for dims, spec_kw, groups_of_data in cases:
+    for dims, spec_kw, groups_of_data, model_kw in cases:
         mesh = train_mesh(*dims, device.type)
-        model = AsymmetricCroCo3DStereo(**cfg, device=device)
+        model = AsymmetricCroCo3DStereo(**cfg, device=device, **model_kw)
         model.load_state_dict(state_dict, strict=True)
         shard_params(mesh, model)
         spec = training.TrainSpec(**spec_kw)
